@@ -57,3 +57,97 @@ def test_bf16_bound_rejects_wrong_versions(causal, control):
     mag = flash_attention_plain(q, k, v.abs(), causal=causal, **BASE)
     stats = bf16_agreement(wrong, plain, mag)
     assert not bf16_agrees(stats), stats
+
+
+# ---------------------------------------------------------------------------
+# flash_decode and the SSD scan: kernel-like versions (the same function in
+# fp32 in another order, rounded to bf16 once, as both sm_90a kernels do)
+# must agree with the plain version; wrong versions must not.
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import flash_decode as fd          # noqa: E402
+from repro_torch.kernels import ssd as ssd_mod               # noqa: E402
+from repro_torch.kernels.ref import (decode_reference,       # noqa: E402
+                                     ssd_chunked_reference, ssd_reference)
+
+DEC_B, DEC_HQ, DEC_HKV, DEC_L, DEC_D = 4, 32, 8, 4096, 128   # the served shape
+
+
+def _decode_inputs(seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(torch.bfloat16)
+               for s in ((DEC_B, DEC_HQ, DEC_D), (DEC_B, DEC_HKV, DEC_L, DEC_D),
+                         (DEC_B, DEC_HKV, DEC_L, DEC_D)))
+    vl = torch.tensor([1, 1000, 2047, 2080], dtype=torch.int32)
+    return q, k, v, vl
+
+
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_decode_bf16_bound_accepts_another_order(softcap):
+    q, k, v, vl = _decode_inputs(4)
+    kw = dict(softcap=softcap)
+    plain = fd.flash_decode_plain(q, k, v, vl, **kw)
+    mag = fd.flash_decode_plain(q, k, v.abs(), vl, **kw)
+    other = decode_reference(q, k, v, vl, softcap=softcap)   # one softmax, fp32
+    stats = fd.bf16_agreement(other, plain, mag)
+    assert fd.bf16_agrees(stats), stats
+
+
+def test_decode_bf16_bound_rejects_a_dropped_key():
+    q, k, v, vl = _decode_inputs(4)
+    plain = fd.flash_decode_plain(q, k, v, vl)
+    mag = fd.flash_decode_plain(q, k, v.abs(), vl)
+    wrong = fd.flash_decode_plain(q, k, v, (vl - 1).clamp_min(1))
+    stats = fd.bf16_agreement(wrong, plain, mag)
+    assert not fd.bf16_agrees(stats), stats
+
+
+SSD_B, SSD_L, SSD_H, SSD_P, SSD_N, SSD_Q = 1, 1000, 8, 64, 16, 256
+
+
+def ssd_inputs(seed, B=SSD_B, L=SSD_L, H=SSD_H, P=SSD_P, N=SSD_N):
+    """bf16 x, B, C at Jamba's (P, N); Mamba-2's dt range (log-uniform in
+    [1e-3, 1e-1]) and Jamba's A = -linspace(1, 16), so the state carries
+    across chunks."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(B, L, H, P)).astype(np.float32))
+    dt = torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (B, L, H)))
+                          .astype(np.float32))
+    A = -torch.linspace(1.0, 16.0, H)
+    Bm, Cm = (torch.from_numpy(rng.normal(size=(B, L, 1, N)).astype(np.float32))
+              for _ in range(2))
+    return x.to(torch.bfloat16), dt, A, Bm.to(torch.bfloat16), Cm.to(torch.bfloat16)
+
+
+def ssd_state_rounded(x, dt, A, Bm, Cm, chunk):
+    """A wrong SSD: the carried state rounded to bf16 between chunks."""
+    ys, st = [], None
+    for c0 in range(0, x.shape[1], chunk):
+        sl = slice(c0, c0 + chunk)
+        y, st = ssd_chunked_reference(x[:, sl], dt[:, sl], A, Bm[:, sl], Cm[:, sl],
+                                      chunk=min(chunk, x.shape[1] - c0), init_state=st)
+        st = st.to(torch.bfloat16).float()
+        ys.append(y)
+    return torch.cat(ys, dim=1), st
+
+
+def _ssd_plain(x, dt, A, Bm, Cm):
+    y, st = ssd_mod.ssd_chunked_plain(x, dt, A, Bm, Cm, chunk=SSD_Q)
+    mag, _ = ssd_mod.ssd_chunked_plain(x.abs(), dt, A, Bm.abs(), Cm.abs(), chunk=SSD_Q)
+    return y, st, mag
+
+
+def test_ssd_bf16_bound_accepts_another_order():
+    x, dt, A, Bm, Cm = ssd_inputs(6)
+    y, st, mag = _ssd_plain(x, dt, A, Bm, Cm)
+    oy, ost = ssd_reference(x, dt, A, Bm, Cm)            # the sequential recurrence
+    stats = ssd_mod.bf16_agreement(oy, ost, y, st, mag)
+    assert ssd_mod.bf16_agrees(stats), stats
+
+
+def test_ssd_bf16_bound_rejects_a_state_rounded_between_chunks():
+    x, dt, A, Bm, Cm = ssd_inputs(6)
+    y, st, mag = _ssd_plain(x, dt, A, Bm, Cm)
+    wy, wst = ssd_state_rounded(x, dt, A, Bm, Cm, SSD_Q)
+    stats = ssd_mod.bf16_agreement(wy, wst, y, st, mag)
+    assert not ssd_mod.bf16_agrees(stats), stats

@@ -73,7 +73,12 @@ def test_resume_continues_the_lineage(tmp_path):
 
 def test_import_pulls_in_no_jax_and_no_reference_package():
     code = ("import sys, repro_torch.core.evolution, repro_torch.evolve, "
-            "repro_torch.kernels.flash_attention, repro_torch.kernels._build; "
+            "repro_torch.kernels.flash_attention, repro_torch.kernels._build, "
+            "repro_torch.kernels.flash_decode, repro_torch.kernels.ssd, "
+            "repro_torch.kernels.ops, repro_torch.kernels.ref, "
+            "repro_torch.configs, repro_torch.configs.registry, "
+            "repro_torch.models, repro_torch.models.convert, "
+            "repro_torch.launch.serve, repro_torch.serve; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')); print(bad)")
