@@ -11,13 +11,14 @@ Phases, each printing JSON lines (any failure exits non-zero):
   kernel         flash_attention vs its plain PyTorch version and vs the
                  oracle: every combination of the six non-block genome axes
                  x 3 block pairs on the gate's fp32 proxy shapes, bf16 at
-                 every mha_suite shape (with two wrong versions the bf16
-                 bound must reject), and the gate's verdicts through kernel
-                 and plain version
-  decode_kernel  flash_decode vs its plain version: fp32 over rep, head_dim,
-                 ragged L, per-sequence valid_len and softcap; bf16 at the
-                 served Jamba shape under its bounds, with a wrong version
-                 (valid_len - 1) the bounds must reject
+                 every mha_suite shape through the wgmma body (with two
+                 wrong versions the bf16 bound must reject), and the gate's
+                 verdicts through kernel and plain version
+  decode_kernel  flash_decode vs its plain version walking the same splits:
+                 fp32 over split count, rep, head_dim, ragged L,
+                 per-sequence valid_len and softcap; bf16 at the served
+                 Jamba shape under its bounds at several split counts, with
+                 a wrong version (valid_len - 1) the bounds must reject
   ssd_kernel     ssd_chunked vs its plain version: fp32 over (P, N), chunk,
                  ragged L and H; bf16 at the served Jamba shape
                  under its bounds, with a wrong version (the state rounded to
@@ -34,8 +35,12 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  no kernel; both again with the MoE routing frozen to the
                  plain path's); reduced Jamba's tokens on the card
                  must equal the CPU reference path's
-  times          flash_attention (seed and best genome at every mha_suite
-                 shape, and the served prefill shape), flash_decode and
+  times          flash_attention's wgmma body against its mma_sync body, in
+                 turns (mma_sync, wgmma, wgmma, mma_sync), for the seed, a
+                 fixed pipelined genome and the search's best at every
+                 mha_suite shape, and at the served prefill; flash_decode
+                 (one split against the wrapper's split count, in turns, and
+                 a sweep of split counts) and
                  ssd_chunked at the served shapes: kernel ms, bound ms, plain
                  ms, and a library yardstick where one PyTorch call computes
                  the same function
@@ -66,6 +71,8 @@ TOL_SSD_F32 = 2e-5          # SSD kernel vs plain, fp32: relative to max |y|
 SERVE_ARCH, SERVE_LAYERS = "jamba-v0.1-52b", 16
 SERVE_BATCH, SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 4, 8, 32, 4096
 SERVE_PROMPT = (1000, 2049)         # prompt lengths drawn in [lo, hi)
+DECODE_SPLITS = (1, 2, 3, 5, 8, None)   # None: the wrapper's split count
+DECODE_SWEEP = (2, 3, 5, 8, 9, 10, 16)  # split counts timed at the served shape
 TEACHER_STEPS = 8                   # decode steps of the teacher-forced reading
 PROFILE_NEW = 4                     # new tokens of the profiled pass
 
@@ -94,6 +101,31 @@ BF16_GENOMES_SMALL = [
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def reset_counts(*kernels) -> None:
+    """Zero the launch counts of the given kernel wrappers (and
+    flash_attention's counts by body) before a path is driven."""
+    for fn in kernels:
+        fn.launches = 0
+        if hasattr(fn, "launches_by_body"):
+            fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)
+
+
+def fa_launch(q, k, v, causal, genome, body):
+    """One flash_attention launch; ``body="mma_sync"`` forces the mma.sync
+    body for the A/B timing, None takes the routed one."""
+    from repro_torch.kernels import flash_attention as fa
+    return fa._launch(q, k, v, causal=causal, window=None, softcap=0.0, scale=None,
+                      body=body, **genome)
+
+
+def in_turns(time_fn, a, b) -> dict:
+    """Time a, b, b, a in one call; each side's two readings and their mean."""
+    got = {a: [], b: []}
+    for side in (a, b, b, a):
+        got[side].append(time_fn(side))
+    return {side: {"ms": sum(t) / len(t), "readings": t} for side, t in got.items()}
 
 
 def nvidia_smi() -> str:
@@ -156,6 +188,7 @@ def _full_width_bf16() -> float:
     bounds = {"bound_atol": BF16_ATOL, "bound_rtol_of_magnitude": BF16_RTOL,
               "bound_rel_rms": BF16_REL_RMS, "bound_row_rel_rms": BF16_ROW_REL_RMS}
     worst, faults = 0.0, []
+    wgmma_before, checked = flash_attention.launches_by_body["wgmma"], 0
     for cfg in mha_suite():
         q, k, v = full_shape_inputs(cfg, torch.device("cuda"), 0)
         small, good = cfg.name == "mha_causal_s4096", None
@@ -163,9 +196,10 @@ def _full_width_bf16() -> float:
                                     **BF16_GENOMES[0])
         for kw in BF16_GENOMES + (BF16_GENOMES_SMALL if small else []):
             o = flash_attention(q, k, v, causal=cfg.causal, impl="kernel", **kw)
+            checked += 1
             p = flash_attention_plain(q, k, v, causal=cfg.causal, **kw)
             st = bf16_agreement(o, p, mag)
-            emit({"phase": "kernel", "check": "full_width_bf16",
+            emit({"phase": "kernel", "check": "full_width_bf16", "body": "wgmma",
                   "config": cfg.name, "genome": kw, **st, **bounds})
             worst = max(worst, st["max_abs_err"])
             if not bf16_agrees(st):
@@ -187,6 +221,10 @@ def _full_width_bf16() -> float:
                     faults.append(f"the bf16 bound let the control {name} pass: {st}")
         del q, k, v, good, mag
         torch.cuda.empty_cache()
+    grew = flash_attention.launches_by_body["wgmma"] - wgmma_before
+    if grew != checked:
+        faults.append(f"{checked} bf16 launches at head_dim 128, but the wgmma body "
+                      f"took {grew}")
     if faults:
         raise AssertionError("\n".join(faults))
     return worst
@@ -322,8 +360,9 @@ def attention_bound(B, Hq, Hkv, S, D, esize=2) -> tuple:
 
 
 def phase_decode_kernel(state):
-    """flash_decode against its plain version: fp32 over the axes, bf16 at
-    the served shape under its bounds, and a wrong version that must fail."""
+    """flash_decode against its plain version walking the same splits: fp32
+    over the axes, bf16 at the served shape under its bounds at several
+    split counts, and a wrong version that must fail."""
     import itertools
 
     import numpy as np
@@ -342,14 +381,17 @@ def phase_decode_kernel(state):
                           ((B, rep * Hkv, D), (B, Hkv, L, D), (B, Hkv, L, D))))
         vl = torch.tensor([1, int(rng.integers(1, L + 1)), L], dtype=torch.int32,
                           device="cuda")
-        kw = dict(softcap=softcap)
-        out = fd.flash_decode(q, k, v, vl, impl="kernel", **kw)
-        plain = fd.flash_decode_plain(q, k, v, vl, **kw)
         ref = decode_reference(q, k, v, vl, softcap=softcap)
-        worst_plain = max(worst_plain, float((out - plain).abs().max()))
-        worst_ref = max(worst_ref, float((out - ref).abs().max()))
-        n += 1
+        for splits in DECODE_SPLITS:
+            kw = dict(softcap=softcap)
+            out = fd.flash_decode(q, k, v, vl, impl="kernel", splits=splits, **kw)
+            plain = fd.flash_decode_plain(q, k, v, vl, splits=splits or fd.kernel_splits(q, k),
+                                          **kw)
+            worst_plain = max(worst_plain, float((out - plain).abs().max()))
+            worst_ref = max(worst_ref, float((out - ref).abs().max()))
+            n += 1
     emit({"phase": "decode_kernel", "check": "fp32_grid", "cases": n,
+          "splits": [s or "wrapper's" for s in DECODE_SPLITS],
           "max_abs_err_vs_plain": worst_plain, "max_abs_err_vs_reference": worst_ref,
           "tol": TOL_F32})
 
@@ -359,21 +401,24 @@ def phase_decode_kernel(state):
     q, k, v = (torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
                for s in ((B, Hq, D), (B, Hkv, L, D), (B, Hkv, L, D)))
     vl = torch.tensor([1043, 1569, 2048, 2079], dtype=torch.int32, device="cuda")
+    auto = fd.kernel_splits(q, k)
     bounds = {"bound_atol": fd.BF16_ATOL, "bound_rtol_of_magnitude": fd.BF16_RTOL,
               "bound_rel_rms": fd.BF16_REL_RMS, "bound_row_rel_rms": fd.BF16_ROW_REL_RMS}
     verdicts, worst_bf16 = [], 0.0
     for softcap in (0.0, 50.0):
-        kw = dict(softcap=softcap)
-        plain = fd.flash_decode_plain(q, k, v, vl, **kw)
-        mag = fd.flash_decode_plain(q, k, v.abs(), vl, **kw)
-        st = fd.bf16_agreement(fd.flash_decode(q, k, v, vl, impl="kernel", **kw),
-                               plain, mag)
-        emit({"phase": "decode_kernel", "check": "served_bf16", "softcap": softcap,
-              **st, **bounds})
-        worst_bf16 = max(worst_bf16, st["max_abs_err"])
-        verdicts.append(("kernel", softcap, fd.bf16_agrees(st), True))
-        wrong = fd.flash_decode_plain(q, k, v, vl - 1, **kw)
-        st = fd.bf16_agreement(wrong, plain, mag)
+        for splits in (auto, 1, 3, 8):
+            kw = dict(softcap=softcap, splits=splits)
+            plain = fd.flash_decode_plain(q, k, v, vl, **kw)
+            mag = fd.flash_decode_plain(q, k, v.abs(), vl, **kw)
+            st = fd.bf16_agreement(fd.flash_decode(q, k, v, vl, impl="kernel", **kw),
+                                   plain, mag)
+            emit({"phase": "decode_kernel", "check": "served_bf16", "softcap": softcap,
+                  "splits": splits, "wrapper_splits": splits == auto, **st, **bounds})
+            worst_bf16 = max(worst_bf16, st["max_abs_err"])
+            verdicts.append((f"kernel, {splits} splits", softcap, fd.bf16_agrees(st), True))
+        wrong = fd.flash_decode_plain(q, k, v, vl - 1, softcap=softcap)
+        st = fd.bf16_agreement(wrong, fd.flash_decode_plain(q, k, v, vl, softcap=softcap),
+                               fd.flash_decode_plain(q, k, v.abs(), vl, softcap=softcap))
         emit({"phase": "decode_kernel", "check": "served_bf16_control",
               "control": "valid_len-1", "softcap": softcap, **st, **bounds})
         verdicts.append(("valid_len-1", softcap, fd.bf16_agrees(st), False))
@@ -384,6 +429,7 @@ def phase_decode_kernel(state):
     if faults:
         raise AssertionError("flash_decode: " + "; ".join(faults))
     state["decode_err"] = max(worst_plain, worst_bf16)
+    state["decode_splits"] = auto
 
 
 def ssd_inputs(gen, B, L, H, P, N, dtype, A=None):
@@ -596,10 +642,10 @@ def _profile_group(server, group):
                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                       key=lambda r: -r[1])
         device_ms[new] = sum(r[1] for r in rows)
-        ours = {name: sum(ms for key, ms, _ in rows if tag in key)
-                for name, tag in (("flash_attention", "fa_fwd"),
-                                  ("flash_decode", "decode_kernel"),
-                                  ("ssd_chunked", "ssd_kernel"))}
+        ours = {name: sum(ms for key, ms, _ in rows if any(t in key for t in tags))
+                for name, tags in (("flash_attention", ("fa_fwd",)),
+                                   ("flash_decode", ("decode_split", "decode_combine")),
+                                   ("ssd_chunked", ("ssd_kernel",)))}
         t = server.timings[-1]
         line = {"phase": "serve", "check": "profile", "gate": False, "new_tokens": new,
                 "prompt_len": t["prompt_len"], "wall_ms": wall_ms,
@@ -661,8 +707,7 @@ def phase_serve(state):
     kernels = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
                "ssd_chunked": sm.ssd_chunked}
     torch.cuda.synchronize()
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts(*kernels.values())
     t0 = time.perf_counter()
     with ops.checking(lambda name, st: checks[name].append(st)):
         server.run_group(groups[0])              # every launch held against plain
@@ -671,6 +716,7 @@ def phase_serve(state):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
+    by_body = dict(fa.flash_attention.launches_by_body)
 
     n_attn = sum(b.kind == "attn" for b in cfg.pattern) * cfg.n_periods
     n_mamba = sum(b.kind == "mamba" for b in cfg.pattern) * cfg.n_periods
@@ -692,6 +738,9 @@ def phase_serve(state):
         faults.append(f"{steps} decode steps, expected {len(groups) * (SERVE_NEW - 1)}")
     if launches != expected:
         faults.append(f"launches {launches}, the path implies {expected}")
+    if by_body["wgmma"] != launches["flash_attention"]:
+        faults.append(f"flash_attention launches by body {by_body}: the served bf16 "
+                      f"prefill at head_dim 128 must take the wgmma body")
     for r in reqs:
         if len(r.output) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in r.output):
             faults.append(f"request {r.rid} output {r.output}")
@@ -710,7 +759,7 @@ def phase_serve(state):
     emit({"phase": "serve", "summary": True, "requests": len(reqs),
           "new_tokens": total_new, "wall_s": wall, "weights_gib": weights_gib,
           "init_s": init_s, "peak_gib": peak_gib, "launches": launches,
-          "launches_expected": expected,
+          "launches_expected": expected, "flash_attention_launches_by_body": by_body,
           "launches_per_prefill": {k: v // len(groups) for k, v in launches.items()
                                    if k != "flash_decode"},
           "flash_decode_per_step": launches["flash_decode"] / steps,
@@ -726,8 +775,8 @@ def phase_serve(state):
                                         impl, ref_impl, freeze)
         emit({"phase": "serve", "check": f"teacher_forced_{name}", "gate": False,
               "steps": rows, "routing": routing})
-    state["serve"] = {"launches": launches, "prompt_lens": [t["prompt_len"] for t in
-                                                            server.timings],
+    state["serve"] = {"launches": launches, "by_body": by_body,
+                      "prompt_lens": [t["prompt_len"] for t in server.timings],
                       "timings": server.timings}
     del params, server
     torch.cuda.empty_cache()
@@ -768,7 +817,7 @@ def phase_evolve(state):
     for cfg in scorer.suite:           # set-up: inputs made before the clock
         scorer.full_inputs(cfg)
     torch.cuda.synchronize()
-    flash_attention.launches = 0
+    reset_counts(flash_attention)
     t_all = time.perf_counter()
     step = 0
     while scorer.n_evaluations < EVOLVE_EVALS and step < 3 * EVOLVE_EVALS:
@@ -783,34 +832,43 @@ def phase_evolve(state):
               "note": evo.island.traces[-1]["note"][:80]})
         step += 1
     launches = flash_attention.launches
+    by_body = dict(flash_attention.launches_by_body)
     wall = time.perf_counter() - t_all
     best = evo.lineage.best()
     if launches <= 0:
         raise AssertionError("the evolution never launched the kernel")
+    if by_body["wgmma"] <= 0:
+        raise AssertionError(f"the measured rung never took the wgmma body: {by_body}")
     for c in evo.lineage.commits:
         if not all(v > 0 and v == v for v in c.values):
             raise AssertionError(f"commit {c.version} has a non-positive value")
     emit({"phase": "evolve", "summary": True, "steps": step,
           "paid_evals": scorer.n_evaluations, "commits": len(evo.lineage),
-          "launches": launches, "launches_per_eval": launches / scorer.n_evaluations,
+          "launches": launches, "launches_by_body": by_body,
+          "launches_per_eval": launches / scorer.n_evaluations,
           "wall_s": wall, "best_tflops": best.geomean,
           "best_values": list(best.values), "best_genome": best.genome.kernel_kwargs()})
-    state.update(launches=launches, best=best.genome,
+    state.update(launches=launches, best=best.genome, evolve_by_body=by_body,
                  per_eval=launches / scorer.n_evaluations)
     evo.close()
 
 
 def phase_times(state):
+    """flash_attention at every mha_suite shape for three genomes: the
+    wgmma body against the mma_sync body in turns, the plain version at the
+    smallest shape, and cuDNN's and FlashAttention's SDPA as yardsticks."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.core.evals.scorer import full_shape_inputs, time_cuda_ms
     from repro_torch.core.perfmodel import mha_suite, useful_flops
     from repro_torch.core.search_space import seed_genome
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.ops import DEFAULT_ATTN_GENOME
 
-    genomes = {"seed": seed_genome(), "best": state.get("best", seed_genome())}
+    genomes = {"seed": seed_genome().kernel_kwargs(),
+               "pipelined": dict(DEFAULT_ATTN_GENOME, gqa_pack=False),
+               "best": state.get("best", seed_genome()).kernel_kwargs()}
     rows = []
     for cfg in mha_suite():
         q, k, v = full_shape_inputs(cfg, torch.device("cuda"), 0)
@@ -826,12 +884,16 @@ def phase_times(state):
                 lib[name] = None
                 lib[name + "_error"] = str(e)[:160]
         b_ms, b_by = bound(cfg)
-        for tag, g in genomes.items():
-            kw = g.kernel_kwargs()
-            ms = time_cuda_ms(lambda: flash_attention(
-                q, k, v, causal=cfg.causal, impl="kernel", **kw), reps=5)
-            row = {"phase": "times", "config": cfg.name, "genome": tag,
+        for tag, kw in genomes.items():
+            t = in_turns(lambda body: time_cuda_ms(lambda: fa_launch(
+                q, k, v, cfg.causal, kw, None if body == "wgmma" else body), reps=5),
+                "mma_sync", "wgmma")
+            ms = t["wgmma"]["ms"]
+            row = {"phase": "times", "config": cfg.name, "genome": tag, "kernel_kwargs": kw,
                    "ms": ms, "tflops": useful_flops(cfg) / (ms * 1e-3) / 1e12,
+                   "readings": t["wgmma"]["readings"], "mma_sync_ms": t["mma_sync"]["ms"],
+                   "mma_sync_readings": t["mma_sync"]["readings"],
+                   "speedup_vs_mma_sync": t["mma_sync"]["ms"] / ms,
                    "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms_cudnn": lib["cudnn"],
                    "library_ms_flash": lib["flash"], "plain_ms": None}
@@ -843,6 +905,10 @@ def phase_times(state):
             rows.append(row)
         del q, k, v
         torch.cuda.empty_cache()
+    slower = [f"{r['config']} ({r['genome']})" for r in rows
+              if r["genome"] == "pipelined" and r["ms"] >= r["mma_sync_ms"]]
+    emit({"phase": "times", "check": "wgmma_vs_mma_sync_pipelined", "gate": False,
+          "shapes": len(mha_suite()), "wgmma_slower_at": slower})
     state["times"] = rows
     _served_times(state)
 
@@ -850,7 +916,9 @@ def phase_times(state):
 def _served_times(state):
     """The three kernels at the served Jamba shapes (the first group's prompt
     length when the serve phase ran): kernel ms, bound, plain ms (one run),
-    and a library yardstick where one PyTorch call computes the function."""
+    and a library yardstick where one PyTorch call computes the function.
+    flash_attention's two bodies and flash_decode's one split against the
+    wrapper's split count are timed in turns."""
     import torch
     import torch.nn.functional as F
 
@@ -876,14 +944,17 @@ def _served_times(state):
     q = torch.randn((B, Hq, S, D), generator=g, device="cuda").to(torch.bfloat16)
     k, v = (torch.randn((B, Hkv, S, D), generator=g, device="cuda").to(torch.bfloat16)
             for _ in range(2))
-    kw = dict(causal=True, **DEFAULT_ATTN_GENOME)
+    kw = dict(DEFAULT_ATTN_GENOME, gqa_pack=False)
     b_ms, b_by = attention_bound(B, Hq, Hkv, S, D)
     lib, err = yardstick(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))
+    t = in_turns(lambda body: time_cuda_ms(lambda: fa_launch(
+        q, k, v, True, kw, None if body == "wgmma" else body), reps=5), "mma_sync", "wgmma")
     out["flash_attention"] = {
         "shape": f"q ({B}, {Hq}, {S}, {D}), k/v ({B}, {Hkv}, {S}, {D}) bf16, causal",
-        "ms": time_cuda_ms(lambda: fa.flash_attention(q, k, v, impl="kernel", **kw), reps=5),
-        "plain_ms": time_cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+        "ms": t["wgmma"]["ms"], "readings": t["wgmma"]["readings"],
+        "mma_sync_ms": t["mma_sync"]["ms"], "mma_sync_readings": t["mma_sync"]["readings"],
+        "plain_ms": time_cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True, **kw),
                                  warmup=1, reps=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "library": "sdpa",
         "library_error": err}
@@ -904,10 +975,18 @@ def _served_times(state):
             q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
     except (RuntimeError, TypeError) as e:
         err = str(e)[:160]
+    splits = fd.kernel_splits(q, k)
+    t = in_turns(lambda n: time_cold_ms(lambda: fd.flash_decode(
+        q, k, v, vl, impl="kernel", splits=n)), 1, splits)
+    sweep = {n: time_cold_ms(lambda: fd.flash_decode(q, k, v, vl, impl="kernel", splits=n))
+             for n in DECODE_SWEEP}
+    emit({"phase": "times", "check": "flash_decode_split_sweep", "gate": False,
+          "wrapper_splits": splits, "ms_by_splits": sweep})
     out["flash_decode"] = {
         "shape": f"q ({B}, {Hq}, {D}), cache ({B}, {Hkv}, {L}, {D}) bf16, valid_len {valid[0]}",
-        "ms": time_cold_ms(lambda: fd.flash_decode(q, k, v, vl, impl="kernel")),
-        "plain_ms": time_cuda_ms(lambda: fd.flash_decode_plain(q, k, v, vl),
+        "splits": splits, "ms": t[splits]["ms"], "readings": t[splits]["readings"],
+        "one_split_ms": t[1]["ms"], "one_split_readings": t[1]["readings"],
+        "plain_ms": time_cuda_ms(lambda: fd.flash_decode_plain(q, k, v, vl, splits=splits),
                                  warmup=1, reps=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
         "library": "sdpa over the cache, valid_len mask, L2 flushed", "library_error": err}
@@ -933,13 +1012,15 @@ def _served_times(state):
 
 
 def phase_kernels(state):
-    rows = [r for r in state.get("times", []) if r["genome"] == "best"
-            and r["config"] == "mha_causal_s4096"]
-    r = rows[0] if rows else {}
+    times = {(r["config"], r["genome"]): r for r in state.get("times", [])}
+    r = times.get(("mha_causal_s4096", "pipelined"), {})
+    best = times.get(("mha_causal_s4096", "best"), {})
+    seed = times.get(("mha_causal_s4096", "seed"), {})
     lib = [x for x in (r.get("library_ms_cudnn"), r.get("library_ms_flash"))
            if x is not None]
     served = state.get("served_times", {})
-    serve_launches = state.get("serve", {}).get("launches", {})
+    serve = state.get("serve", {})
+    serve_launches = serve.get("launches", {})
     serve_err = state.get("serve_err", {})
     fa_serve = served.get("flash_attention", {})
     entries = [{
@@ -949,19 +1030,25 @@ def phase_kernels(state):
         "launches": state.get("launches", 0) + serve_launches.get("flash_attention", 0),
         "launches_by_path": {"evolve": state.get("launches", 0),
                              "serve": serve_launches.get("flash_attention", 0)},
+        "launches_by_body": {"evolve": state.get("evolve_by_body"),
+                             "serve": serve.get("by_body")},
         "launches_per_eval": state.get("per_eval"),
         "max_abs_err": state.get("max_abs_err"),
-        "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+        "ms": r.get("ms"), "mma_sync_ms": r.get("mma_sync_ms"),
+        "best_genome_ms": best.get("ms"), "best_genome_mma_sync_ms": best.get("mma_sync_ms"),
+        "seed_genome_ms": seed.get("ms"), "seed_genome_mma_sync_ms": seed.get("mma_sync_ms"),
+        "plain_ms": r.get("plain_ms"),
         "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
         "library_ms": min(lib) if lib else None,
-        "shape": "mha_causal_s4096 (B=8, H=16, S=4096, D=128, bf16), best genome",
+        "shape": "mha_causal_s4096 (B=8, H=16, S=4096, D=128, bf16), the pipelined "
+                 "genome (DEFAULT_ATTN_GENOME); wgmma body, mma_sync body beside it",
         "served": fa_serve}]
     for name, src, replaces, err in (
             ("flash_decode", "flash_decode.cu", "src/repro/kernels/flash_decode.py:67",
              state.get("decode_err")),
             ("ssd_chunked", "ssd.cu", "src/repro/kernels/ssd.py:73", state.get("ssd_err"))):
         t = served.get(name, {})
-        entries.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
             "launches": serve_launches.get(name, 0),
@@ -969,7 +1056,11 @@ def phase_kernels(state):
             "max_abs_err": err, "max_abs_err_served_bf16": serve_err.get(name),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
-            "library_ms": t.get("library_ms"), "shape": t.get("shape")})
+            "library_ms": t.get("library_ms"), "shape": t.get("shape")}
+        if name == "flash_decode":
+            entry.update(splits=t.get("splits", state.get("decode_splits")),
+                         one_split_ms=t.get("one_split_ms"))
+        entries.append(entry)
     emit({"kernels": entries})
 
 

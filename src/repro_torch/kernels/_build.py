@@ -23,6 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# after the source: flash_attention.cu finds cuTensorMapEncodeTiled with dlsym
+LINK_FLAGS = ("-ldl",)
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -66,7 +68,8 @@ def build(source: str) -> str:
     """Compile ``csrc/<source>`` (if not built yet) and return the library path."""
     src = CSRC / source
     text = src.read_bytes()
-    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    flags = " ".join(NVCC_FLAGS + LINK_FLAGS).encode()
+    tag = hashlib.sha256(text + flags).hexdigest()[:12]
     lib = BUILD_DIR / f"lib{src.stem}-{tag}.so"
     if lib.exists():
         BUILD_INFO.setdefault(source, {"seconds": 0.0, "cached": True, "ptxas": []})
@@ -74,7 +77,7 @@ def build(source: str) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src), *LINK_FLAGS],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr[-8000:]}")

@@ -6,23 +6,38 @@ Source note.
             flash_attention`` (bodies ``_fa_body_grid`` for kv_in_grid=True and
             ``_fa_body_loop`` for kv_in_grid=False).
   Kernel    ``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``, built by
-            ``_build.py`` with ``nvcc`` and bound with ``ctypes``.  fp32 inputs
-            (the correctness gate) run IEEE fp32 FFMA, never TF32; bf16 inputs
-            (the measured rung) run ``mma.sync`` m16n8k16 with fp32
-            accumulation.  The genome's block_q / block_k are logical blocks:
-            they set the block classification, the block_skip bounds and the
-            bf16-accumulator rounding points, while the kernel's physical tile
-            is 64 query rows by 64 keys.  kv_in_grid=True double-buffers the
-            K/V loads with ``cp.async``; kv_in_grid=False loads them in a
-            single stage.  The ``.cu`` header says how every genome axis maps.
+            ``_build.py`` with ``nvcc`` and bound with ``ctypes``.  Three
+            bodies, routed by dtype and head_dim alone (``attention_body``):
+            ``wgmma`` for bf16 at head_dim 64 or 128 (the measured rung and
+            the served prefill): a warp-specialised CTA of 128 query rows,
+            one producer warp issuing TMA loads of 128-key K/V chunks, two
+            consumer warpgroups running ``wgmma`` with fp32 accumulators;
+            ``mma_sync`` for bf16 at other head dims: ``mma.sync`` m16n8k16
+            on a 64 x 64 tile with ``cp.async`` staging; ``fp32`` for the
+            correctness gate: IEEE fp32 FFMA, never TF32.  The genome's
+            block_q / block_k are logical blocks in every body: they set the
+            block classification, the block_skip bounds and the
+            bf16-accumulator rounding points.  kv_in_grid=True pipelines the
+            K/V loads (a 2-stage TMA ring, or cp.async double buffering);
+            kv_in_grid=False loads them in a single stage with no overlap.
+            The ``.cu`` header says how every genome axis maps.
   Bound     compute.  At every ``mha_suite`` shape the useful FLOPs over the
             H100's 989e12 bf16 FLOP/s exceed the bytes of q, k, v and o over
-            its 3.35e12 B/s by two orders of magnitude.
-  Later     wgmma with TMA, and warp specialisation.
+            its 3.35e12 B/s by two orders of magnitude.  The ``mma_sync``
+            body reaches 15-18 % of that peak with the pipelined genome:
+            synchronous products, softmax in series with them, loads
+            addressed by every thread.  The ``wgmma`` body issues
+            asynchronous full-rate products, lets one consumer's softmax
+            overlap the other's products, and moves every byte by TMA:
+            43-56 % of the peak, 1.18-1.40x cuDNN's time (NVIDIA H100 80GB
+            HBM3 at 700.00 W, ``chip_smoke.py``; PERF.md).
+  Later     ping-pong of the two consumers, softmax overlapped with the next
+            Q K^T, persistent CTAs with causal load balance, fp8.
 
 ``flash_attention`` takes the kernel for CUDA tensors and the plain version
 for CPU tensors; a CUDA tensor never falls back to the plain version.
-``flash_attention.launches`` counts kernel launches.
+``flash_attention.launches`` counts kernel launches, and
+``flash_attention.launches_by_body`` splits them by body.
 """
 from __future__ import annotations
 
@@ -33,6 +48,8 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+WGMMA_HEAD_DIMS = (64, 128)     # bf16 head dims of the wgmma body
+BODIES = ("wgmma", "mma_sync", "fp32")
 
 # bf16 inputs, kernel vs plain version.  Both round an fp32 result to bf16,
 # and the kernel also rounds each P term to bf16 for the P V product; each
@@ -313,6 +330,17 @@ def _check_inputs(q, k, v, genome):
         raise ValueError("block_q and block_k must be positive")
 
 
+def attention_body(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel body a launch takes: fixed by dtype and head_dim, never by
+    the genome.  fp32 is the correctness gate (IEEE FFMA: TF32 wgmma would
+    fail its tolerance); bf16 takes wgmma where its tiles fit."""
+    if dtype == torch.float32:
+        return "fp32"
+    if dtype == torch.bfloat16:
+        return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
+    raise TypeError(f"no flash_attention body for dtype {dtype}")
+
+
 @functools.cache
 def _kernel():
     """The library's C entry point, built at first use and typed once."""
@@ -320,12 +348,15 @@ def _kernel():
     fn = _build.load("flash_attention.cu").avo_flash_attention
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
-                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     return fn
 
 
 def _launch(q, k, v, *, causal, window, softcap, scale, block_q, block_k,
-            rescale_mode, mask_mode, div_mode, kv_in_grid, gqa_pack, acc_dtype):
+            rescale_mode, mask_mode, div_mode, kv_in_grid, gqa_pack, acc_dtype,
+            body=None):
+    """``body`` is for A/B timing only: ``"mma_sync"`` forces the mma.sync
+    body on a bf16 launch; None takes :func:`attention_body`'s choice."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -336,6 +367,12 @@ def _launch(q, k, v, *, causal, window, softcap, scale, block_q, block_k,
     if D % 16 or D > 128:
         raise ValueError(f"head_dim {D} unsupported by the kernel "
                          "(a multiple of 16, at most 128)")
+    routed = attention_body(q.dtype, D)
+    if body is None:
+        body = routed
+    elif body != routed and not (body == "mma_sync" and q.dtype == torch.bfloat16):
+        raise ValueError(f"body={body!r} cannot take a {q.dtype} launch at "
+                         f"head_dim {D}; it routes to {routed!r}")
     qk, rep, seq_mod = _pack(q, k, gqa_pack)
     Hq, Sq = qk.shape[1], qk.shape[2]
     bq, bk = min(block_q, Sq), min(block_k, Sk)
@@ -349,10 +386,12 @@ def _launch(q, k, v, *, causal, window, softcap, scale, block_q, block_k,
              float(softcap or 0.0),
              float(scale if scale is not None else 1.0 / (D ** 0.5)),
              int(rescale_mode == "branched"), int(mask_mode == "block_skip"),
-             int(div_mode == "eager"), stream)
+             int(div_mode == "eager"), int(body == "wgmma"), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed ({body} body): "
+                           f"CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.launches_by_body[body] += 1
     return _unpack(o, seq_mod)
 
 
@@ -395,3 +434,4 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)

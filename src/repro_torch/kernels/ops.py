@@ -125,6 +125,7 @@ def decode_attention(
             return _fd.flash_decode_plain(q, k_cache, v_cache, valid_len, **kw)
         out = _fd.flash_decode(q, k_cache, v_cache, valid_len, **kw)
         if _check is not None and q.device.type == "cuda":
+            kw["splits"] = _fd.kernel_splits(q, k_cache)     # like for like
             plain = _fd.flash_decode_plain(q, k_cache, v_cache, valid_len, **kw)
             mag = _fd.flash_decode_plain(q, k_cache, v_cache.abs(), valid_len, **kw)
             _check("flash_decode", _fd.bf16_agreement(out, plain, mag))

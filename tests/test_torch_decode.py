@@ -16,7 +16,8 @@ from repro.kernels.flash_decode import flash_decode as jax_flash_decode
 from repro.kernels.ref import decode_reference as jax_decode_reference
 from repro.kernels.ref import mha_reference as jax_mha_reference
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+from repro_torch.kernels.flash_decode import (TILE_K, decode_splits, flash_decode,
+                                              flash_decode_plain)
 from repro_torch.kernels.ref import decode_reference
 
 TOL = dict(atol=1e-5, rtol=0)
@@ -119,3 +120,55 @@ def test_inputs_are_checked():
         flash_decode(q.double(), kc, vc, vl)
     with pytest.raises(ValueError, match="valid_len"):
         flash_decode(q, kc, vc, vl[:1])
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_split_walk_matches_jax_kernel_and_reference(splits, softcap):
+    """The plain version walking the kernel's splits of the live tiles, then
+    combining them, against JAX interpret mode and the reference.  valid_len
+    runs from 1 to L: at 1 every split but the first has no live tile, and
+    at 129 some splits of 8 are empty too.  fp32; 1e-5 absolute on outputs
+    of scale ~1, as above (the combine reorders the sums)."""
+    q, kc, vc, _ = _inputs(8, 4, 8, 2, 300, 16)
+    vl = np.array([1, 64, 129, 300], np.int32)
+    ours = flash_decode_plain(*map(torch.from_numpy, (q, kc, vc, vl)),
+                              softcap=softcap, splits=splits).numpy()
+    theirs = np.asarray(jax_flash_decode(*map(jnp.asarray, (q, kc, vc, vl)),
+                                         softcap=softcap, block_k=128, interpret=True))
+    ref = np.asarray(jax_decode_reference(*map(jnp.asarray, (q, kc, vc, vl)),
+                                          softcap=softcap))
+    np.testing.assert_allclose(ours, theirs, **TOL)
+    np.testing.assert_allclose(ours, ref, **TOL)
+
+
+def test_one_split_is_the_unsplit_walk_exactly():
+    """With one split the combine's weight is e^0 = 1: the output is the
+    walk's acc / l, bit for bit, whatever the split count would be."""
+    q, kc, vc, vl = map(torch.from_numpy, _inputs(9, 2, 8, 2, 200, 16))
+    one = flash_decode_plain(q, kc, vc, vl, splits=1)
+    torch.testing.assert_close(one, flash_decode_plain(q, kc, vc, vl), rtol=0, atol=0)
+    many = flash_decode_plain(q, kc, vc, vl, splits=64)      # more splits than tiles
+    torch.testing.assert_close(many, one, **TOL)
+
+
+@pytest.mark.parametrize("B,Hkv,L,n_sm,want", [
+    (4, 8, 4096, 132, 5),       # the served Jamba shape: 32 CTAs a split
+    (4, 33, 4096, 132, 1),      # B x Hkv = 132 fills the card unsplit
+    (16, 16, 4096, 132, 1),     # B x Hkv = 256
+    (1, 1, 100, 132, 2),        # capped at one split per tile of the cache
+    (1, 1, 30, 132, 1),
+    (2, 4, 65536, 132, 17),
+])
+def test_decode_splits(B, Hkv, L, n_sm, want):
+    got = decode_splits(B, Hkv, L, n_sm)
+    assert got == want
+    assert got <= -(-L // TILE_K) and B * Hkv * got >= min(n_sm, B * Hkv * -(-L // TILE_K))
+
+
+def test_wrapper_passes_splits_to_the_plain_version_on_cpu():
+    q, kc, vc, vl = map(torch.from_numpy, _inputs(10, 2, 8, 2, 300, 16))
+    torch.testing.assert_close(flash_decode(q, kc, vc, vl, splits=3),
+                               flash_decode_plain(q, kc, vc, vl, splits=3), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="splits"):
+        flash_decode_plain(q, kc, vc, vl, splits=0)

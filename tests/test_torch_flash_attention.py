@@ -13,7 +13,8 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as jax_flash_attention
 from repro_torch.core.evals import CORRECTNESS_TOL
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels.flash_attention import attention_body, flash_attention
 from repro_torch.kernels.ref import mha_reference
 
 ATOL = 1e-5      # f32 accumulator: plain version vs JAX interpret mode
@@ -91,3 +92,36 @@ def test_wrapper_checks_inputs():
     before = flash_attention.launches
     flash_attention(q, k, v)
     assert flash_attention.launches == before     # CPU: the plain version
+
+
+@pytest.mark.parametrize("dtype,head_dim,body", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 96, "mma_sync"), (torch.bfloat16, 32, "mma_sync"),
+    (torch.bfloat16, 16, "mma_sync"), (torch.float32, 128, "fp32"),
+    (torch.float32, 64, "fp32"), (torch.float32, 96, "fp32"),
+])
+def test_body_routing_by_dtype_and_head_dim(dtype, head_dim, body):
+    """The kernel body is fixed by dtype and head_dim, never by the genome:
+    bf16 at 64 / 128 takes wgmma, other bf16 mma.sync, fp32 (the gate) FFMA."""
+    assert attention_body(dtype, head_dim) == body
+
+
+def test_body_routing_refuses_other_dtypes_and_forced_bodies():
+    with pytest.raises(TypeError, match="dtype"):
+        attention_body(torch.float16, 128)
+    # only mma_sync may be forced, and only on bf16: checked before any build
+    q = torch.zeros((1, 2, 16, 64))
+    kw = dict(causal=False, window=None, softcap=0.0, scale=None, block_q=128,
+              block_k=128, rescale_mode="branchless", mask_mode="dense",
+              div_mode="deferred", kv_in_grid=True, gqa_pack=False, acc_dtype="f32")
+    for body in ("mma_sync", "wgmma"):
+        with pytest.raises(ValueError, match="body"):
+            fa_mod._launch(q, q, q, body=body, **kw)
+
+
+def test_cpu_wrapper_counts_no_launch_by_body():
+    arrs = _qkv(5, 1, 2, 2, 64, 64, 64)
+    before = dict(flash_attention.launches_by_body)
+    flash_attention(*(torch.from_numpy(a).to(torch.bfloat16) for a in arrs), causal=True)
+    assert flash_attention.launches_by_body == before
+    assert set(before) == {"wgmma", "mma_sync", "fp32"}

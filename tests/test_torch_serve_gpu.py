@@ -46,6 +46,35 @@ def test_decode_kernel_matches_plain_on_card(rep, D, softcap):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8, None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_matches_plain_on_card(splits, dtype):
+    """Split-K decode at several split counts (None: the wrapper's choice),
+    against the plain version walking the same splits: fp32 within ATOL,
+    bf16 within flash_decode's bounds.  valid_len 1 leaves every split but
+    the first without a live tile."""
+    _need_card()
+    rng = np.random.default_rng(11)
+    B, Hkv, rep, L, D = 3, 2, 4, 1000, 128
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(dtype)
+               for s in ((B, rep * Hkv, D), (B, Hkv, L, D), (B, Hkv, L, D)))
+    vl = torch.tensor([1, 577, L], dtype=torch.int32, device="cuda")
+    before = fd.flash_decode.launches
+    out = fd.flash_decode(q, k, v, vl, splits=splits, softcap=30.0)
+    assert fd.flash_decode.launches == before + 1
+    n = splits or fd.kernel_splits(q, k)
+    plain = fd.flash_decode_plain(q, k, v, vl, splits=n, softcap=30.0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, plain, atol=ATOL, rtol=0)
+        torch.testing.assert_close(out, decode_reference(q, k, v, vl, softcap=30.0),
+                                   atol=ATOL, rtol=0)
+    else:
+        mag = fd.flash_decode_plain(q, k, v.abs(), vl, splits=n, softcap=30.0)
+        stats = fd.bf16_agreement(out, plain, mag)
+        assert fd.bf16_agrees(stats), stats
+
+
+@pytest.mark.gpu
 def test_decode_kernel_rejects_an_unsupported_head_dim():
     _need_card()
     q = torch.zeros((1, 4, 96), device="cuda")
