@@ -19,10 +19,11 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  per-sequence valid_len and softcap; bf16 at the served
                  Jamba shape under its bounds at several split counts, with
                  a wrong version (valid_len - 1) the bounds must reject
-  ssd_kernel     ssd_chunked vs its plain version: fp32 over (P, N), chunk,
-                 ragged L and H; bf16 at the served Jamba shape
-                 under its bounds, with a wrong version (the state rounded to
-                 bf16 between chunks) the bounds must reject
+  ssd_kernel     ssd_chunked vs its plain version: fp32 on the serial body
+                 over (P, N), chunk, ragged L and H; bf16 on the chunked body
+                 over the same grid and at the served Jamba shape under its
+                 bounds, with a wrong version (the state rounded to bf16
+                 between chunks) the bounds must reject
   evolve         ContinuousEvolution(fidelity="measured") on mha_suite() for
                  a bounded number of paid evaluations; the kernel must launch
   serve          jamba-v0.1-52b at full width, 16 of its 32 layers, bf16,
@@ -40,8 +41,9 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  fixed pipelined genome and the search's best at every
                  mha_suite shape, and at the served prefill; flash_decode
                  (one split against the wrapper's split count, in turns, and
-                 a sweep of split counts) and
-                 ssd_chunked at the served shapes: kernel ms, bound ms, plain
+                 a sweep of split counts) and ssd_chunked (the serial body
+                 against the chunked one, in turns) at the served shapes:
+                 kernel ms, bound ms, plain
                  ms, and a library yardstick where one PyTorch call computes
                  the same function
   kernels        the summary line of every ported kernel
@@ -465,8 +467,9 @@ def ssd_state_rounded(x, dt, A, Bm, Cm, chunk):
 
 
 def phase_ssd_kernel(state):
-    """ssd_chunked against its plain version: fp32 over the axes, bf16 at the
-    served shape under its bounds, and a wrong version that must fail."""
+    """ssd_chunked against its plain version: fp32 on the serial body over
+    the axes, bf16 on the chunked body over the same axes and at the served
+    shape under its bounds, and a wrong version that must fail."""
     import itertools
 
     import torch
@@ -475,12 +478,18 @@ def phase_ssd_kernel(state):
     from repro_torch.kernels.ref import ssd_reference
 
     g = torch.Generator(device="cuda").manual_seed(3)
+    bounds = {"bound_atol": sm.BF16_ATOL, "bound_rtol_of_magnitude": sm.BF16_RTOL,
+              "bound_rel_rms": sm.BF16_REL_RMS, "bound_row_rel_rms": sm.BF16_ROW_REL_RMS,
+              "bound_state_rel_rms": sm.STATE_REL_RMS}
     worst = {"y": 0.0, "state": 0.0, "y_ref": 0.0, "abs": 0.0}
-    n = 0
+    worst_bf16 = dict.fromkeys(("max_abs_err", "tol_ratio", "rel_rms", "max_row_rel_rms",
+                                "state_rel_rms"), 0.0)
+    faults, n = [], 0
+    before = dict(sm.ssd_chunked.launches_by_body)
     for (P, N), chunk, L, H in itertools.product(
             sm.SHAPES, (32, 256), (1, 37, 256, 300), (4, 8)):
-        x, dt, A, Bm, Cm = ssd_inputs(g, 2, L, H, P, N, torch.float32)
         kw = dict(chunk=chunk)
+        x, dt, A, Bm, Cm = ssd_inputs(g, 2, L, H, P, N, torch.float32)
         y, st = sm.ssd_chunked(x, dt, A, Bm, Cm, impl="kernel", **kw)
         py, pst = sm.ssd_chunked_plain(x, dt, A, Bm, Cm, **kw)
         ry, _ = ssd_reference(x, dt, A, Bm, Cm)
@@ -489,11 +498,27 @@ def phase_ssd_kernel(state):
         worst["state"] = max(worst["state"], float((st - pst).abs().max()) / scale_s)
         worst["y_ref"] = max(worst["y_ref"], float((y - ry).abs().max()) / scale_y)
         worst["abs"] = max(worst["abs"], float((y - py).abs().max()))
+
+        x, dt, A, Bm, Cm = ssd_inputs(g, 2, L, H, P, N, torch.bfloat16)
+        y, st = sm.ssd_chunked(x, dt, A, Bm, Cm, impl="kernel", **kw)
+        py, pst = sm.ssd_chunked_plain(x, dt, A, Bm, Cm, **kw)
+        mag, _ = sm.ssd_chunked_plain(x.abs(), dt, A, Bm.abs(), Cm.abs(), **kw)
+        stb = sm.bf16_agreement(y, st, py, pst, mag)
+        for k in worst_bf16:
+            worst_bf16[k] = max(worst_bf16[k], stb[k])
+        if not sm.bf16_agrees(stb):
+            faults.append(f"chunked body fails the bf16 bounds at (P, N) {(P, N)}, "
+                          f"chunk {chunk}, L {L}, H {H}: {stb}")
         n += 1
-    emit({"phase": "ssd_kernel", "check": "fp32_grid", "cases": n,
+    took = {k: sm.ssd_chunked.launches_by_body[k] - before[k] for k in before}
+    emit({"phase": "ssd_kernel", "check": "fp32_grid", "body": "serial", "cases": n,
           "max_rel_err_y_vs_plain": worst["y"], "max_rel_err_state_vs_plain": worst["state"],
           "max_rel_err_y_vs_recurrence": worst["y_ref"], "tol_rel_to_max": TOL_SSD_F32,
           "tol_vs_recurrence": 10 * TOL_SSD_F32})
+    emit({"phase": "ssd_kernel", "check": "bf16_grid", "body": "chunked", "cases": n,
+          "worst": worst_bf16, "launches_by_body": took, **bounds})
+    if took != {"serial": n, "chunked": n}:
+        faults.append(f"{n} fp32 and {n} bf16 launches took the bodies {took}")
 
     # bf16 at the served shape: Jamba's 128 heads of (64, 16), chunk 256, a
     # prompt length that is not a multiple of the chunk, Jamba's A
@@ -504,26 +529,23 @@ def phase_ssd_kernel(state):
     y, st = sm.ssd_chunked(x, dt, A, Bm, Cm, impl="kernel", **kw)
     py, pst = sm.ssd_chunked_plain(x, dt, A, Bm, Cm, **kw)
     mag, _ = sm.ssd_chunked_plain(x.abs(), dt, A, Bm.abs(), Cm.abs(), **kw)
-    bounds = {"bound_atol": sm.BF16_ATOL, "bound_rtol_of_magnitude": sm.BF16_RTOL,
-              "bound_rel_rms": sm.BF16_REL_RMS, "bound_row_rel_rms": sm.BF16_ROW_REL_RMS,
-              "bound_state_rel_rms": sm.STATE_REL_RMS}
     good = sm.bf16_agreement(y, st, py, pst, mag)
-    emit({"phase": "ssd_kernel", "check": "served_bf16", "L": L, **good, **bounds})
+    emit({"phase": "ssd_kernel", "check": "served_bf16", "body": sm.ssd_body(x), "L": L,
+          **good, **bounds})
     wy, wst = ssd_state_rounded(x, dt, A, Bm, Cm, Q)
     bad = sm.bf16_agreement(wy, wst, py, pst, mag)
     emit({"phase": "ssd_kernel", "check": "served_bf16_control",
           "control": "state_rounded_to_bf16_between_chunks", **bad, **bounds})
-    faults = []
     if worst["y"] > TOL_SSD_F32 or worst["state"] > TOL_SSD_F32 \
             or worst["y_ref"] > 10 * TOL_SSD_F32:
         faults.append(f"fp32 disagreement {worst}")
     if not sm.bf16_agrees(good):
-        faults.append("the kernel failed the bf16 bounds")
+        faults.append("the chunked body failed the bf16 bounds at the served shape")
     if sm.bf16_agrees(bad):
         faults.append("the bf16 bounds let the state-rounding control pass")
     if faults:
         raise AssertionError("ssd_chunked: " + "; ".join(faults))
-    state["ssd_err"] = max(worst["abs"], good["max_abs_err"])
+    state["ssd_err"] = max(worst["abs"], worst_bf16["max_abs_err"], good["max_abs_err"])
 
 
 def _leaves(tree):
@@ -645,7 +667,8 @@ def _profile_group(server, group):
         ours = {name: sum(ms for key, ms, _ in rows if any(t in key for t in tags))
                 for name, tags in (("flash_attention", ("fa_fwd",)),
                                    ("flash_decode", ("decode_split", "decode_combine")),
-                                   ("ssd_chunked", ("ssd_kernel",)))}
+                                   ("ssd_chunked", ("ssd_kernel", "ssd_chunk_state",
+                                                    "ssd_state_pass", "ssd_chunk_scan")))}
         t = server.timings[-1]
         line = {"phase": "serve", "check": "profile", "gate": False, "new_tokens": new,
                 "prompt_len": t["prompt_len"], "wall_ms": wall_ms,
@@ -717,6 +740,7 @@ def phase_serve(state):
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
     by_body = dict(fa.flash_attention.launches_by_body)
+    ssd_by_body = dict(sm.ssd_chunked.launches_by_body)
 
     n_attn = sum(b.kind == "attn" for b in cfg.pattern) * cfg.n_periods
     n_mamba = sum(b.kind == "mamba" for b in cfg.pattern) * cfg.n_periods
@@ -741,6 +765,9 @@ def phase_serve(state):
     if by_body["wgmma"] != launches["flash_attention"]:
         faults.append(f"flash_attention launches by body {by_body}: the served bf16 "
                       f"prefill at head_dim 128 must take the wgmma body")
+    if ssd_by_body["chunked"] != launches["ssd_chunked"]:
+        faults.append(f"ssd_chunked launches by body {ssd_by_body}: the served bf16 "
+                      f"prefill must take the chunked body")
     for r in reqs:
         if len(r.output) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in r.output):
             faults.append(f"request {r.rid} output {r.output}")
@@ -760,6 +787,7 @@ def phase_serve(state):
           "new_tokens": total_new, "wall_s": wall, "weights_gib": weights_gib,
           "init_s": init_s, "peak_gib": peak_gib, "launches": launches,
           "launches_expected": expected, "flash_attention_launches_by_body": by_body,
+          "ssd_chunked_launches_by_body": ssd_by_body,
           "launches_per_prefill": {k: v // len(groups) for k, v in launches.items()
                                    if k != "flash_decode"},
           "flash_decode_per_step": launches["flash_decode"] / steps,
@@ -775,7 +803,7 @@ def phase_serve(state):
                                         impl, ref_impl, freeze)
         emit({"phase": "serve", "check": f"teacher_forced_{name}", "gate": False,
               "steps": rows, "routing": routing})
-    state["serve"] = {"launches": launches, "by_body": by_body,
+    state["serve"] = {"launches": launches, "by_body": by_body, "ssd_by_body": ssd_by_body,
                       "prompt_lens": [t["prompt_len"] for t in server.timings],
                       "timings": server.timings}
     del params, server
@@ -997,10 +1025,12 @@ def _served_times(state):
     A = -torch.linspace(1.0, 16.0, H, device="cuda")
     x, dt, A, Bm, Cm = ssd_inputs(g, B, S, H, P, N, torch.bfloat16, A=A)
     b_ms, b_by = ssd_bound(B, S, H, P, N, Q)
+    t = in_turns(lambda body: time_cold_ms(lambda: sm.ssd_chunked(
+        x, dt, A, Bm, Cm, chunk=Q, impl="kernel", body=body)), "serial", "chunked")
     out["ssd_chunked"] = {
         "shape": f"x ({B}, {S}, {H}, {P}) bf16, B/C ({B}, {S}, 1, {N}), chunk {Q}",
-        "ms": time_cold_ms(lambda: sm.ssd_chunked(x, dt, A, Bm, Cm, chunk=Q,
-                                                  impl="kernel")),
+        "ms": t["chunked"]["ms"], "readings": t["chunked"]["readings"],
+        "serial_ms": t["serial"]["ms"], "serial_readings": t["serial"]["readings"],
         "plain_ms": time_cuda_ms(lambda: sm.ssd_chunked_plain(x, dt, A, Bm, Cm, chunk=Q),
                                  warmup=1, reps=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "library": "none"}
@@ -1060,6 +1090,9 @@ def phase_kernels(state):
         if name == "flash_decode":
             entry.update(splits=t.get("splits", state.get("decode_splits")),
                          one_split_ms=t.get("one_split_ms"))
+        else:
+            entry.update(serial_ms=t.get("serial_ms"),
+                         launches_by_body={"serve": serve.get("ssd_by_body")})
         entries.append(entry)
     emit({"kernels": entries})
 

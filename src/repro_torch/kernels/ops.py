@@ -145,11 +145,12 @@ def ssd(
     impl: Optional[str] = None,
 ) -> tuple:
     """Returns (y, final_state).  "kernel" and "plain" take any L (the last
-    chunk may be short) and one group; the JAX package sends a ragged L or
-    G > 1 to the chunked reference instead."""
+    chunk may be short); the JAX package sends a ragged L to the chunked
+    reference instead.  Like the JAX package, G > 1 goes to the chunked
+    reference whatever ``impl`` says: the kernel takes one group."""
     impl = resolve_impl(impl, x)
     L = x.shape[1]
-    if impl in ("kernel", "plain"):
+    if impl in ("kernel", "plain") and Bm.shape[2] == 1:
         kw = dict(chunk=chunk)
         args = [t.contiguous() for t in (x, dt, A, Bm, Cm)]
         if impl == "plain":

@@ -1,28 +1,37 @@
-"""The Mamba-2 SSD chunked scan: the hand-written sm_90a kernel, its plain
-PyTorch version, and the wrapper that picks between them by device.
+"""The Mamba-2 SSD chunked scan: the hand-written sm_90a kernels, their plain
+PyTorch versions, and the wrapper that picks between them by device.
 
 Source note.
   Replaces  the Pallas TPU kernel ``repro/kernels/ssd.py::ssd_chunked``
             (body ``_ssd_body``).
-  Kernel    ``csrc/ssd.cu``, CUDA C++ for ``sm_90a``, built by ``_build.py``
-            with ``nvcc`` and bound with ``ctypes``.  One CTA per (sequence,
-            head) walks the chunks in order and carries the fp32 (P, N)
-            state in shared memory; the intra-chunk product is tiled 64 x 64
-            over (i, j), so the (Q, Q) decay tensor is never formed.  Any
-            sequence length: the last chunk is masked in the kernel (steps
-            past L count as x = 0, dt = 0).  fp32 and bf16 x, B, C; IEEE fp32
-            arithmetic throughout.
-  Bound     bytes at the served Jamba shape: x in and y out dominate (~270 MB
-            a launch, ~80 us at 3.35 TB/s) against ~40 us of bf16
-            tensor-core work.  The kernel runs its products on the CUDA cores
-            in fp32; a tensor-core version of the chunk products is later
-            work.
-  G         one group only (the reference's kernel asserts G == 1 too); no
-            configuration of the registry has more.  ROADMAP Queue 2 item 3.
+  Kernels   ``csrc/ssd.cu``, CUDA C++ for ``sm_90a``, built by ``_build.py``
+            with ``nvcc`` and bound with ``ctypes``.  Two bodies, routed by
+            dtype (:func:`ssd_body`):
+            "chunked"  every bf16 launch: three kernels on the caller's
+                       stream, each CTA on one (chunk, head, sequence).
+                       ``ssd_chunk_state`` writes the chunk's cum, dt and
+                       local state to scratch; ``ssd_state_pass`` turns the
+                       local states into the states entering each chunk;
+                       ``ssd_chunk_scan`` computes the chunk's y in tiles of
+                       SCAN_TILE steps that carry the state R across the
+                       chunk.  Every product runs on ``mma.sync`` m16n8k16
+                       (x^T (u B), C B^T, w x, C R^T) with its fp32 operand
+                       split into SPLIT = 3 bf16 terms that sum to it exactly.
+            "serial"   every fp32 launch: one CTA per (sequence, head) walks
+                       the chunks in order and carries the fp32 state in
+                       shared memory, IEEE fp32 FFMA throughout.
+            Any sequence length: steps past L count as x = 0, dt = 0.
+  Bound     bytes at the served Jamba shape: x in and y out dominate (~250 MB
+            a launch, ~76 us at 3.35 TB/s) against ~23 GFLOP of useful
+            products.  The chunked body reads x twice (kernels 1 and 3).
+  G         one group only (the reference's kernel asserts G == 1 too);
+            ``ops.ssd`` sends G > 1 to the chunked reference, as the JAX
+            package does.  ROADMAP Queue 2 item 3.
 
-``ssd_chunked`` takes the kernel for CUDA tensors and the plain version for
-CPU tensors; a CUDA tensor never falls back to the plain version.
-``ssd_chunked.launches`` counts kernel launches.
+``ssd_chunked`` takes a kernel body for CUDA tensors and the plain version
+for CPU tensors; a CUDA tensor never falls back to the plain version or to
+the other body.  ``ssd_chunked.launches`` counts calls that launched,
+``ssd_chunked.launches_by_body`` splits them by body.
 """
 from __future__ import annotations
 
@@ -113,6 +122,96 @@ def ssd_chunked_plain(
     return torch.cat(ys, dim=1)[:, :L], state
 
 
+SPLIT = 3        # bf16 terms of an fp32 operand in the chunked body (csrc/ssd.cu)
+SCAN_TILE = 64   # steps of a tile of ssd_chunk_scan's walk
+
+
+def split_terms(v: torch.Tensor, terms: int = SPLIT) -> torch.Tensor:
+    """An fp32 operand of a tensor-core product as the chunked body feeds it:
+    the sum (in fp32) of ``terms`` bf16 terms, each the bf16 rounding of what
+    the terms before it left.  Three terms hold an fp32 value exactly; one is
+    plain bf16 rounding."""
+    out, rest = torch.zeros_like(v), v
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16).float()
+        out, rest = out + t, rest - t
+    return out
+
+
+def ssd_chunked_split_plain(
+    x: torch.Tensor,               # (B, L, H, P)
+    dt: torch.Tensor,              # (B, L, H)
+    A: torch.Tensor,               # (H,)
+    Bm: torch.Tensor,              # (B, L, 1, N)
+    Cm: torch.Tensor,              # (B, L, 1, N)
+    *,
+    chunk: int = 256,
+    terms: Optional[int] = SPLIT,
+) -> tuple:
+    """The chunked body's walk in plain PyTorch, for the tests, with the
+    fp32 operands of the kernels' tensor-core products split into ``terms``
+    bf16 terms (None: left in fp32); the other operands (x, B, C) are exact
+    in bf16.  (1) Every chunk's local state from zero, x^T (u B); (2) the
+    state pass, which turns them into the states entering each chunk with the
+    serial body's update; (3) every chunk's y, walked in tiles of SCAN_TILE
+    steps that carry R, the state at the end of the previous tile: a row
+    takes the earlier steps through C R^T and its own tile's through the
+    masked weights w.  y is rounded to x's type once."""
+    _check_groups(Bm)
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[3]
+    Q = min(chunk, L)
+    pad = (-L) % Q
+    nc = (L + pad) // Q
+
+    def pad_steps(t):             # steps past L: x = 0, dt = 0, as the kernels do
+        return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+
+    def split(v):
+        return v if terms is None else split_terms(v, terms)
+    xf = pad_steps(x.float()).view(Bsz, nc, Q, H, P)
+    dtf = pad_steps(dt.float()).view(Bsz, nc, Q, H)
+    Bf = pad_steps(Bm[:, :, 0].float()).view(Bsz, nc, Q, N)
+    Cf = pad_steps(Cm[:, :, 0].float()).view(Bsz, nc, Q, N)
+    cum = torch.cumsum(dtf * A.float(), dim=2)                    # (B, nc, Q, H)
+    total = cum[:, :, -1]                                         # (B, nc, H)
+
+    def state_product(u, xs, Bs):  # sum_j x_j (u_j B_j)^T: (B, nc, H, P, N)
+        return torch.einsum("bcjhp,bcjhn->bchpn", xs, split(u[..., None] * Bs[:, :, :, None]))
+
+    # 1. the chunk states: u_j = exp(total - cum_j) dt_j
+    local = state_product(torch.exp(total[:, :, None] - cum) * dtf, xf, Bf)
+
+    # 2. the state pass: the state entering each chunk, and the final state
+    state = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = state * torch.exp(total[:, c])[..., None, None] + local[:, c]
+
+    # 3. the chunk scan, tile by tile
+    R = torch.stack(entering, dim=1)                              # (B, nc, H, P, N)
+    cum_r = torch.zeros_like(total)
+    ys = []
+    for i0 in range(0, Q, SCAN_TILE):
+        sl = slice(i0, min(i0 + SCAN_TILE, Q))
+        ct, dtt, xt, Bt, Ct = cum[:, :, sl], dtf[:, :, sl], xf[:, :, sl], Bf[:, :, sl], Cf[:, :, sl]
+        n = ct.shape[2]
+        causal = torch.ones(n, n, dtype=torch.bool, device=x.device).tril()[:, :, None]
+        seg = ct[:, :, :, None, :] - ct[:, :, None, :, :]        # (B, nc, i, j, H)
+        decay = torch.exp(torch.where(causal, seg, torch.full_like(seg, NEG_INF)))
+        w = (Ct @ Bt.transpose(-1, -2))[..., None] * decay * dtt[:, :, None, :, :]
+        ys.append(torch.einsum("bcin,bchpn->bcihp", Ct, split(R))
+                  * torch.exp(ct - cum_r[:, :, None])[..., None]
+                  + torch.einsum("bcijh,bcjhp->bcihp", split(w), xt))
+        cum_e = ct[:, :, -1]
+        R = (R * torch.exp(cum_e - cum_r)[..., None, None]
+             + state_product(torch.exp(cum_e[:, :, None] - ct) * dtt, xt, Bt))
+        cum_r = cum_e
+    y = torch.cat(ys, dim=2)
+    return y.reshape(Bsz, nc * Q, H, P)[:, :L].to(x.dtype), state
+
+
 def bf16_agreement(y: torch.Tensor, state: torch.Tensor, plain_y: torch.Tensor,
                    plain_state: torch.Tensor, magnitude: torch.Tensor) -> dict:
     """How far a bf16 y (and its fp32 state) lie from the plain version's,
@@ -153,17 +252,32 @@ def _check_inputs(x, dt, A, Bm, Cm, chunk):
         raise ValueError("chunk must be positive")
 
 
+BODIES = ("serial", "chunked")
+
+
+def ssd_body(x: torch.Tensor) -> str:
+    """The body a launch takes: "chunked" (tensor cores) for bf16, "serial"
+    (IEEE fp32 FFMA) for fp32."""
+    return "chunked" if x.dtype == torch.bfloat16 else "serial"
+
+
 @functools.cache
-def _kernel():
-    """The library's C entry point, built at first use and typed once."""
+def _kernel(body: str):
+    """The library's C entry point of ``body``, built at first use and typed
+    once."""
     from repro_torch.kernels import _build
-    fn = _build.load("ssd.cu").avo_ssd_chunked
+    lib = _build.load("ssd.cu")
+    if body == "serial":
+        fn = lib.avo_ssd_chunked
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    else:
+        fn = lib.avo_ssd_chunk_parallel
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return fn
 
 
-def _launch(x, dt, A, Bm, Cm, *, chunk):
+def _launch(x, dt, A, Bm, Cm, *, chunk, body):
     Bsz, L, H, P = x.shape
     N = Bm.shape[3]
     Q = min(chunk, L)
@@ -178,12 +292,25 @@ def _launch(x, dt, A, Bm, Cm, *, chunk):
     y = torch.empty_like(x)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernel()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                    Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
-                    int(x.dtype == torch.bfloat16), Bsz, L, H, P, N, Q, stream)
+    ptrs = [t.data_ptr() for t in (x, dt, A, Bm, Cm, y, state)]
+    if body == "serial":
+        err = _kernel(body)(*ptrs, int(x.dtype == torch.bfloat16),
+                            Bsz, L, H, P, N, Q, stream)
+    else:
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"the chunked SSD body takes bf16 x, B, C; got {x.dtype}")
+        if any(t.data_ptr() % 16 for t in (x, Bm, Cm)):
+            raise ValueError("the chunked SSD body loads x, B and C 16 bytes at a "
+                             "time: their data must be 16-byte aligned")
+        nc = -(-L // Q)
+        cum = torch.empty((Bsz, H, nc, 2, Q), dtype=torch.float32, device=x.device)
+        states = torch.empty((Bsz, H, nc, P, N), dtype=torch.float32, device=x.device)
+        err = _kernel(body)(*ptrs, cum.data_ptr(), states.data_ptr(),
+                            Bsz, L, H, P, N, Q, stream)
     if err != 0:
-        raise RuntimeError(f"ssd_chunked kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"ssd_chunked {body} launch failed: CUDA error {err}")
     ssd_chunked.launches += 1
+    ssd_chunked.launches_by_body[body] += 1
     return y, state
 
 
@@ -196,17 +323,21 @@ def ssd_chunked(
     *,
     chunk: int = 256,
     impl: Optional[str] = None,
+    body: Optional[str] = None,
 ) -> tuple:
     """Returns (y: (B, L, H, P), final_state: (B, H, P, N) fp32).  CUDA
-    tensors launch the sm_90a kernel; CPU tensors take
-    :func:`ssd_chunked_plain`.  ``impl="kernel"`` demands the kernel and
+    tensors launch a kernel body (``body`` None: :func:`ssd_body`'s choice;
+    "serial" forces the serial body on bf16, for A/B timing); CPU tensors
+    take :func:`ssd_chunked_plain`.  ``impl="kernel"`` demands a kernel and
     raises on CPU tensors.  Any L: the last chunk may be short."""
     _check_inputs(x, dt, A, Bm, Cm, chunk)
     _check_groups(Bm)
     if impl not in (None, "kernel"):
         raise ValueError(f"impl={impl!r}; expected None or 'kernel'")
+    if body not in (None, *BODIES):
+        raise ValueError(f"body={body!r}; expected None or one of {BODIES}")
     if x.device.type == "cuda":
-        return _launch(x, dt, A, Bm, Cm, chunk=chunk)
+        return _launch(x, dt, A, Bm, Cm, chunk=chunk, body=body or ssd_body(x))
     if impl == "kernel":
         raise ValueError(f"the ssd_chunked kernel runs on CUDA tensors; got "
                          f"tensors on {x.device}")
@@ -214,3 +345,4 @@ def ssd_chunked(
 
 
 ssd_chunked.launches = 0
+ssd_chunked.launches_by_body = dict.fromkeys(BODIES, 0)

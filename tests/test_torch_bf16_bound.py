@@ -3,6 +3,8 @@
 A kernel-like version (fp32 scores and statistics, P rounded to bf16 for the
 P V product, as the sm_90a kernel's mma.sync path does) must agree with the
 plain version; wrong versions made from the plain one must not."""
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -151,3 +153,45 @@ def test_ssd_bf16_bound_rejects_a_state_rounded_between_chunks():
     wy, wst = ssd_state_rounded(x, dt, A, Bm, Cm, SSD_Q)
     stats = ssd_mod.bf16_agreement(wy, wst, y, st, mag)
     assert not ssd_mod.bf16_agrees(stats), stats
+
+
+# The chunked body's walk (ssd.ssd_chunked_split_plain): its fp32 operands
+# (the weights w and the entering state) split into three bf16 terms agree
+# with the plain version (tests/test_torch_ssd_chunked.py); rounded to bf16
+# once, or split into only two terms, they must not.
+
+def test_ssd_bf16_bound_rejects_operands_rounded_to_bf16_once():
+    x, dt, A, Bm, Cm = ssd_inputs(6)
+    y, st, mag = _ssd_plain(x, dt, A, Bm, Cm)
+    wy, wst = ssd_mod.ssd_chunked_split_plain(x, dt, A, Bm, Cm, chunk=SSD_Q, terms=1)
+    stats = ssd_mod.bf16_agreement(wy, wst, y, st, mag)
+    assert not ssd_mod.bf16_agrees(stats), stats
+
+
+def _one_step(seed, H, P, N):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(2, 1, H, P)).astype(np.float32))
+    dt = torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (2, 1, H)))
+                          .astype(np.float32))
+    A = torch.from_numpy(-np.exp(0.5 * rng.normal(size=H)).astype(np.float32))
+    Bm, Cm = (torch.from_numpy(rng.normal(size=(2, 1, 1, N)).astype(np.float32))
+              .to(torch.bfloat16) for _ in range(2))
+    return x.to(torch.bfloat16), dt, A, Bm, Cm
+
+
+def test_ssd_bf16_bound_at_one_step_needs_three_terms():
+    """At L = 1 y has a few hundred elements, so one bf16 rounding that flips
+    moves the whole-y relative RMS by ~2e-4, the bound.  Two terms leave
+    ~2^-17 of w and flip often enough to fail some of 600 draws (the card's
+    grid has 12 such cases); three terms hold w exactly and fail none."""
+    fails = {2: 0, 3: 0}
+    for seed in range(100):
+        for (P, N), H in itertools.product(ssd_mod.SHAPES, (4, 8)):
+            x, dt, A, Bm, Cm = _one_step(seed, H, P, N)
+            y, st = ssd_mod.ssd_chunked_plain(x, dt, A, Bm, Cm)
+            mag, _ = ssd_mod.ssd_chunked_plain(x.abs(), dt, A, Bm.abs(), Cm.abs())
+            for terms in fails:
+                wy, wst = ssd_mod.ssd_chunked_split_plain(x, dt, A, Bm, Cm, terms=terms)
+                fails[terms] += not ssd_mod.bf16_agrees(
+                    ssd_mod.bf16_agreement(wy, wst, y, st, mag))
+    assert fails[3] == 0 and fails[2] > 0, fails

@@ -85,20 +85,31 @@ def test_decode_kernel_rejects_an_unsupported_head_dim():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("body", sm.BODIES)
 @pytest.mark.parametrize("P,N", sm.SHAPES)
 @pytest.mark.parametrize("L", [37, 300])
-def test_ssd_kernel_matches_plain_on_card(P, N, L):
+def test_ssd_kernel_matches_plain_on_card(P, N, L, body):
+    """The serial body in fp32 within SSD_REL of the plain version; the
+    chunked body (the one bf16 takes) within ssd.py's bf16 bounds."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(P + N + L)
     H = 8
-    x = torch.randn((2, L, H, P), generator=g, device="cuda")
+    dtype = torch.float32 if body == "serial" else torch.bfloat16
+    x = torch.randn((2, L, H, P), generator=g, device="cuda").to(dtype)
     dt = torch.rand((2, L, H), generator=g, device="cuda") * 0.1
     A = -torch.exp(0.5 * torch.randn((H,), generator=g, device="cuda"))
-    Bm, Cm = (torch.randn((2, L, 1, N), generator=g, device="cuda") for _ in range(2))
-    before = sm.ssd_chunked.launches
+    Bm, Cm = (torch.randn((2, L, 1, N), generator=g, device="cuda").to(dtype)
+              for _ in range(2))
+    assert sm.ssd_body(x) == body
+    before = dict(sm.ssd_chunked.launches_by_body)
     y, st = sm.ssd_chunked(x, dt, A, Bm, Cm, chunk=32)
-    assert sm.ssd_chunked.launches == before + 1
+    assert sm.ssd_chunked.launches_by_body[body] == before[body] + 1
     py, pst = sm.ssd_chunked_plain(x, dt, A, Bm, Cm, chunk=32)
+    if body == "chunked":
+        mag, _ = sm.ssd_chunked_plain(x.abs(), dt, A, Bm.abs(), Cm.abs(), chunk=32)
+        stats = sm.bf16_agreement(y, st, py, pst, mag)
+        assert sm.bf16_agrees(stats), stats
+        return
     assert float((y - py).abs().max()) <= SSD_REL * float(py.abs().max())
     assert float((st - pst).abs().max()) <= SSD_REL * float(pst.abs().max())
     ry, _ = ssd_reference(x, dt, A, Bm, Cm)
@@ -106,13 +117,40 @@ def test_ssd_kernel_matches_plain_on_card(P, N, L):
 
 
 @pytest.mark.gpu
-def test_ssd_kernel_rejects_groups_on_card():
+def test_ssd_chunked_body_takes_aligned_bf16_only():
     _need_card()
     x = torch.zeros((1, 8, 4, 16), device="cuda")
     dt = torch.zeros((1, 8, 4), device="cuda")
-    BC = torch.zeros((1, 8, 2, 16), device="cuda")
+    A = torch.zeros(4, device="cuda")
+    BC = torch.zeros((1, 8, 1, 16), device="cuda")
+    with pytest.raises(TypeError, match="bf16"):
+        sm.ssd_chunked(x, dt, A, BC, BC, body="chunked")
+    xb = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device="cuda")[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sm.ssd_chunked(xb, dt, A, BC.bfloat16(), BC.bfloat16())
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_rejects_groups_on_card():
+    """G = 2 through the kernel path on the card goes to the chunked
+    reference, as the JAX ops.ssd does, and equals the sequential recurrence
+    on the CPU (which tests/test_torch_ssd.py holds to the JAX package's)."""
+    _need_card()
+    rng = np.random.default_rng(6)
+    B, L, H, P, G, N = 1, 32, 8, 16, 2, 16
+    x = rng.normal(size=(B, L, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(B, L, H)))).astype(np.float32)
+    A = (-np.exp(rng.normal(size=(H,)) * 0.5)).astype(np.float32)
+    Bm, Cm = ((rng.normal(size=(B, L, G, N)) * 0.5).astype(np.float32) for _ in range(2))
+    cpu = [torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)]
+    before = sm.ssd_chunked.launches
+    y, st = ops.ssd(*(t.cuda() for t in cpu), chunk=16, impl="kernel")
+    assert sm.ssd_chunked.launches == before
+    ry, rst = ssd_reference(*cpu)
+    assert float((y.cpu() - ry).abs().max()) <= 5e-5 * float(ry.abs().max())
+    assert float((st.cpu() - rst).abs().max()) <= 5e-5 * float(rst.abs().max())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssd(x, dt, torch.zeros(4, device="cuda"), BC, BC, chunk=8)
+        sm.ssd_chunked(*(t.cuda() for t in cpu), chunk=16)
 
 
 @pytest.mark.gpu

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jax_ops
 from repro.kernels.ref import ssd_chunked_reference as jax_ssd_chunked_reference
 from repro.kernels.ref import ssd_decode_reference as jax_ssd_decode_reference
 from repro.kernels.ref import ssd_reference as jax_ssd_reference
@@ -122,19 +123,28 @@ def test_port_references_match_jax():
 
 
 def test_groups_raise_on_the_kernel_path():
-    arrs = list(map(torch.from_numpy, _inputs(6, 1, 32, 8, 16, 2, 16)))
+    """G = 2 through the kernel path: like the JAX ``ops.ssd``, the port's
+    sends it to the chunked reference (the kernel takes one group), and the
+    two agree; the kernel wrapper itself still refuses it."""
+    arrs = _inputs(6, 1, 32, 8, 16, 2, 16)
+    y, h = ops.ssd(*map(torch.from_numpy, arrs), chunk=16, impl="kernel")
+    jy, jh = jax_ops.ssd(*map(jnp.asarray, arrs), chunk=16, impl="pallas_interpret")
+    _close(y.numpy(), jy, "y vs JAX ops.ssd")
+    _close(h.numpy(), jh, "state vs JAX ops.ssd")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 3"):
-        ops.ssd(*arrs, chunk=16, impl="kernel")
+        ssd_chunked(*map(torch.from_numpy, arrs), chunk=16)
 
 
 def test_wrapper_takes_the_plain_version_on_cpu_and_counts_no_launch():
     arrs = list(map(torch.from_numpy, _inputs(7, 1, 40, 4, 16, 1, 16)))
-    before = ssd_chunked.launches
+    before = ssd_chunked.launches, dict(ssd_chunked.launches_by_body)
     y, h = ssd_chunked(*arrs, chunk=32)
-    assert ssd_chunked.launches == before
+    assert (ssd_chunked.launches, ssd_chunked.launches_by_body) == before
     py, ph = ssd_chunked_plain(*arrs, chunk=32)
     torch.testing.assert_close(y, py)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ssd_chunked(*arrs, impl="kernel")
     with pytest.raises(ValueError, match="chunk must be positive"):
         ssd_chunked(*arrs, chunk=0)
+    with pytest.raises(ValueError, match="body="):
+        ssd_chunked(*arrs, body="wgmma")
