@@ -12,20 +12,40 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  oracle: every combination of the six non-block genome axes
                  x 3 block pairs on the gate's fp32 proxy shapes, bf16 at
                  every mha_suite shape through the wgmma body (with two
-                 wrong versions the bf16 bound must reject), and the gate's
-                 verdicts through kernel and plain version
+                 wrong versions the bf16 bound must reject), bf16 at the
+                 head dims of h2o-danube-3-4b (120, zero-padded to 128) and
+                 phi-3-vision-4.2b (96), and the gate's verdicts through
+                 kernel and plain version
   decode_kernel  flash_decode vs its plain version walking the same splits:
-                 fp32 over split count, rep, head_dim, ragged L,
-                 per-sequence valid_len and softcap; bf16 at the served
+                 fp32 over split count, rep, head_dim (16, 64, 128), ragged
+                 L, per-sequence valid_len and softcap; bf16 at the served
                  Jamba shape under its bounds at several split counts, with
-                 a wrong version (valid_len - 1) the bounds must reject
+                 a wrong version (valid_len - 1) the bounds must reject; bf16
+                 at head_dim 64, 96 and 120 (the last two zero-padded to 128)
   ssd_kernel     ssd_chunked vs its plain version: fp32 on the serial body
                  over (P, N), chunk, ragged L and H; bf16 on the chunked body
                  over the same grid and at the served Jamba shape under its
                  bounds, with a wrong version (the state rounded to bf16
                  between chunks) the bounds must reject
+  noise          the measured rung's spread: NOISE_REPS scorings of the seed
+                 and the pipelined genome on mha_suite and gqa_suite, each
+                 paid anew; the commit floor MEASURED_MIN_REL must not lie
+                 below the largest spread (max / min - 1 of the geomean)
   evolve         ContinuousEvolution(fidelity="measured") on mha_suite() for
-                 a bounded number of paid evaluations; the kernel must launch
+                 a bounded number of paid evaluations; the kernel must
+                 launch, and no commit may gain MEASURED_MIN_REL or less; the
+                 paper's Fig. 3 rows: evolved, seed, cuDNN and flash TFLOP/s
+                 per config (Scorer.baselines(): SDPA's two backends)
+  gqa            paper §4.3: the evolve phase's best genome adapted to
+                 gqa_suite at the measured rung for GQA_EVALS paid
+                 evaluations; launches at rep 8 and rep 4 on the wgmma body;
+                 the Fig. 4 rows: adapted, zero-shot (the MHA genome), cuDNN
+                 and flash; the adapted genome held to the plain version at
+                 a rep-8 and a rep-4 shape
+  decode_suite   the pipelined genome scored once on decode_suite at the
+                 measured rung (windowed configs at full shape), its rows
+                 beside cuDNN and flash (refused where a window is set), and
+                 the kernel held to the plain version at two windowed shapes
   serve          jamba-v0.1-52b at full width, 16 of its 32 layers, bf16,
                  random weights from a seeded generator on the card: 8
                  requests through BatchedServer (batch 4, 32 new tokens);
@@ -35,7 +55,9 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  plain paths is printed beside witnesses (blocked vs plain:
                  no kernel; both again with the MoE routing frozen to the
                  plain path's); reduced Jamba's tokens on the card
-                 must equal the CPU reference path's
+                 must equal the CPU reference path's, and so must those of
+                 reduced h2o-danube-3-4b and phi-3-vision-4.2b at their
+                 published head dims (120, 96) with impl="auto"
   times          flash_attention's wgmma body against its mma_sync body, in
                  turns (mma_sync, wgmma, wgmma, mma_sync), for the seed, a
                  fixed pipelined genome and the search's best at every
@@ -45,7 +67,8 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  against the chunked one, in turns) at the served shapes:
                  kernel ms, bound ms, plain
                  ms, and a library yardstick where one PyTorch call computes
-                 the same function
+                 the same function; both attention kernels at head_dim 120
+                 and 96 beside 128
   kernels        the summary line of every ported kernel
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
 nothing of the JAX package.
@@ -66,8 +89,10 @@ PEAK_BF16 = 989e12          # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3 B/s
 TOL_F32 = 1e-5              # kernel vs plain, fp32 inputs and accumulator
 EVOLVE_EVALS = 10           # paid evaluations of the evolution phase
+NOISE_REPS = 8              # scorings of one genome in the noise phase
+GQA_EVALS = 8               # paid evaluations of the GQA adaptation
 PHASES = ("device", "build", "kernel", "decode_kernel", "ssd_kernel", "serve",
-          "evolve", "times", "kernels")
+          "noise", "evolve", "gqa", "decode_suite", "times", "kernels")
 SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd.cu")
 TOL_SSD_F32 = 2e-5          # SSD kernel vs plain, fp32: relative to max |y|
 SERVE_ARCH, SERVE_LAYERS = "jamba-v0.1-52b", 16
@@ -112,6 +137,16 @@ def reset_counts(*kernels) -> None:
         fn.launches = 0
         if hasattr(fn, "launches_by_body"):
             fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)
+        if hasattr(fn, "launches_by_rep"):
+            fn.launches_by_rep = {}
+
+
+def pipelined_genome():
+    """The served genome (DEFAULT_ATTN_GENOME): 128-row blocks, pipelined
+    K/V, block_skip, branchless, deferred."""
+    from repro_torch.core.search_space import KernelGenome
+    from repro_torch.kernels.ops import DEFAULT_ATTN_GENOME
+    return KernelGenome(**DEFAULT_ATTN_GENOME)
 
 
 def fa_launch(q, k, v, causal, genome, body):
@@ -232,6 +267,50 @@ def _full_width_bf16() -> float:
     return worst
 
 
+def _padded_head_dims() -> float:
+    """flash_attention in bf16 at the registry's head dims off 64 / 128:
+    h2o-danube-3-4b's 120 (GQA 32 / 8; zero-padded to 128, the wgmma body)
+    and phi-3-vision-4.2b's 96 (MHA; the mma_sync body), causal, B = 2,
+    S = 2048, the served genome, a window of 1024 on danube (its own 4096
+    lies past S).  One launch each, held to the plain version at the
+    original D under the bf16 bounds."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        attention_body, bf16_agreement, bf16_agrees, flash_attention,
+        flash_attention_plain, kernel_head_dim)
+    from repro_torch.kernels.ops import DEFAULT_ATTN_GENOME
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst, faults = 0.0, []
+    for arch, D, Hkv, window in (("h2o-danube-3-4b", 120, 8, 1024),
+                                 ("phi-3-vision-4.2b", 96, 32, None)):
+        B, Hq, S = 2, 32, 2048
+        q = torch.randn((B, Hq, S, D), generator=g, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((B, Hkv, S, D), generator=g, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        kw = dict(DEFAULT_ATTN_GENOME, causal=True, window=window)
+        body = attention_body(q.dtype, D)
+        before, by_body = flash_attention.launches, dict(flash_attention.launches_by_body)
+        o = flash_attention(q, k, v, impl="kernel", **kw)
+        took = {b: flash_attention.launches_by_body[b] - by_body[b] for b in by_body}
+        st = bf16_agreement(o, flash_attention_plain(q, k, v, **kw),
+                            flash_attention_plain(q, k, v.abs(), **kw))
+        emit({"phase": "kernel", "check": "padded_head_dim_bf16", "arch": arch,
+              "head_dim": D, "runs_at": kernel_head_dim(D), "body": body,
+              "shape": f"q ({B}, {Hq}, {S}, {D}), k/v ({B}, {Hkv}, {S}, {D})",
+              "window": window, "launches": flash_attention.launches - before,
+              "launches_by_body": took, **st})
+        worst = max(worst, st["max_abs_err"])
+        if flash_attention.launches - before != 1 or took[body] != 1:
+            faults.append(f"head_dim {D}: launches {took}, expected one on {body}")
+        if o.shape != q.shape or not bf16_agrees(st):
+            faults.append(f"head_dim {D}: {tuple(o.shape)}, {st}")
+    if faults:
+        raise AssertionError("flash_attention: " + "; ".join(faults))
+    return worst
+
+
 def phase_kernel(state):
     import itertools
 
@@ -281,7 +360,7 @@ def phase_kernel(state):
           "min_abs_err_vs_oracle_bf16acc": bf16_min_oracle,
           "tol_vs_plain": TOL_F32, "tol_vs_oracle": CORRECTNESS_TOL})
 
-    worst_bf16 = _full_width_bf16()
+    worst_bf16 = max(_full_width_bf16(), _padded_head_dims())
 
     # the gate's verdicts: kernel (card) vs plain version (CPU), same genomes
     sample = random.Random(0).sample(list(full_space()), 24)
@@ -424,6 +503,29 @@ def phase_decode_kernel(state):
         emit({"phase": "decode_kernel", "check": "served_bf16_control",
               "control": "valid_len-1", "softcap": softcap, **st, **bounds})
         verdicts.append(("valid_len-1", softcap, fd.bf16_agrees(st), False))
+    # bf16 at the registry's head dims off the served one, each arch's heads:
+    # seamless-m4t-medium's 64 (compiled), phi-3-vision-4.2b's 96 and
+    # h2o-danube-3-4b's 120 (both zero-padded to 128)
+    for arch, D, Hq_d, Hkv_d in (("seamless-m4t-medium", 64, 16, 16),
+                                 ("phi-3-vision-4.2b", 96, 32, 32),
+                                 ("h2o-danube-3-4b", 120, 32, 8)):
+        qd = torch.randn((B, Hq_d, D), generator=g, device="cuda").to(torch.bfloat16)
+        kd, vd = (torch.randn((B, Hkv_d, L, D), generator=g, device="cuda")
+                  .to(torch.bfloat16) for _ in range(2))
+        before = fd.flash_decode.launches
+        out = fd.flash_decode(qd, kd, vd, vl, impl="kernel")
+        n = fd.kernel_splits(qd, kd)
+        st = fd.bf16_agreement(out, fd.flash_decode_plain(qd, kd, vd, vl, splits=n),
+                               fd.flash_decode_plain(qd, kd, vd.abs(), vl, splits=n))
+        emit({"phase": "decode_kernel", "check": "head_dim_bf16", "arch": arch,
+              "head_dim": D, "runs_at": fd.kernel_head_dim(D), "splits": n,
+              "shape": f"q ({B}, {Hq_d}, {D}), cache ({B}, {Hkv_d}, {L}, {D})",
+              "launches": fd.flash_decode.launches - before, **st, **bounds})
+        worst_bf16 = max(worst_bf16, st["max_abs_err"])
+        verdicts.append((f"kernel at head_dim {D}", 0.0,
+                         fd.bf16_agrees(st) and fd.flash_decode.launches == before + 1
+                         and out.shape == qd.shape, True))
+        del qd, kd, vd
     faults = [f"{who} (softcap {sc}) {'failed' if want else 'passed'} the bf16 bounds"
               for who, sc, ok, want in verdicts if ok != want]
     if worst_plain > TOL_F32 or worst_ref > TOL_F32:
@@ -809,29 +911,172 @@ def phase_serve(state):
     del params, server
     torch.cuda.empty_cache()
 
-    # a small input against the reference: reduced Jamba in fp32, the card's
-    # kernel path against the CPU's blocked path, same weights and requests
-    small = get_arch(SERVE_ARCH).reduced()
-    cpu_params = init_params(small, torch.Generator().manual_seed(0))
+    # small inputs against the reference: reduced Jamba in fp32, the card's
+    # kernel path against the CPU's blocked path, same weights and requests;
+    # then reduced h2o-danube-3-4b and phi-3-vision-4.2b at their published
+    # head dims (120 and 96), impl="auto", every launch held to its plain
+    # version
+    for arch, check in ((SERVE_ARCH, False), ("h2o-danube-3-4b", True),
+                        ("phi-3-vision-4.2b", True)):
+        small = get_arch(arch).reduced()
+        if check:                       # the published head dim
+            small = dataclasses.replace(small, d_head=get_arch(arch).head_dim)
+        outs, seen = _card_vs_cpu_tokens(small, check)
+        emit({"phase": "serve", "check": "reduced_fp32_card_vs_cpu_reference",
+              "arch": arch, "head_dim": small.head_dim,
+              "tokens_equal": outs["card"] == outs["cpu"], "card": outs["card"],
+              "cpu": outs["cpu"], "launches_checked": {k: len(v) for k, v in seen.items()},
+              "worst_rel_rms": {k: max(st["rel_rms"] for st in v) for k, v in seen.items()}})
+        if outs["card"] != outs["cpu"]:
+            faults.append(f"reduced {arch}: the card's tokens differ from the CPU "
+                          "reference's")
+        if check and (set(seen) != {"flash_attention", "flash_decode"} or not all(
+                st["finite"] and st["rel_rms"] <= 1e-5 for v in seen.values() for st in v)):
+            faults.append(f"reduced {arch}: checked launches {seen}")
+    if faults:
+        raise AssertionError("serve: " + "; ".join(faults))
+
+
+def _card_vs_cpu_tokens(cfg, check: bool):
+    """``cfg`` in fp32 with weights from seed 0 served on the card
+    (impl="auto": the kernels) and on the CPU (the blocked references):
+    4 prompts of 5-39 tokens, batch 2, 8 new tokens.  With ``check`` every
+    card launch is held to its plain version; returns both token lists and
+    the checked launches' stats by kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models import init_params
+
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0))
 
     def to_cuda(tree):
         return {k: to_cuda(v) if isinstance(v, dict) else v.cuda() for k, v in tree.items()}
-    card_params = to_cuda(cpu_params)
     srng = np.random.default_rng(1)
     lens = srng.integers(5, 40, size=4)
-    prompts = [srng.integers(0, small.vocab_size, (int(n),)) for n in lens]
-    outs = {}
-    for name, p in (("card", card_params), ("cpu", cpu_params)):
-        srv = BatchedServer(small, p, batch_size=2, max_len=64)
-        outs[name] = [r.output for r in srv.run([Request(i, pr, 8)
-                                                 for i, pr in enumerate(prompts)])]
-    emit({"phase": "serve", "check": "reduced_fp32_card_vs_cpu_reference",
-          "tokens_equal": outs["card"] == outs["cpu"], "card": outs["card"],
-          "cpu": outs["cpu"]})
-    if outs["card"] != outs["cpu"]:
-        faults.append("reduced Jamba: the card's tokens differ from the CPU reference's")
-    if faults:
-        raise AssertionError("serve: " + "; ".join(faults))
+    prompts = [srng.integers(0, cfg.vocab_size, (int(n),)) for n in lens]
+    outs, seen = {}, {}
+    for name, p in (("card", to_cuda(cpu_params)), ("cpu", cpu_params)):
+        srv = BatchedServer(cfg, p, batch_size=2, max_len=64)
+        hook = (ops.checking(lambda k, st: seen.setdefault(k, []).append(st))
+                if check and name == "card" else contextlib.nullcontext())
+        with hook:
+            outs[name] = [r.output for r in srv.run([Request(i, pr, 8)
+                                                     for i, pr in enumerate(prompts)])]
+    return outs, seen
+
+
+def phase_noise(state):
+    """The spread of the measured rung: NOISE_REPS scorings of the seed and
+    the pipelined genome on mha_suite and gqa_suite, in turns, each paid
+    anew (``score_uncached``: no memo).  Two scorings of one genome differ
+    by at most max / min - 1 of its geomean; a commit floor below that lets
+    a re-timing of an unchanged kernel commit."""
+    import statistics
+
+    import torch
+
+    from repro_torch.core.evals import MEASURED, MEASURED_MIN_REL, Scorer
+    from repro_torch.core.evals.scorer import TIMING_REPS, TIMING_WARMUP
+    from repro_torch.core.perfmodel import gqa_suite, mha_suite
+    from repro_torch.core.search_space import seed_genome
+
+    genomes = {"seed": seed_genome(), "pipelined": pipelined_genome()}
+    spreads = {}
+    for suite_name, suite in (("mha_suite", mha_suite()), ("gqa_suite", gqa_suite())):
+        scorer = Scorer(suite=suite, fidelity=MEASURED)
+        for cfg in suite:                  # set-up: inputs made before the clock
+            scorer.full_inputs(cfg)
+        geo = {name: [] for name in genomes}
+        t0 = time.perf_counter()
+        for _ in range(NOISE_REPS):
+            for name, g in genomes.items():
+                sv = scorer.score_uncached(g)
+                if not (sv.correct and sv.geomean > 0):
+                    raise AssertionError(f"{name} genome on {suite_name}: {sv.failure}")
+                geo[name].append(sv.geomean)
+        wall = time.perf_counter() - t0
+        for name, vals in geo.items():
+            spreads[(suite_name, name)] = max(vals) / min(vals) - 1.0
+            emit({"phase": "noise", "suite": suite_name, "genome": name,
+                  "scorings": len(vals), "geomeans": vals,
+                  "median": statistics.median(vals),
+                  "rel_stdev": statistics.stdev(vals) / statistics.mean(vals),
+                  "spread_max_over_min": spreads[(suite_name, name)],
+                  "wall_s_all_genomes": wall})
+        del scorer
+        torch.cuda.empty_cache()
+    worst = max(spreads.values())
+    emit({"phase": "noise", "summary": True, "max_spread": worst,
+          "at": "/".join(max(spreads, key=spreads.get)),
+          "floor_in_force": MEASURED_MIN_REL, "floor_over_spread": MEASURED_MIN_REL / worst,
+          "timer": f"CUDA events, {TIMING_WARMUP} warm-up, median of {TIMING_REPS}"})
+    state["noise"] = {"max_spread": worst, "floor": MEASURED_MIN_REL}
+    if MEASURED_MIN_REL < worst:
+        raise AssertionError(f"the commit floor {MEASURED_MIN_REL} lies below the "
+                             f"measured spread {worst}")
+
+
+def check_commits(lineage, phase) -> list:
+    """Every commit's values positive, and every commit after the first
+    gaining more than the commit floor over the best before it.  Returns the
+    gains."""
+    from repro_torch.core.evals import MEASURED_MIN_REL
+    gains, best = [], None
+    for c in lineage.commits:
+        if not all(v > 0 and v == v for v in c.values):
+            raise AssertionError(f"{phase}: commit {c.version} has a non-positive value")
+        if best is not None:
+            gains.append(c.geomean / best - 1.0)
+            if gains[-1] <= MEASURED_MIN_REL:
+                raise AssertionError(f"{phase}: commit {c.version} gains {gains[-1]}, "
+                                     f"not above the floor {MEASURED_MIN_REL}")
+        best = c.geomean if best is None else max(best, c.geomean)
+    return gains
+
+
+def figure_rows(phase, scorer, columns: dict) -> list:
+    """The paper's comparison, one row per suite config: each column's
+    TFLOP/s, then cuDNN's and flash's from ``scorer.baselines()`` (None with
+    the backend's error where it refused), and the first column over each."""
+    base = scorer.baselines()
+    lead, lead_vals = next(iter(columns.items()))
+    rows = []
+    for i, cfg in enumerate(scorer.suite):
+        row = {"phase": phase, "figure_row": True, "config": cfg.name,
+               **{name: vals[i] for name, vals in columns.items()}}
+        for lib, key in (("cudnn", "expert"), ("flash", "fa_reference")):
+            b = base[key][i]
+            row[f"{lib}_tflops"] = b
+            row[f"{lead}_over_{lib}"] = lead_vals[i] / b if b else None
+            if b is None:
+                row[f"{lib}_error"] = scorer.baseline_errors[key][cfg.name]
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def _drive(evo, phase, evals) -> tuple:
+    """Steps of ``evo`` until ``evals`` paid evaluations; one line a step."""
+    scorer = evo.scorer
+    t_all, step = time.perf_counter(), 0
+    while scorer.n_evaluations < evals and step < 3 * evals:
+        n0, t0 = scorer.n_evaluations, time.perf_counter()
+        rep = evo.run(max_steps=1)
+        dt = time.perf_counter() - t0
+        paid = scorer.n_evaluations - n0
+        best = evo.lineage.best()
+        trace = evo.island.traces[-1]
+        emit({"phase": phase, "step": step, "committed": rep.commits > 0,
+              "best_tflops": best.geomean if best else 0.0, "paid_evals": paid,
+              "s_per_eval": dt / paid if paid else None, "note": trace["note"][:80],
+              "tried": [f"{a[1][:70]} -> {b[1][:40]}" for a, b in
+                        zip(trace["trace"], trace["trace"][1:])
+                        if a[0] == "edit" and b[0] == "eval"]})
+        step += 1
+    return step, time.perf_counter() - t_all
 
 
 def phase_evolve(state):
@@ -846,39 +1091,147 @@ def phase_evolve(state):
         scorer.full_inputs(cfg)
     torch.cuda.synchronize()
     reset_counts(flash_attention)
-    t_all = time.perf_counter()
-    step = 0
-    while scorer.n_evaluations < EVOLVE_EVALS and step < 3 * EVOLVE_EVALS:
-        n0, t0 = scorer.n_evaluations, time.perf_counter()
-        rep = evo.run(max_steps=1)
-        dt = time.perf_counter() - t0
-        paid = scorer.n_evaluations - n0
-        best = evo.lineage.best()
-        emit({"phase": "evolve", "step": step, "committed": rep.commits > 0,
-              "best_tflops": best.geomean if best else 0.0, "paid_evals": paid,
-              "s_per_eval": dt / paid if paid else None,
-              "note": evo.island.traces[-1]["note"][:80]})
-        step += 1
+    step, wall = _drive(evo, "evolve", EVOLVE_EVALS)
     launches = flash_attention.launches
     by_body = dict(flash_attention.launches_by_body)
-    wall = time.perf_counter() - t_all
     best = evo.lineage.best()
     if launches <= 0:
         raise AssertionError("the evolution never launched the kernel")
     if by_body["wgmma"] <= 0:
         raise AssertionError(f"the measured rung never took the wgmma body: {by_body}")
-    for c in evo.lineage.commits:
-        if not all(v > 0 and v == v for v in c.values):
-            raise AssertionError(f"commit {c.version} has a non-positive value")
+    gains = check_commits(evo.lineage, "evolve")
     emit({"phase": "evolve", "summary": True, "steps": step,
           "paid_evals": scorer.n_evaluations, "commits": len(evo.lineage),
+          "commit_gains": gains, "floor": evo.operator.policy.min_rel,
           "launches": launches, "launches_by_body": by_body,
           "launches_per_eval": launches / scorer.n_evaluations,
           "wall_s": wall, "best_tflops": best.geomean,
           "best_values": list(best.values), "best_genome": best.genome.kernel_kwargs()})
+    rows = figure_rows("evolve", scorer, {"evolved": best.values,
+                                          "seed": evo.lineage.commits[0].values})
     state.update(launches=launches, best=best.genome, evolve_by_body=by_body,
-                 per_eval=launches / scorer.n_evaluations)
+                 per_eval=launches / scorer.n_evaluations, fig3=rows)
     evo.close()
+    del evo, scorer
+    torch.cuda.empty_cache()
+
+
+def _held_to_plain(phase, scorer, genome, names) -> float:
+    """The kernel at suite configs ``names`` (full shape, the measured
+    rung's inputs) against its plain version under the bf16 bounds; these
+    launches are comparisons, not the path's."""
+    from repro_torch.kernels.flash_attention import (bf16_agreement, bf16_agrees,
+                                                     flash_attention,
+                                                     flash_attention_plain)
+    worst = 0.0
+    kw = genome.kernel_kwargs()
+    for cfg in scorer.suite:
+        if cfg.name not in names:
+            continue
+        q, k, v = scorer.full_inputs(cfg)
+        mk = dict(kw, causal=cfg.causal, window=cfg.window)
+        st = bf16_agreement(flash_attention(q, k, v, impl="kernel", **mk),
+                            flash_attention_plain(q, k, v, **mk),
+                            flash_attention_plain(q, k, v.abs(), **mk))
+        emit({"phase": phase, "check": "kernel_vs_plain_bf16", "config": cfg.name,
+              "genome": kw, **st})
+        if not bf16_agrees(st):
+            raise AssertionError(f"{phase}: the kernel disagrees at {cfg.name}: {st}")
+        worst = max(worst, st["max_abs_err"])
+    return worst
+
+
+def phase_gqa(state):
+    """Paper §4.3: the MHA-evolved genome adapted to gqa_suite at the
+    measured rung, commit floor in force."""
+    import torch
+
+    from repro_torch.core.evals import MEASURED, InlineBackend
+    from repro_torch.core.evolution import ContinuousEvolution, default_agent
+    from repro_torch.core.perfmodel import gqa_suite
+    from repro_torch.core.variation import AgenticVariationOperator
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    mha_genome = state.get("best") or pipelined_genome()
+    scorer = InlineBackend(suite=gqa_suite(), fidelity=MEASURED)
+    evo = ContinuousEvolution(scorer=scorer, operator=AgenticVariationOperator(
+        default_agent(MEASURED, seed=mha_genome)))
+    for cfg in scorer.suite:           # set-up: inputs made before the clock
+        scorer.full_inputs(cfg)
+    torch.cuda.synchronize()
+    reset_counts(flash_attention)
+    step, wall = _drive(evo, "gqa", GQA_EVALS)
+    launches = flash_attention.launches
+    by_body = dict(flash_attention.launches_by_body)
+    by_rep = dict(flash_attention.launches_by_rep)
+    faults = []
+    if not (by_rep.get(8, 0) > 0 and by_rep.get(4, 0) > 0):
+        faults.append(f"launches by rep {by_rep}: the rep-8 and rep-4 configs were not both timed")
+    if by_body["wgmma"] <= 0 or by_body["mma_sync"] != 0:
+        faults.append(f"launches by body {by_body}: the measured launches must take wgmma")
+    if not len(evo.lineage) or evo.lineage.commits[0].genome != mha_genome:
+        faults.append("the adaptation did not start from the MHA genome")
+    if faults:
+        raise AssertionError("gqa: " + "; ".join(faults))
+    gains = check_commits(evo.lineage, "gqa")
+    best = evo.lineage.best()
+    emit({"phase": "gqa", "summary": True, "steps": step,
+          "paid_evals": scorer.n_evaluations, "commits": len(evo.lineage),
+          "commit_gains": gains, "floor": evo.operator.policy.min_rel,
+          "launches": launches, "launches_by_body": by_body, "launches_by_rep": by_rep,
+          "wall_s": wall, "zero_shot_tflops": evo.lineage.commits[0].geomean,
+          "adapted_tflops": best.geomean, "mha_genome": mha_genome.kernel_kwargs(),
+          "adapted_genome": best.genome.kernel_kwargs()})
+    rows = figure_rows("gqa", scorer, {"adapted": best.values,
+                                       "zero_shot": evo.lineage.commits[0].values})
+    err = _held_to_plain("gqa", scorer, best.genome,
+                         ("gqa8_causal_s4096", "gqa4_noncausal_s4096"))
+    state.update(gqa_launches=launches, gqa_by_body=by_body, gqa_by_rep=by_rep,
+                 fig4=rows, max_abs_err=max(state.get("max_abs_err", 0.0), err))
+    evo.close()
+    del evo, scorer
+    torch.cuda.empty_cache()
+
+
+def phase_decode_suite(state):
+    """The pipelined genome scored once on decode_suite at the measured
+    rung: GQA 32 / 8 chunks at large batch, three of them with a window of
+    1024 (block_skip bounds with a window at full shape)."""
+    import torch
+
+    from repro_torch.core.evals import MEASURED, Scorer
+    from repro_torch.core.perfmodel import decode_suite
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    genome = pipelined_genome()
+    scorer = Scorer(suite=decode_suite(), fidelity=MEASURED)
+    for cfg in scorer.suite:
+        scorer.full_inputs(cfg)
+    torch.cuda.synchronize()
+    reset_counts(flash_attention)
+    t0 = time.perf_counter()
+    sv = scorer(genome)
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    by_body = dict(flash_attention.launches_by_body)
+    emit({"phase": "decode_suite", "summary": True, "genome": genome.kernel_kwargs(),
+          "correct": sv.correct, "failure": sv.failure, "geomean_tflops": sv.geomean,
+          "launches": launches, "launches_by_body": by_body, "wall_s": wall})
+    if not (sv.correct and all(v > 0 for v in sv.values)):
+        raise AssertionError(f"decode_suite: {sv.failure}")
+    if by_body["wgmma"] < len(scorer.suite):
+        raise AssertionError(f"decode_suite: launches by body {by_body}")
+    rows = figure_rows("decode_suite", scorer, {"pipelined": sv.values})
+    windowed = [r for r, c in zip(rows, scorer.suite) if c.window is not None]
+    if not windowed or any(r["cudnn_tflops"] is not None or r["flash_tflops"] is not None
+                           for r in windowed):
+        raise AssertionError("decode_suite: a windowed config got a baseline")
+    err = _held_to_plain("decode_suite", scorer, genome,
+                         ("decode_w1024_s1024", "decode_w1024_s4096"))
+    state.update(decode_suite_launches=launches, decode_suite_by_body=by_body,
+                 max_abs_err=max(state.get("max_abs_err", 0.0), err))
+    del scorer
+    torch.cuda.empty_cache()
 
 
 def phase_times(state):
@@ -939,6 +1292,64 @@ def phase_times(state):
           "shapes": len(mha_suite()), "wgmma_slower_at": slower})
     state["times"] = rows
     _served_times(state)
+    _head_dim_times(state)
+
+
+def _head_dim_times(state):
+    """Both attention kernels at the registry's head dims off the compiled
+    widths, at the served prompt length, beside the compiled width in
+    turns: flash_attention at h2o-danube-3-4b's 120 (zero-padded to 128)
+    against 128 (GQA 32 / 8, causal), and at phi-3-vision-4.2b's 96 (MHA,
+    the mma_sync body) beside SDPA; flash_decode at 120 and 96 (padded to
+    128, the cache copied) against 128, L2 flushed.  Readings, not checks."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.evals.scorer import time_cuda_ms
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ops import DEFAULT_ATTN_GENOME
+
+    S = (state.get("serve", {}).get("prompt_lens") or [2000])[0]
+    B, Hq, L = SERVE_BATCH, 32, SERVE_MAX_LEN
+    g = torch.Generator(device="cuda").manual_seed(6)
+    kw = dict(DEFAULT_ATTN_GENOME, causal=True)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    out = {"flash_attention": {}, "flash_decode": {}}
+    for arch, D, Hkv in (("h2o-danube-3-4b", 120, 8), ("phi-3-vision-4.2b", 96, 32)):
+        q, k, v = rand(B, Hq, S, D), rand(B, Hkv, S, D), rand(B, Hkv, S, D)
+        q_w, k_w, v_w = rand(B, Hq, S, 128), rand(B, Hkv, S, 128), rand(B, Hkv, S, 128)
+        t = in_turns(lambda d: time_cuda_ms(
+            (lambda: flash_attention(q, k, v, **kw)) if d == D else
+            (lambda: flash_attention(q_w, k_w, v_w, **kw)), reps=5), 128, D)
+        lib = time_cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=Hkv != Hq), reps=5)
+        out["flash_attention"][D] = {
+            "arch": arch, "shape": f"q ({B}, {Hq}, {S}, {D}), k/v ({B}, {Hkv}, {S}, {D})",
+            "ms": t[D]["ms"], "readings": t[D]["readings"], "ms_at_128": t[128]["ms"],
+            "library_ms": lib, "library": "sdpa"}
+        del q, k, v, q_w, k_w, v_w
+    vl = torch.full((B,), S + 16, dtype=torch.int32, device="cuda")
+    for arch, D, Hkv in (("h2o-danube-3-4b", 120, 8), ("phi-3-vision-4.2b", 96, 32)):
+        q, k, v = rand(B, Hq, D), rand(B, Hkv, L, D), rand(B, Hkv, L, D)
+        q_w, k_w, v_w = rand(B, Hq, 128), rand(B, Hkv, L, 128), rand(B, Hkv, L, 128)
+        t = in_turns(lambda d: time_cold_ms(
+            (lambda: fd.flash_decode(q, k, v, vl)) if d == D else
+            (lambda: fd.flash_decode(q_w, k_w, v_w, vl))), 128, D)
+        out["flash_decode"][D] = {
+            "arch": arch, "shape": f"q ({B}, {Hq}, {D}), cache ({B}, {Hkv}, {L}, {D}), "
+                                   f"valid_len {S + 16}",
+            "ms": t[D]["ms"], "readings": t[D]["readings"], "ms_at_128": t[128]["ms"]}
+        del q, k, v, q_w, k_w, v_w
+    torch.cuda.empty_cache()
+    for name, rows in out.items():
+        for D, row in rows.items():
+            emit({"phase": "times", "check": "head_dim", "gate": False, "kernel": name,
+                  "head_dim": D, **row})
+    state["head_dim_times"] = out
 
 
 def _served_times(state):
@@ -1057,11 +1468,17 @@ def phase_kernels(state):
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:251",
-        "launches": state.get("launches", 0) + serve_launches.get("flash_attention", 0),
+        "launches": state.get("launches", 0) + state.get("gqa_launches", 0)
+        + state.get("decode_suite_launches", 0) + serve_launches.get("flash_attention", 0),
         "launches_by_path": {"evolve": state.get("launches", 0),
+                             "gqa": state.get("gqa_launches", 0),
+                             "decode_suite": state.get("decode_suite_launches", 0),
                              "serve": serve_launches.get("flash_attention", 0)},
         "launches_by_body": {"evolve": state.get("evolve_by_body"),
+                             "gqa": state.get("gqa_by_body"),
+                             "decode_suite": state.get("decode_suite_by_body"),
                              "serve": serve.get("by_body")},
+        "launches_by_rep": {"gqa": state.get("gqa_by_rep")},
         "launches_per_eval": state.get("per_eval"),
         "max_abs_err": state.get("max_abs_err"),
         "ms": r.get("ms"), "mma_sync_ms": r.get("mma_sync_ms"),
@@ -1072,7 +1489,8 @@ def phase_kernels(state):
         "library_ms": min(lib) if lib else None,
         "shape": "mha_causal_s4096 (B=8, H=16, S=4096, D=128, bf16), the pipelined "
                  "genome (DEFAULT_ATTN_GENOME); wgmma body, mma_sync body beside it",
-        "served": fa_serve}]
+        "served": fa_serve,
+        "head_dims": state.get("head_dim_times", {}).get("flash_attention")}]
     for name, src, replaces, err in (
             ("flash_decode", "flash_decode.cu", "src/repro/kernels/flash_decode.py:67",
              state.get("decode_err")),
@@ -1089,7 +1507,8 @@ def phase_kernels(state):
             "library_ms": t.get("library_ms"), "shape": t.get("shape")}
         if name == "flash_decode":
             entry.update(splits=t.get("splits", state.get("decode_splits")),
-                         one_split_ms=t.get("one_split_ms"))
+                         one_split_ms=t.get("one_split_ms"),
+                         head_dims=state.get("head_dim_times", {}).get("flash_decode"))
         else:
             entry.update(serial_ms=t.get("serial_ms"),
                          launches_by_body={"serve": serve.get("ssd_by_body")})
@@ -1126,8 +1545,9 @@ def main() -> int:
               "torch": torch.__version__, "cuda": torch.version.cuda})
     runners = {"build": lambda st: phase_build(), "kernel": phase_kernel,
                "decode_kernel": phase_decode_kernel, "ssd_kernel": phase_ssd_kernel,
-               "serve": phase_serve, "evolve": phase_evolve, "times": phase_times,
-               "kernels": phase_kernels}
+               "serve": phase_serve, "noise": phase_noise, "evolve": phase_evolve,
+               "gqa": phase_gqa, "decode_suite": phase_decode_suite,
+               "times": phase_times, "kernels": phase_kernels}
     for phase in PHASES[1:]:
         if phase in phases:
             t1 = time.perf_counter()

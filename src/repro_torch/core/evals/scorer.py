@@ -16,6 +16,22 @@ runs the kernel's plain PyTorch version.  Throughput depends on the rung:
   modelled timer filed under a device's name.
 - ``hlo`` (rung 1) is not ported yet (ROADMAP Queue 1 item 6).
 
+:meth:`Scorer.score_batch` is the reference's batch path: one
+``estimate_batch`` call per slate at rung 0, each genome in turn at the
+measured rung.  :meth:`Scorer.baselines` gives the paper's yardsticks per
+suite config: at rung 0 the reference's modelled expert and FA genomes,
+exactly; at the measured rung the TFLOP/s of PyTorch's
+``scaled_dot_product_attention`` under its cuDNN backend (``"expert"``) and
+its FlashAttention backend (``"fa_reference"``), timed with this rung's own
+timer on this rung's own inputs.  They are yardsticks: nothing on the
+evolved path calls them.
+
+The measured rung is a timing, so two scorings of one genome differ.  A
+lineage scored there commits an edit only when it gains more than
+``MEASURED_MIN_REL``, set above the spread of repeated scorings measured on
+the card (``core/evolution.py`` applies it; rung 0 keeps the agent's own
+1e-4, so its lineages stay equal to the JAX package's).
+
 Decision, diverging from the reference: the JAX ``_timed_values`` times the
 *proxy* shape and counts FLOPs from the compiled HLO.  The port times the
 suite's full shapes, where the card does real work, and counts FLOPs with
@@ -33,6 +49,7 @@ from __future__ import annotations
 
 import itertools
 import math
+import os
 import statistics
 import threading
 import time
@@ -46,8 +63,9 @@ from repro_torch.core import obs
 from repro_torch.core.evals.cache import (FIDELITIES, HLO, MEASURED, PERFMODEL,
                                           ScoreCache, fidelity_key)
 from repro_torch.core.evals.vector import ScoreVector
-from repro_torch.core.perfmodel import (BenchConfig, estimate, mha_suite,
-                                        useful_flops)
+from repro_torch.core import perfmodel
+from repro_torch.core.perfmodel import (BenchConfig, estimate, estimate_batch,
+                                        mha_suite, useful_flops)
 from repro_torch.core.search_space import KernelGenome
 from repro_torch.device import resolve_device
 
@@ -56,6 +74,37 @@ CORRECTNESS_TOL = 2e-5
 # the measured rung: CUDA-event timing, 1 warm-up then the median of 3
 TIMING_WARMUP = 1
 TIMING_REPS = 3
+
+# The commit floor of the measured rung: an edit commits only when its
+# geomean beats the parent's by more than this.  Derivation: 8 scorings of
+# one genome, each paid anew, for the seed and the pipelined genome on
+# mha_suite and on gqa_suite (chip_smoke.py's noise phase, two runs on an
+# NVIDIA H100 80GB HBM3 at 700 W).  Two scorings of one genome differed by
+# at most max / min - 1 = 3.32 % of the geomean (mha_suite, whose shapes run
+# shortest; 0.86-1.10 % on gqa_suite), at a relative standard deviation of
+# at most 1.01 %.  The floor sits 1.5x above that spread: were the timings
+# normal, a no-op edit would gain more than 5 % in about one comparison in
+# 4000 (3.5 standard deviations of a ratio of two scorings).  PERF.md keeps
+# the runs.
+MEASURED_MIN_REL = 0.05
+
+# ---------------------------------------------------------------------------
+# batch-path switch
+# ---------------------------------------------------------------------------
+
+# One switch degrades Scorer.score_batch to the scalar path, as in the
+# reference; seeded from the same environment variable.
+_BATCH_SCORING = os.environ.get("REPRO_BATCH_SCORING", "1") != "0"
+
+
+def set_batch_scoring(enabled: bool) -> None:
+    """Globally enable/disable the columnar slate-scoring path (process-wide)."""
+    global _BATCH_SCORING
+    _BATCH_SCORING = bool(enabled)
+
+
+def batch_scoring_enabled() -> bool:
+    return _BATCH_SCORING
 
 # ---------------------------------------------------------------------------
 # structure-keyed correctness memo
@@ -214,6 +263,8 @@ class Scorer:
         self._proxy_inputs = None
         self._shape_sig = None
         self._full_inputs: dict = {}
+        self._baselines: Optional[dict] = None
+        self.baseline_errors: dict = {}
 
     @property
     def n_evaluations(self) -> int:
@@ -222,6 +273,11 @@ class Scorer:
         return int(r[r.index("(") + 1:-1])
 
     # -- correctness ----------------------------------------------------------
+    def warm(self) -> None:
+        """Build the RNG-derived proxy inputs eagerly (a no-op once built)."""
+        if self.check_correctness:
+            self._proxy_data()
+
     def _proxy_data(self):
         """The reference's proxy inputs, bit for bit: float64 draws from
         ``np.random.default_rng(rng_seed)`` cast to fp32, then moved to the
@@ -336,6 +392,50 @@ class Scorer:
                 values.append(p.tflops if p.feasible else 0.0)
         return self._assemble(values, profiles)
 
+    def score_batch(self, genomes: Sequence[KernelGenome]) -> list[ScoreVector]:
+        """Batched :meth:`score_uncached`: pay the evaluation cost for every
+        entry (no cache, no dedup) with one vectorized rung-0 model call for
+        the whole slate and one structural-memo lookup per genome.  The
+        measured rung times each genome in turn.  With the batch path
+        disabled this *is* the scalar path."""
+        genomes = list(genomes)
+        if not genomes:
+            return []
+        if not _BATCH_SCORING:
+            return [self.score_uncached(g) for g in genomes]
+        t0 = time.perf_counter()
+        try:
+            for _ in genomes:
+                next(self._eval_count)
+            checks = ([self.check(g) for g in genomes]
+                      if self.check_correctness
+                      else [(True, "")] * len(genomes))
+            out: list = [None] * len(genomes)
+            todo = [i for i, (ok, why) in enumerate(checks) if ok]
+            for i, (ok, why) in enumerate(checks):
+                if not ok:
+                    out[i] = ScoreVector(tuple(c.name for c in self.suite),
+                                         tuple(0.0 for _ in self.suite),
+                                         False, why)
+            if self.fidelity == PERFMODEL:
+                be = estimate_batch([genomes[i] for i in todo], self.suite)
+                for k, i in enumerate(todo):
+                    profiles = be.profiles(k)
+                    values = [profiles[c.name].tflops
+                              if profiles[c.name].feasible else 0.0
+                              for c in self.suite]
+                    out[i] = self._assemble(values, profiles)
+            else:                     # the measured rung stays scalar per genome
+                for i in todo:
+                    out[i] = self._assemble(*self._measured_values(genomes[i]))
+            return out
+        finally:
+            dur = time.perf_counter() - t0
+            self.cache.record_eval_seconds(self.fidelity, dur)
+            if obs.enabled():
+                obs.span("score", obs.current_trace(), dur_s=dur,
+                         rung=self.fidelity, n=len(genomes))
+
     def _assemble(self, values, profiles) -> ScoreVector:
         failure = ""
         if any(v == 0.0 for v in values):
@@ -372,6 +472,53 @@ class Scorer:
                 q, k, v, causal=cfg.causal, window=cfg.window, **kw))
             values.append(useful_flops(cfg) / (ms * 1e-3) / 1e12)
         return values, profiles
+
+
+    # -- the paper's yardsticks ------------------------------------------------
+    def baselines(self) -> dict:
+        """Expert (cuDNN) and FA-reference TFLOP/s per suite config, under the
+        keys ``"expert"`` and ``"fa_reference"``.  Rung 0: the reference's
+        modelled genomes (TPU v5e model), exactly.  Measured rung: SDPA under
+        ``SDPBackend.CUDNN_ATTENTION`` and ``SDPBackend.FLASH_ATTENTION``,
+        timed once per scorer.  A config a backend refuses gets ``None``, its
+        error text in ``self.baseline_errors[key][config name]``; no other
+        backend stands in."""
+        if self.fidelity != MEASURED:
+            return {
+                "expert": tuple(perfmodel.expert_reference(c) for c in self.suite),
+                "fa_reference": tuple(perfmodel.fa_reference(c) for c in self.suite),
+            }
+        if self._baselines is None:
+            from torch.nn.attention import SDPBackend
+            self._baselines = {
+                key: tuple(self._sdpa_tflops(cfg, key, backend)
+                           for cfg in self.suite)
+                for key, backend in (("expert", SDPBackend.CUDNN_ATTENTION),
+                                     ("fa_reference", SDPBackend.FLASH_ATTENTION))}
+        return dict(self._baselines)
+
+    def _sdpa_tflops(self, cfg: BenchConfig, key: str, backend) -> Optional[float]:
+        """TFLOP/s of one SDPA backend at ``cfg``'s full shape, or None (the
+        reason kept in ``baseline_errors``)."""
+        from torch.nn.attention import sdpa_kernel
+        from torch.nn.functional import scaled_dot_product_attention
+        errors = self.baseline_errors.setdefault(key, {})
+        if cfg.window is not None:
+            errors[cfg.name] = (f"window {cfg.window}: SDPA takes no sliding "
+                                "window without an explicit mask, which changes "
+                                "the work")
+            return None
+        q, k, v = self.full_inputs(cfg)
+        kw = dict(is_causal=cfg.causal)
+        if cfg.n_heads != cfg.n_kv_heads:
+            kw["enable_gqa"] = True
+        try:
+            with sdpa_kernel(backend):
+                ms = time_cuda_ms(lambda: scaled_dot_product_attention(q, k, v, **kw))
+        except RuntimeError as e:          # the backend refused this config
+            errors[cfg.name] = str(e)[:300]
+            return None
+        return useful_flops(cfg) / (ms * 1e-3) / 1e12
 
 
 class InlineBackend(Scorer):

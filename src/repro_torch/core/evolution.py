@@ -4,7 +4,8 @@ on stagnation and commit-per-version persistence.
 
 ``ContinuousEvolution`` drives one :class:`Island` serially, scoring through
 the inline backend on the card (``device=None``) or on the CPU
-(``device="cpu"``, the plain PyTorch kernel path).
+(``device="cpu"``, the plain PyTorch kernel path).  Its default operator
+commits at the scorer's rung's floor (:func:`default_agent`).
 """
 from __future__ import annotations
 
@@ -15,14 +16,28 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.core import obs
-from repro_torch.core.evals import PERFMODEL, InlineBackend, Scorer
+from repro_torch.core.agent import ScriptedAgent
+from repro_torch.core.evals import (MEASURED, MEASURED_MIN_REL, PERFMODEL,
+                                    InlineBackend, Scorer)
 from repro_torch.core.islands import EvolutionReport, Island
 from repro_torch.core.perfmodel import suite_by_name
 from repro_torch.core.population import Lineage
+from repro_torch.core.search_space import KernelGenome
 from repro_torch.core.supervisor import Supervisor
 from repro_torch.core.variation import AgenticVariationOperator
 
-__all__ = ["ContinuousEvolution", "EvolutionReport"]
+__all__ = ["ContinuousEvolution", "EvolutionReport", "default_agent"]
+
+
+def default_agent(fidelity: str, seed: Optional[KernelGenome] = None
+                  ) -> ScriptedAgent:
+    """The scripted agent at ``fidelity``'s commit floor: ``MEASURED_MIN_REL``
+    at the measured rung, whose scores are timings; the agent's own 1e-4 at
+    rung 0, so its lineages equal the JAX package's.  ``seed`` starts an
+    adaptation (the GQA transfer)."""
+    if fidelity == MEASURED:
+        return ScriptedAgent(min_rel_improvement=MEASURED_MIN_REL, seed=seed)
+    return ScriptedAgent(seed=seed)
 
 
 class ContinuousEvolution:
@@ -36,13 +51,17 @@ class ContinuousEvolution:
         """``target_suite`` names a scenario suite from the perfmodel registry
         ('mha', 'gqa', 'decode', or a '+'-union; default mha); ``fidelity``
         and ``device`` configure the inline scorer.  All three are ignored
-        when an explicit ``scorer`` is given."""
+        when an explicit ``scorer`` is given.  Without an ``operator`` the
+        agent commits at the scorer's rung's floor (:func:`default_agent`);
+        an explicit one is used as given."""
         if scorer is None:
             suite = suite_by_name(target_suite) if target_suite else None
             scorer = InlineBackend(suite=suite, fidelity=fidelity, device=device)
+        if operator is None:
+            operator = AgenticVariationOperator(default_agent(scorer.fidelity))
         self.island = Island(
             name="main", scorer=scorer,
-            operator=operator or AgenticVariationOperator(),
+            operator=operator,
             supervisor=supervisor or Supervisor(),
             lineage=lineage, persist_path=persist_path)
         self.persist_path = persist_path

@@ -102,6 +102,15 @@ _GENOME_DEFAULTS = tuple((f.name, f.default)
                          for f in dataclasses.fields(KernelGenome))
 
 
+def genome_columns(genomes) -> dict:
+    """Struct-of-arrays decomposition over the ``_GENOME_DEFAULTS`` field
+    table: one column (list) per genome field, in wire-format field order.
+    The columnar scoring path (``perfmodel.estimate_batch``) consumes this."""
+    genomes = list(genomes)
+    return {name: [getattr(g, name) for g in genomes]
+            for name, _ in _GENOME_DEFAULTS}
+
+
 def seed_genome() -> KernelGenome:
     """x0 — the 'naive but correct' starting kernel of the evolution
     (Fig. 5's version 1): small square blocks, serial un-pipelined K loop,

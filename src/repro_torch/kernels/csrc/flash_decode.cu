@@ -33,6 +33,9 @@
 // The statistics are (rep,) vectors: the TPU kernel's (rep, 128) scratch
 // was a lane-width artefact.
 //
+// Head dims.  Instances for D = 16, 64 and 128; the wrapper zero-pads any
+// other D <= 128 to the next of them (96 and 120 run at 128).
+//
 // Types.  fp32 and bf16 inputs; both products, the statistics and the
 // accumulator are IEEE fp32 (FFMA, expf, tanhf), so fp32 inputs agree with
 // the plain version to a few ulps, and bf16 outputs are rounded once.
@@ -357,6 +360,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 template <typename T>
 cudaError_t dispatch(const Params& p, int D, cudaStream_t s) {
     if (D == 128) return launch<T, 128>(p, s);
+    if (D == 64) return launch<T, 64>(p, s);
     if (D == 16) return launch<T, 16>(p, s);
     return cudaErrorInvalidValue;
 }

@@ -34,10 +34,18 @@ Source note.
   Later     ping-pong of the two consumers, softmax overlapped with the next
             Q K^T, persistent CTAs with causal load balance, fp8.
 
+Head dims.  The kernel runs at a multiple of 16, at most 128.  A launch at
+another head_dim D <= 128 (h2o-danube-3-4b's 120) runs at
+:func:`kernel_head_dim` (D): :func:`pad_head_dim` zero-pads q, k and v, the
+scale stays 1/sqrt(D), and the output is sliced back to D.  Zero columns
+add nothing to Q K^T and give zero output columns, so this is the same
+function; 120 runs at 128 on the wgmma body.  Past 128 the kernel raises.
+
 ``flash_attention`` takes the kernel for CUDA tensors and the plain version
 for CPU tensors; a CUDA tensor never falls back to the plain version.
-``flash_attention.launches`` counts kernel launches, and
-``flash_attention.launches_by_body`` splits them by body.
+``flash_attention.launches`` counts kernel launches,
+``flash_attention.launches_by_body`` splits them by body and
+``flash_attention.launches_by_rep`` by the call's query heads per KV head.
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+MAX_HEAD_DIM = 128              # the kernel's widest head_dim
 WGMMA_HEAD_DIMS = (64, 128)     # bf16 head dims of the wgmma body
 BODIES = ("wgmma", "mma_sync", "fp32")
 
@@ -330,14 +339,35 @@ def _check_inputs(q, k, v, genome):
         raise ValueError("block_q and block_k must be positive")
 
 
+def kernel_head_dim(head_dim: int) -> int:
+    """The head_dim the kernel runs a launch at: the next multiple of 16."""
+    if not 0 < head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {head_dim} unsupported by the kernel "
+                         f"(at most {MAX_HEAD_DIM})")
+    return -(-head_dim // 16) * 16
+
+
+def pad_head_dim(q, k, v, scale: Optional[float]):
+    """``(q, k, v, scale)`` at :func:`kernel_head_dim`: the head dim
+    zero-padded, the scale 1/sqrt(D) of the original D unless given."""
+    D = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    pad = kernel_head_dim(D) - D
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    return q, k, v, scale
+
+
 def attention_body(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel body a launch takes: fixed by dtype and head_dim, never by
     the genome.  fp32 is the correctness gate (IEEE FFMA: TF32 wgmma would
-    fail its tolerance); bf16 takes wgmma where its tiles fit."""
+    fail its tolerance); bf16 takes wgmma where its tiles fit the head_dim
+    the kernel runs at (:func:`kernel_head_dim`)."""
     if dtype == torch.float32:
         return "fp32"
     if dtype == torch.bfloat16:
-        return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
+        return ("wgmma" if kernel_head_dim(head_dim) in WGMMA_HEAD_DIMS
+                else "mma_sync")
     raise TypeError(f"no flash_attention body for dtype {dtype}")
 
 
@@ -362,11 +392,10 @@ def _launch(q, k, v, *, causal, window, softcap, scale, block_q, block_k,
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    D0 = q.shape[-1]
+    q, k, v, scale = pad_head_dim(q, k, v, scale)
     B, Hq0, Sq0, D = q.shape
     Sk = k.shape[2]
-    if D % 16 or D > 128:
-        raise ValueError(f"head_dim {D} unsupported by the kernel "
-                         "(a multiple of 16, at most 128)")
     routed = attention_body(q.dtype, D)
     if body is None:
         body = routed
@@ -383,8 +412,7 @@ def _launch(q, k, v, *, causal, window, softcap, scale, block_q, block_k,
              int(q.dtype == torch.bfloat16), int(acc_dtype == "bf16"),
              int(bool(kv_in_grid)), B, Hq, rep, Sq, Sk, D, seq_mod or 0,
              bq, bk, nk, int(bool(causal)), -1 if window is None else int(window),
-             float(softcap or 0.0),
-             float(scale if scale is not None else 1.0 / (D ** 0.5)),
+             float(softcap or 0.0), float(scale),
              int(rescale_mode == "branched"), int(mask_mode == "block_skip"),
              int(div_mode == "eager"), int(body == "wgmma"), stream)
     if err != 0:
@@ -392,7 +420,11 @@ def _launch(q, k, v, *, causal, window, softcap, scale, block_q, block_k,
                            f"CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.launches_by_body[body] += 1
-    return _unpack(o, seq_mod)
+    rep_of_call = Hq0 // k.shape[1]
+    flash_attention.launches_by_rep[rep_of_call] = \
+        flash_attention.launches_by_rep.get(rep_of_call, 0) + 1
+    o = _unpack(o, seq_mod)
+    return o if D == D0 else o[..., :D0].contiguous()
 
 
 def flash_attention(
@@ -435,3 +467,4 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)
+flash_attention.launches_by_rep = {}

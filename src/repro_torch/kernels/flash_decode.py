@@ -26,6 +26,15 @@ Source note.
             (NVIDIA H100 80GB HBM3 at 700.00 W, ``chip_smoke.py``; PERF.md).
   Later     TMA loads; CUDA graphs over the host-bound decode step.
 
+Head dims.  The kernels are compiled for ``HEAD_DIMS`` = 16, 64 and 128.
+A call at another head_dim D <= 128 (phi-3-vision-4.2b's 96,
+h2o-danube-3-4b's 120) runs at :func:`kernel_head_dim` (D), the next
+compiled one: :func:`pad_head_dim` zero-pads q and the caches, the scale
+stays 1/sqrt(D), and the output is sliced back to D.  Zero columns add
+nothing to q K^T and give zero output columns, so this is the same
+function.  Padding copies the cache, at every decode step.  Past 128 the
+kernel raises.
+
 ``flash_decode`` takes the kernels for CUDA tensors and the plain version
 for CPU tensors; a CUDA tensor never falls back to the plain version.
 ``flash_decode.launches`` counts calls that launched the kernels (each
@@ -42,7 +51,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels.flash_attention import NEG_INF, _apply_softcap
 
-HEAD_DIMS = (16, 128)      # head dims the kernel is compiled for
+HEAD_DIMS = (16, 64, 128)  # head dims the kernel is compiled for
 MAX_REP = 8                # query heads per KV head the kernel takes
 TILE_K = 64                # keys per tile of the kernel's walk
 MAX_SPLITS = 1024          # splits the combine kernel takes
@@ -81,6 +90,28 @@ def kernel_splits(q: torch.Tensor, k_cache: torch.Tensor) -> int:
     """The split count the kernel takes for these CUDA tensors."""
     B, Hkv, L = k_cache.shape[:3]
     return decode_splits(B, Hkv, L, _sm_count(q.device.index or 0))
+
+
+def kernel_head_dim(head_dim: int) -> int:
+    """The head_dim the kernel runs a call at: the smallest compiled one
+    that holds it."""
+    for d in HEAD_DIMS:
+        if head_dim <= d:
+            return d
+    raise ValueError(f"head_dim {head_dim} unsupported by the flash_decode kernel "
+                     f"(at most {HEAD_DIMS[-1]})")
+
+
+def pad_head_dim(q, k_cache, v_cache, scale: Optional[float]):
+    """``(q, k_cache, v_cache, scale)`` at :func:`kernel_head_dim`: the head
+    dim zero-padded, the scale 1/sqrt(D) of the original D unless given."""
+    D = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    pad = kernel_head_dim(D) - D
+    if pad:
+        q, k_cache, v_cache = (torch.nn.functional.pad(t, (0, pad))
+                               for t in (q, k_cache, v_cache))
+    return q, k_cache, v_cache, scale
 
 
 def flash_decode_plain(
@@ -201,12 +232,11 @@ def _kernel():
 
 
 def _launch(q, k_cache, v_cache, valid_len, *, softcap, scale, splits):
+    D0 = q.shape[-1]
+    q, k_cache, v_cache, scale = pad_head_dim(q, k_cache, v_cache, scale)
     B, Hq, D = q.shape
     _, Hkv, L, _ = k_cache.shape
     rep = Hq // Hkv
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} unsupported by the flash_decode kernel "
-                         f"(supported: {HEAD_DIMS})")
     if rep > MAX_REP:
         raise ValueError(f"{rep} query heads per KV head; the flash_decode "
                          f"kernel takes at most {MAX_REP}")
@@ -230,12 +260,11 @@ def _launch(q, k_cache, v_cache, valid_len, *, softcap, scale, splits):
     err = _kernel()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                     valid_len.data_ptr(), part, part + 4 * n, part + 8 * n, o.data_ptr(),
                     int(q.dtype == torch.bfloat16), B, Hkv, rep, L, D, splits,
-                    float(softcap or 0.0),
-                    float(scale if scale is not None else 1.0 / (D ** 0.5)), stream)
+                    float(softcap or 0.0), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
     flash_decode.launches += 1
-    return o
+    return o if D == D0 else o[..., :D0].contiguous()
 
 
 def flash_decode(

@@ -15,6 +15,7 @@ import torch
 from repro.kernels.flash_decode import flash_decode as jax_flash_decode
 from repro.kernels.ref import decode_reference as jax_decode_reference
 from repro.kernels.ref import mha_reference as jax_mha_reference
+from repro_torch.kernels import flash_decode as fd_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import (TILE_K, decode_splits, flash_decode,
                                               flash_decode_plain)
@@ -172,3 +173,34 @@ def test_wrapper_passes_splits_to_the_plain_version_on_cpu():
                                flash_decode_plain(q, kc, vc, vl, splits=3), rtol=0, atol=0)
     with pytest.raises(ValueError, match="splits"):
         flash_decode_plain(q, kc, vc, vl, splits=0)
+
+
+@pytest.mark.parametrize("D", [64, 96, 120])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_padded_head_dim_matches_jax(D, splits):
+    """What a call at head_dim 64, 96 or 120 computes: ``pad_head_dim``
+    takes q and the caches to the next compiled width (64 stays, 96 and 120
+    become 128) with the scale of the original D; the plain version on the
+    padded inputs, sliced back to D, against JAX interpret mode and the
+    reference at D.  fp32, TOL; rep 4, a ragged L."""
+    arrs = _inputs(D, 3, 8, 2, 200, D, vl=[1, 77, 200])
+    q, kc, vc, vl = map(torch.from_numpy, arrs)
+    qp, kp, vp, scale = fd_mod.pad_head_dim(q, kc, vc, None)
+    width = fd_mod.kernel_head_dim(D)
+    assert width in fd_mod.HEAD_DIMS and width == (64 if D == 64 else 128)
+    assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == width
+    assert scale == 1.0 / D ** 0.5 and not kp[..., D:].any()
+    ours = flash_decode_plain(qp, kp, vp, vl, scale=scale, splits=splits)
+    assert not ours[..., D:].any()
+    j_in = [jnp.asarray(a) for a in arrs]
+    theirs = np.asarray(jax_flash_decode(*j_in, block_k=128, interpret=True))
+    np.testing.assert_allclose(ours[..., :D].numpy(), theirs, **TOL)
+    np.testing.assert_allclose(ours[..., :D].numpy(),
+                               np.asarray(jax_decode_reference(*j_in)), **TOL)
+
+
+def test_head_dims_the_decode_kernel_runs_at():
+    assert [fd_mod.kernel_head_dim(d) for d in (8, 16, 17, 64, 80, 96, 120, 128)] \
+        == [16, 16, 64, 64, 128, 128, 128, 128]
+    with pytest.raises(ValueError, match="head_dim 256"):
+        fd_mod.kernel_head_dim(256)

@@ -18,9 +18,11 @@ from repro_torch.core.evals import InlineBackend
 from repro_torch.core.evolution import ContinuousEvolution
 from repro_torch.core.perfmodel import BenchConfig
 from repro_torch.core.population import Lineage
+from repro_torch.core.search_space import seed_genome
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 STEPS = 6
+STEPS_GQA = 4         # steps of the GQA adaptation
 
 # the two-config suite of tests/test_core_search.py
 FAST = [("c4k", 8, 16, 16, 4096, True), ("n4k", 8, 16, 16, 4096, False)]
@@ -99,3 +101,56 @@ def test_source_scan_finds_no_jax_and_no_reference_imports():
     assert hits == []
     smoke = SRC.parent / "chip_smoke.py"
     assert not bad.search(smoke.read_text())
+
+
+def test_gqa_adaptation_matches_jax(tmp_path, capsys):
+    """``python -m repro_torch.evolve --gqa`` at rung 0: the best genome of
+    the persisted MHA lineage seeds a ScriptedAgent on gqa_suite, and the
+    JAX package, seeded with the same genome, commits the same versions,
+    genomes and values."""
+    from repro.core import AgenticVariationOperator as JaxOperator
+    from repro.core import ScriptedAgent as JaxScriptedAgent
+    from repro.core.perfmodel import gqa_suite as jax_gqa_suite
+    from repro.core.search_space import KernelGenome as JaxKernelGenome
+    from repro_torch import evolve
+    cli = ["--fidelity", "perfmodel", "--device", "cpu", "--out", str(tmp_path)]
+    evolve.main(cli + ["--commits", "2", "--max-steps", "3"])
+    evolve.main(cli + ["--gqa", "--commits", "3", "--max-steps", str(STEPS_GQA)])
+    out = capsys.readouterr().out
+    assert "adapting MHA-evolved genome to GQA" in out
+    assert "expert line" in out and "FA line" in out
+    seed = Lineage.load(str(tmp_path / "lineage_mha.json")).best().genome
+    ours = Lineage.load(str(tmp_path / "lineage_gqa.json"))
+    assert ours.commits[0].genome == seed and len(ours) > 1
+
+    theirs = JaxContinuousEvolution(
+        scorer=JaxScorer(suite=jax_gqa_suite()),
+        operator=JaxOperator(JaxScriptedAgent(
+            seed=JaxKernelGenome(**seed.__dict__))))
+    theirs.run(max_steps=STEPS_GQA, target_commits=3)
+    assert [c.version for c in ours.commits] == \
+        [c.version for c in theirs.lineage.commits]
+    assert _commits(ours) == _commits(theirs.lineage)
+
+
+def test_measured_rung_commits_above_its_floor():
+    """The default operator commits at the scorer's rung's floor: the
+    measured spread at the measured rung, the agent's 1e-4 at rung 0 (so
+    rung-0 lineages stay the JAX package's).  An explicit operator is used
+    as given."""
+    from repro_torch.core.agent import ScriptedAgent
+    from repro_torch.core.evals import MEASURED, MEASURED_MIN_REL
+    from repro_torch.core.evolution import default_agent
+    from repro_torch.core.variation import AgenticVariationOperator
+    assert MEASURED_MIN_REL > 1e-4
+    assert default_agent(MEASURED).min_rel == MEASURED_MIN_REL
+    assert default_agent("perfmodel").min_rel == ScriptedAgent().min_rel == 1e-4
+    assert ContinuousEvolution(device="cpu").operator.policy.min_rel == 1e-4
+    measured = InlineBackend(device="cpu")
+    measured.fidelity = MEASURED          # the rung's wiring, without a card
+    assert ContinuousEvolution(scorer=measured).operator.policy.min_rel == \
+        MEASURED_MIN_REL
+    given = AgenticVariationOperator(ScriptedAgent(min_rel_improvement=0.5))
+    assert ContinuousEvolution(scorer=measured, operator=given).operator is given
+    seeded = default_agent(MEASURED, seed=seed_genome())
+    assert seeded.seed == seed_genome() and seeded.min_rel == MEASURED_MIN_REL

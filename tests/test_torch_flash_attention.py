@@ -125,3 +125,38 @@ def test_cpu_wrapper_counts_no_launch_by_body():
     flash_attention(*(torch.from_numpy(a).to(torch.bfloat16) for a in arrs), causal=True)
     assert flash_attention.launches_by_body == before
     assert set(before) == {"wgmma", "mma_sync", "fp32"}
+
+
+@pytest.mark.parametrize("D", [96, 120])
+@pytest.mark.parametrize("gqa_pack", [False, True])
+def test_padded_head_dim_matches_jax(D, gqa_pack):
+    """What a launch at head_dim 96 or 120 computes: ``pad_head_dim`` takes
+    q, k, v to the kernel's width (96 stays, 120 becomes 128) with the scale
+    of the original D; the plain version on the padded inputs, sliced back
+    to D, against JAX interpret mode at D.  fp32, ATOL; causal with a
+    window, GQA rep 2."""
+    arrs = _qkv(D, 1, 4, 2, 96, 96, D)
+    t_in = [torch.from_numpy(a) for a in arrs]
+    q, k, v, scale = fa_mod.pad_head_dim(*t_in, None)
+    width = fa_mod.kernel_head_dim(D)
+    assert q.shape[-1] == k.shape[-1] == v.shape[-1] == width == -(-D // 16) * 16
+    assert scale == 1.0 / D ** 0.5
+    assert not q[..., D:].any() and torch.equal(q[..., :D], t_in[0])
+    kw = dict(causal=True, window=40, block_q=32, block_k=64, gqa_pack=gqa_pack)
+    ours = fa_mod.flash_attention_plain(q, k, v, scale=scale, **kw)
+    assert not ours[..., D:].any()
+    theirs = np.asarray(jax_flash_attention(*(jnp.asarray(a) for a in arrs),
+                                            interpret=True, **kw))
+    np.testing.assert_allclose(ours[..., :D].numpy(), theirs, atol=ATOL, rtol=0)
+
+
+def test_head_dims_the_kernel_runs_at():
+    assert [fa_mod.kernel_head_dim(d) for d in (8, 16, 64, 80, 96, 100, 120, 128)] \
+        == [16, 16, 64, 80, 96, 112, 128, 128]
+    assert attention_body(torch.bfloat16, 120) == "wgmma"     # runs at 128
+    assert attention_body(torch.bfloat16, 100) == "mma_sync"
+    for d in (0, 129, 256):
+        with pytest.raises(ValueError, match=f"head_dim {d}"):
+            fa_mod.kernel_head_dim(d)
+    q = torch.zeros((1, 2, 16, 64))
+    assert fa_mod.pad_head_dim(q, q, q, 0.5) == (q, q, q, 0.5)   # nothing to pad

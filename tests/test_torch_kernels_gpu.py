@@ -10,8 +10,9 @@ import torch
 
 from repro_torch.core.evals import CORRECTNESS_TOL, Scorer
 from repro_torch.core.search_space import seed_genome
-from repro_torch.kernels.flash_attention import (_launch, bf16_agreement,
-                                                 bf16_agrees, flash_attention,
+from repro_torch.kernels.flash_attention import (_launch, attention_body,
+                                                 bf16_agreement, bf16_agrees,
+                                                 flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.ref import mha_reference
 
@@ -76,6 +77,35 @@ def test_measured_rung_times_on_card():
     sv = s(seed_genome())
     assert sv.correct and sv.values[0] > 0
     assert flash_attention.launches > before
+
+
+@pytest.mark.gpu
+def test_measured_baselines_on_card():
+    """At the measured rung ``baselines()`` times SDPA's cuDNN ("expert") and
+    flash ("fa_reference") backends per config, once per scorer; a windowed
+    config gets None from both with the reason, never another backend's
+    number; score_batch times each genome in turn."""
+    _need_card()
+    from repro_torch.core.evals import MEASURED
+    from repro_torch.core.perfmodel import BenchConfig
+    suite = [BenchConfig("mha_c1k", 2, 4, 4, 1024, causal=True),
+             BenchConfig("gqa_n1k", 2, 8, 2, 1024, causal=False),
+             BenchConfig("win_c1k", 2, 8, 2, 1024, causal=True, window=256)]
+    s = Scorer(suite=suite, fidelity=MEASURED)
+    base = s.baselines()
+    assert set(base) == {"expert", "fa_reference"}
+    assert s.baselines() == base                  # timed once per scorer
+    for key, vals in base.items():
+        assert len(vals) == len(suite) and vals[2] is None
+        assert "window" in s.baseline_errors[key]["win_c1k"]
+        for cfg, v in zip(suite[:2], vals):
+            assert (v is None) == (cfg.name in s.baseline_errors[key])
+            assert v is None or v > 0
+    assert base["fa_reference"][0] is not None     # flash takes plain MHA
+    before = flash_attention.launches
+    svs = s.score_batch([seed_genome(), seed_genome().with_(kv_in_grid=True)])
+    assert all(sv.correct and min(sv.values) > 0 for sv in svs)
+    assert flash_attention.launches > before and s.n_evaluations == 2
 
 
 # the wgmma body's cases: causal / window / softcap, each rescale and div
@@ -189,3 +219,37 @@ def test_mma_sync_body_forced_for_timing():
         assert bf16_agrees(bf16_agreement(out, plain, mag)), name
     with pytest.raises(ValueError, match="body"):
         _launch(q.float(), k.float(), v.float(), body="mma_sync", **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [96, 120])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gqa_pack", [False, True])
+def test_padded_head_dims_on_card(D, dtype, gqa_pack):
+    """head_dim 96 (a multiple of 16: no padding) and 120 (zero-padded to
+    128, the scale kept at 1/sqrt(120)): one launch, on the body
+    ``attention_body`` names (bf16 120 takes wgmma), against the plain
+    version at the original D: fp32 within ATOL and the oracle within
+    CORRECTNESS_TOL, bf16 within the bounds.  Causal with a window, rep 2,
+    S = 300."""
+    _need_card()
+    q, k, v = (torch.from_numpy(a).cuda().to(dtype)
+               for a in _qkv(D + 3, 2, 4, 2, 300, 300, D))
+    kw = dict(causal=True, window=200, block_q=128, block_k=128, gqa_pack=gqa_pack)
+    body = attention_body(dtype, D)
+    assert body == {torch.float32: "fp32", torch.bfloat16:
+                    "wgmma" if D == 120 else "mma_sync"}[dtype]
+    before, by_body = flash_attention.launches, dict(flash_attention.launches_by_body)
+    out = flash_attention(q, k, v, impl="kernel", **kw)
+    assert flash_attention.launches == before + 1
+    assert flash_attention.launches_by_body[body] == by_body[body] + 1
+    assert out.shape == q.shape and out.is_contiguous()
+    plain = flash_attention_plain(q, k, v, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, plain, atol=ATOL, rtol=0)
+        ref = mha_reference(q, k, v, causal=True, window=200)
+        torch.testing.assert_close(out, ref, atol=CORRECTNESS_TOL, rtol=0)
+    else:
+        mag = flash_attention_plain(q, k, v.abs(), **kw)
+        stats = bf16_agreement(out, plain, mag)
+        assert bf16_agrees(stats), stats

@@ -105,3 +105,73 @@ def test_cache_and_eval_count():
     assert s.n_evaluations == 1 and s.cache_hits == 1
     assert s.map([g, g]) == [first, first]
     assert s.submit(g).result() is first
+
+
+@pytest.mark.parametrize("suite_fn", [mha_suite, gqa_suite, decode_suite])
+def test_rung0_baselines_equal_jax(suite_fn):
+    """At rung 0 ``baselines()`` is the reference's: the modelled expert and
+    FA genomes (TPU v5e model), the same keys, the same values."""
+    ours = Scorer(suite=suite_fn(), device="cpu").baselines()
+    theirs = JaxScorer(suite=suite_fn()).baselines()
+    assert ours == theirs
+    assert set(ours) == {"expert", "fa_reference"}
+
+
+def _same_vectors(ours, theirs):
+    assert len(ours) == len(theirs)
+    for a, b in zip(ours, theirs):
+        assert a.config_names == b.config_names
+        assert a.values == b.values
+        assert (a.correct, a.failure) == (b.correct, b.failure)
+        assert set(a.profiles) == set(b.profiles)
+
+
+@pytest.mark.parametrize("batch", [True, False])
+@pytest.mark.parametrize("suite_fn", [mha_suite, gqa_suite, decode_suite])
+def test_score_batch_equals_jax(suite_fn, batch):
+    """``score_batch`` at rung 0 with batch scoring set the same way in both
+    packages: one ``estimate_batch`` per slate (on), the scalar path (off).
+    Every genome is paid for; nothing lands in the cache."""
+    from repro.core.evals.scorer import set_batch_scoring as jax_set_batch
+    from repro_torch.core.evals import batch_scoring_enabled, set_batch_scoring
+    genomes = _sample(12, seed=8) + [seed_genome()]
+    port = Scorer(suite=suite_fn(), check_correctness=False, device="cpu")
+    ref = JaxScorer(suite=suite_fn(), check_correctness=False)
+    set_batch_scoring(batch)
+    jax_set_batch(batch)
+    try:
+        assert batch_scoring_enabled() is batch
+        ours, theirs = port.score_batch(genomes), ref.score_batch(genomes)
+    finally:
+        set_batch_scoring(True)
+        jax_set_batch(True)
+    _same_vectors(ours, theirs)
+    assert port.n_evaluations == len(genomes) and len(port.cache) == 0
+    assert port.score_batch([]) == []
+
+
+def test_score_batch_gates_as_jax():
+    """With the gate on, failed genomes (bf16 accumulators) score zero with
+    the same failure in both packages' batch paths, and the rest score as
+    the scalar path does (to relative 1e-12: the columnar model folds its
+    sums in another order)."""
+    genomes = [seed_genome(), seed_genome().with_(acc_dtype="bf16"),
+               KernelGenome(block_q=256, block_k=512, kv_in_grid=True)]
+    port = Scorer(suite=mha_suite(), device="cpu")
+    ref = JaxScorer(suite=mha_suite())
+    ours = port.score_batch(genomes)
+    _same_vectors(ours, ref.score_batch(genomes))
+    assert [sv.correct for sv in ours] == [True, False, True]
+    for a, b in zip(ours, [port.score_uncached(g) for g in genomes]):
+        assert (a.correct, a.failure) == (b.correct, b.failure)
+        assert a.values == pytest.approx(b.values, rel=1e-12, abs=0)
+
+
+def test_warm_builds_the_proxy_inputs_once():
+    s = Scorer(suite=gqa_suite(), device="cpu", rng_seed=3)
+    s.warm()
+    built = s._proxy_inputs
+    assert built is not None
+    s.warm()
+    assert s._proxy_inputs is built
+    Scorer(suite=gqa_suite(), device="cpu", check_correctness=False).warm()

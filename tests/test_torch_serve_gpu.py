@@ -4,11 +4,14 @@ CUDA device and skips without one.  This file imports no JAX:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_serve_gpu.py -m gpu -q
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs.registry import get_arch
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd as sm
@@ -77,11 +80,44 @@ def test_split_decode_matches_plain_on_card(splits, dtype):
 @pytest.mark.gpu
 def test_decode_kernel_rejects_an_unsupported_head_dim():
     _need_card()
-    q = torch.zeros((1, 4, 96), device="cuda")
-    kv = torch.zeros((1, 4, 8, 96), device="cuda")
+    q = torch.zeros((1, 4, 256), device="cuda")
+    kv = torch.zeros((1, 4, 8, 256), device="cuda")
     vl = torch.ones((1,), dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="head_dim 96"):
+    before = fd.flash_decode.launches
+    with pytest.raises(ValueError, match="head_dim 256"):
         fd.flash_decode(q, kv, kv, vl)
+    assert fd.flash_decode.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 96, 120])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, None])
+def test_decode_padded_and_64_on_card(D, dtype, splits):
+    """The D = 64 instance, and 96 / 120 zero-padded to 128 (the scale kept
+    at 1/sqrt(D)): one call, against the plain version at the original D
+    walking the same splits: fp32 within ATOL (and the reference), bf16
+    within flash_decode's bounds.  rep 4, softcap 30."""
+    _need_card()
+    rng = np.random.default_rng(D)
+    B, Hkv, rep, L = 3, 2, 4, 1000
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(dtype)
+               for s in ((B, rep * Hkv, D), (B, Hkv, L, D), (B, Hkv, L, D)))
+    vl = torch.tensor([1, 577, L], dtype=torch.int32, device="cuda")
+    before = fd.flash_decode.launches
+    out = fd.flash_decode(q, k, v, vl, splits=splits, softcap=30.0)
+    assert fd.flash_decode.launches == before + 1
+    assert out.shape == q.shape and out.is_contiguous()
+    n = splits or fd.kernel_splits(q, k)
+    plain = fd.flash_decode_plain(q, k, v, vl, splits=n, softcap=30.0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, plain, atol=ATOL, rtol=0)
+        torch.testing.assert_close(out, decode_reference(q, k, v, vl, softcap=30.0),
+                                   atol=ATOL, rtol=0)
+    else:
+        mag = fd.flash_decode_plain(q, k, v.abs(), vl, splits=n, softcap=30.0)
+        stats = fd.bf16_agreement(out, plain, mag)
+        assert fd.bf16_agrees(stats), stats
 
 
 @pytest.mark.gpu
@@ -175,3 +211,41 @@ def test_reduced_jamba_serves_the_cpu_tokens_through_the_kernels():
     assert outs["card"] == outs["cpu"]
     assert {"flash_attention", "flash_decode", "ssd_chunked"} <= set(seen)
     assert all(f.launches > n for f, n in counts.items())
+
+
+def published_head_dim(name):
+    """The arch's reduced config at its published head_dim: danube's 120
+    (3840 / 32), phi-3-vision's 96 (3072 / 32)."""
+    full = get_arch(name)
+    return dataclasses.replace(full.reduced(), d_head=full.head_dim)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,head_dim", [("h2o-danube-3-4b", 120),
+                                           ("phi-3-vision-4.2b", 96)])
+def test_published_head_dims_serve_through_the_kernels(name, head_dim):
+    """Reduced h2o-danube-3-4b (sliding window) and phi-3-vision-4.2b at
+    their published head dims, served with impl="auto" in fp32 on the card
+    through flash_attention and flash_decode (every launch held to its
+    plain version by the checking hook), give the CPU reference's tokens."""
+    _need_card()
+    cfg = published_head_dim(name)
+    assert cfg.head_dim == head_dim
+    cpu = init_params(cfg, torch.Generator().manual_seed(1))
+
+    def to_cuda(tree):
+        return {k: to_cuda(v) if isinstance(v, dict) else v.cuda() for k, v in tree.items()}
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)) for n in (5, 19, 33, 40)]
+    outs, seen = {}, []
+    counts = {f: f.launches for f in (fa.flash_attention, fd.flash_decode)}
+    for device, params in (("card", to_cuda(cpu)), ("cpu", cpu)):
+        srv = BatchedServer(cfg, params, batch_size=2, max_len=64)
+        with ops.checking(lambda kernel, stats: seen.append((kernel, stats))):
+            outs[device] = [r.output for r in srv.run(
+                [Request(i, p, 6) for i, p in enumerate(prompts)])]
+    assert outs["card"] == outs["cpu"]
+    assert {k for k, _ in seen} == {"flash_attention", "flash_decode"}
+    assert all(f.launches > n for f, n in counts.items())
+    for kernel, stats in seen:
+        assert stats["finite"] and stats["rel_rms"] <= 1e-5, (kernel, stats)
