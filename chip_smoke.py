@@ -5,7 +5,9 @@
     python3 chip_smoke.py --phases device,build,kernel
 
 Phases, each printing JSON lines (any failure exits non-zero):
-  device         card name, count, and nvidia-smi's name and power limit
+  device         card name, count, and nvidia-smi's name and power limit; the
+                 H100 model's SM count, L2 size and shared memory per block
+                 held against torch.cuda.get_device_properties
   build          nvcc of the three sm_90a libraries from the checkout, all
                  started together; registers and spills of every kernel
   kernel         flash_attention vs its plain PyTorch version and vs the
@@ -31,14 +33,27 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  and the pipelined genome on mha_suite and gqa_suite, each
                  paid anew; the commit floor MEASURED_MIN_REL must not lie
                  below the largest spread (max / min - 1 of the geomean)
+  rank           rung 0 against rung 2 on mha_suite: RANK_GENOMES genomes
+                 drawn with a fixed numpy seed (fp32 accumulators), the seed
+                 and the pipelined genome, each scored once at the measured
+                 rung; Spearman's rho of each model's geomeans (H100, TPU
+                 v5e) against the card's, and the host seconds per estimate
+                 call of each model
   evolve         ContinuousEvolution(fidelity="measured") on mha_suite() for
-                 a bounded number of paid evaluations; the kernel must
-                 launch, and no commit may gain MEASURED_MIN_REL or less; the
-                 paper's Fig. 3 rows: evolved, seed, cuDNN and flash TFLOP/s
-                 per config (Scorer.baselines(): SDPA's two backends)
+                 a bounded number of paid evaluations, twice in turn: planned
+                 from the H100 model and Hopper facts (the default), and from
+                 the TPU v5e model's profiles and facts (the planning A/B);
+                 the kernel must launch, and no commit may gain
+                 MEASURED_MIN_REL or less; each plan's commits and the paid
+                 evaluations it took to come within MEASURED_MIN_REL of the
+                 pipelined genome, scored in the same call; the paper's
+                 Fig. 3 rows of the H100-planned run: evolved, seed, cuDNN
+                 and flash TFLOP/s per config (Scorer.baselines(): SDPA's
+                 two backends)
   gqa            paper §4.3: the evolve phase's best genome adapted to
                  gqa_suite at the measured rung for GQA_EVALS paid
-                 evaluations; launches at rep 8 and rep 4 on the wgmma body;
+                 evaluations, planned from the Hopper facts; launches at
+                 rep 8 and rep 4 on the wgmma body;
                  the Fig. 4 rows: adapted, zero-shot (the MHA genome), cuDNN
                  and flash; the adapted genome held to the plain version at
                  a rep-8 and a rep-4 shape
@@ -91,8 +106,10 @@ TOL_F32 = 1e-5              # kernel vs plain, fp32 inputs and accumulator
 EVOLVE_EVALS = 10           # paid evaluations of the evolution phase
 NOISE_REPS = 8              # scorings of one genome in the noise phase
 GQA_EVALS = 8               # paid evaluations of the GQA adaptation
+RANK_GENOMES = 24           # genomes drawn for the rank phase (besides the
+RANK_SEED = 0               # seed and the pipelined genome), and their seed
 PHASES = ("device", "build", "kernel", "decode_kernel", "ssd_kernel", "serve",
-          "noise", "evolve", "gqa", "decode_suite", "times", "kernels")
+          "noise", "rank", "evolve", "gqa", "decode_suite", "times", "kernels")
 SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd.cu")
 TOL_SSD_F32 = 2e-5          # SSD kernel vs plain, fp32: relative to max |y|
 SERVE_ARCH, SERVE_LAYERS = "jamba-v0.1-52b", 16
@@ -181,6 +198,24 @@ def bound(cfg) -> tuple:
     ops_ms = 1e3 * useful_flops(cfg) / PEAK_BF16
     bytes_ms = 1e3 * nbytes / PEAK_BYTES
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def device_check() -> None:
+    """The H100 model's SM count, L2 size and shared memory per block
+    against the card's; they must agree."""
+    import torch
+
+    from repro_torch.core import perfmodel_h100 as m
+    props = torch.cuda.get_device_properties(0)
+    card = {"sms": props.multi_processor_count,
+            "l2_bytes": getattr(props, "L2_cache_size", None),
+            "smem_per_block_optin": getattr(props, "shared_memory_per_block_optin", None)}
+    model = {"sms": m.N_SM, "l2_bytes": m.L2_BYTES,
+             "smem_per_block_optin": m.SMEM_PER_BLOCK}
+    emit({"phase": "device", "check": "h100_model_constants", "card": card,
+          "model": model})
+    if card != model:
+        raise AssertionError(f"the H100 model's constants {model} are not the card's {card}")
 
 
 def phase_build():
@@ -1058,62 +1093,174 @@ def figure_rows(phase, scorer, columns: dict) -> list:
     return rows
 
 
-def _drive(evo, phase, evals) -> tuple:
-    """Steps of ``evo`` until ``evals`` paid evaluations; one line a step."""
+def _drive(evo, phase, evals, target=None, **tags) -> tuple:
+    """Steps of ``evo`` until ``evals`` paid evaluations; one line a step.
+    Returns (steps, wall seconds, paid evaluations when the best first
+    reached ``target`` TFLOP/s or None)."""
     scorer = evo.scorer
-    t_all, step = time.perf_counter(), 0
+    t_all, step, reached = time.perf_counter(), 0, None
     while scorer.n_evaluations < evals and step < 3 * evals:
         n0, t0 = scorer.n_evaluations, time.perf_counter()
         rep = evo.run(max_steps=1)
         dt = time.perf_counter() - t0
         paid = scorer.n_evaluations - n0
         best = evo.lineage.best()
+        if reached is None and target is not None and best and best.geomean >= target:
+            reached = scorer.n_evaluations
         trace = evo.island.traces[-1]
-        emit({"phase": phase, "step": step, "committed": rep.commits > 0,
+        emit({"phase": phase, **tags, "step": step, "committed": rep.commits > 0,
               "best_tflops": best.geomean if best else 0.0, "paid_evals": paid,
               "s_per_eval": dt / paid if paid else None, "note": trace["note"][:80],
               "tried": [f"{a[1][:70]} -> {b[1][:40]}" for a, b in
                         zip(trace["trace"], trace["trace"][1:])
                         if a[0] == "edit" and b[0] == "eval"]})
         step += 1
-    return step, time.perf_counter() - t_all
+    return step, time.perf_counter() - t_all, reached
 
 
-def phase_evolve(state):
+def spearman(a, b) -> float:
+    """Spearman's rank correlation of two sequences (ties take their mean
+    rank)."""
+    import numpy as np
+
+    def ranks(x):
+        x = np.asarray(x, dtype=np.float64)
+        r = np.empty(len(x))
+        r[x.argsort(kind="stable")] = np.arange(len(x), dtype=np.float64)
+        for v in np.unique(x):
+            r[x == v] = r[x == v].mean()
+        return r
+    return float(np.corrcoef(ranks(a), ranks(b))[0, 1])
+
+
+def phase_rank(state):
+    """Rung 0 against rung 2: a seeded genome sample scored once each at
+    the measured rung on mha_suite, ranked against each model's geomeans."""
+    import numpy as np
     import torch
 
-    from repro_torch.core.evolution import ContinuousEvolution
+    from repro_torch.core import perfmodel, perfmodel_h100
+    from repro_torch.core.evals import MEASURED, Scorer
+    from repro_torch.core.perfmodel import mha_suite
+    from repro_torch.core.search_space import full_space, seed_genome
     from repro_torch.kernels.flash_attention import flash_attention
 
-    evo = ContinuousEvolution(fidelity="measured")
-    scorer = evo.scorer
-    for cfg in scorer.suite:           # set-up: inputs made before the clock
+    space = [g for g in full_space() if g.acc_dtype == "f32"]
+    rng = np.random.default_rng(RANK_SEED)
+    genomes = [space[i] for i in rng.choice(len(space), RANK_GENOMES, replace=False)]
+    genomes += [g for g in (seed_genome(), pipelined_genome()) if g not in genomes]
+    suite = mha_suite()
+    scorer = Scorer(suite=suite, fidelity=MEASURED)
+    for cfg in suite:                  # set-up: inputs made before the clock
         scorer.full_inputs(cfg)
     torch.cuda.synchronize()
     reset_counts(flash_attention)
-    step, wall = _drive(evo, "evolve", EVOLVE_EVALS)
+    card, t0 = [], time.perf_counter()
+    for g in genomes:
+        sv = scorer(g)
+        if not (sv.correct and sv.geomean > 0):
+            raise AssertionError(f"rank: {g} failed on the card: {sv.failure}")
+        card.append(sv.geomean)
+    wall = time.perf_counter() - t0
     launches = flash_attention.launches
     by_body = dict(flash_attention.launches_by_body)
-    best = evo.lineage.best()
-    if launches <= 0:
-        raise AssertionError("the evolution never launched the kernel")
-    if by_body["wgmma"] <= 0:
-        raise AssertionError(f"the measured rung never took the wgmma body: {by_body}")
-    gains = check_commits(evo.lineage, "evolve")
-    emit({"phase": "evolve", "summary": True, "steps": step,
-          "paid_evals": scorer.n_evaluations, "commits": len(evo.lineage),
-          "commit_gains": gains, "floor": evo.operator.policy.min_rel,
-          "launches": launches, "launches_by_body": by_body,
-          "launches_per_eval": launches / scorer.n_evaluations,
-          "wall_s": wall, "best_tflops": best.geomean,
-          "best_values": list(best.values), "best_genome": best.genome.kernel_kwargs()})
-    rows = figure_rows("evolve", scorer, {"evolved": best.values,
-                                          "seed": evo.lineage.commits[0].values})
-    state.update(launches=launches, best=best.genome, evolve_by_body=by_body,
-                 per_eval=launches / scorer.n_evaluations, fig3=rows)
-    evo.close()
-    del evo, scorer
+    if launches <= 0 or by_body["wgmma"] <= 0:
+        raise AssertionError(f"rank: the measured rung never took the wgmma body: {by_body}")
+
+    def modelled(model):
+        """Each genome's modelled geomean, and host seconds per estimate call."""
+        t = time.perf_counter()
+        geo = [float(np.exp(np.mean([np.log(model.estimate(g, c).tflops)
+                                     for c in suite]))) for g in genomes]
+        return geo, (time.perf_counter() - t) / (len(genomes) * len(suite))
+    h100, h100_s = modelled(perfmodel_h100)
+    tpu, tpu_s = modelled(perfmodel)
+    for g, c, h, t in zip(genomes, card, h100, tpu):
+        emit({"phase": "rank", "genome": g.kernel_kwargs(), "card_tflops": c,
+              "h100_model_tflops": h, "tpu_v5e_model_tflops": t})
+    out = {"rho_h100_model": spearman(h100, card), "rho_tpu_v5e_model": spearman(tpu, card),
+           "genomes": len(genomes), "sample_seed": RANK_SEED,
+           "estimate_s_h100_model": h100_s, "estimate_s_tpu_v5e_model": tpu_s,
+           "model_s_per_scoring_h100": h100_s * len(suite),
+           "model_s_per_scoring_tpu_v5e": tpu_s * len(suite),
+           "measured_s_per_scoring": wall / len(genomes),
+           "launches": launches, "launches_by_body": by_body}
+    emit({"phase": "rank", "summary": True, "gate": False, **out})
+    state.update(rank=out, rank_launches=launches,
+                 model_checks_s=state.get("model_checks_s", 0.0) + time.perf_counter() - t0)
+    del scorer
     torch.cuda.empty_cache()
+
+
+def phase_evolve(state):
+    """The measured evolution twice, in turn: planned from the H100 model
+    and Hopper facts (the default), then from the TPU v5e model's profiles
+    and facts (the planning A/B); each against the pipelined genome scored
+    in this call."""
+    import torch
+
+    from repro_torch.core.evals import MEASURED, MEASURED_MIN_REL, InlineBackend, Scorer
+    from repro_torch.core.evolution import ContinuousEvolution
+    from repro_torch.core.knowledge import KnowledgeBase
+    from repro_torch.core.knowledge_h100 import HOPPER_FACTS
+    from repro_torch.core.perfmodel import mha_suite
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    t_ref = time.perf_counter()
+    ref = Scorer(suite=mha_suite(), fidelity=MEASURED)
+    pipelined = ref(pipelined_genome()).geomean
+    del ref
+    t_ref = time.perf_counter() - t_ref
+    target = pipelined * (1.0 - MEASURED_MIN_REL)
+    emit({"phase": "evolve", "pipelined_tflops": pipelined, "target_tflops": target})
+    plans = {}
+    for plan in ("h100", "tpu_v5e"):
+        if plan == "h100":
+            evo = ContinuousEvolution(fidelity=MEASURED)
+        else:
+            evo = ContinuousEvolution(
+                scorer=InlineBackend(fidelity=MEASURED, _plan_machine="tpu_v5e"),
+                kb=KnowledgeBase())
+        scorer = evo.scorer
+        for cfg in scorer.suite:       # set-up: inputs made before the clock
+            scorer.full_inputs(cfg)
+        torch.cuda.synchronize()
+        reset_counts(flash_attention)
+        step, wall, reached = _drive(evo, "evolve", EVOLVE_EVALS, target=target, plan=plan)
+        launches = flash_attention.launches
+        by_body = dict(flash_attention.launches_by_body)
+        best = evo.lineage.best()
+        if launches <= 0:
+            raise AssertionError(f"the {plan}-planned evolution never launched the kernel")
+        if by_body["wgmma"] <= 0:
+            raise AssertionError(f"the measured rung never took the wgmma body: {by_body}")
+        gains = check_commits(evo.lineage, "evolve")
+        plans[plan] = {"paid_evals_to_pipelined": reached, "commits": len(evo.lineage),
+                       "best_tflops": best.geomean, "launches": launches}
+        emit({"phase": "evolve", "summary": True, "plan": plan,
+              "kb": "hopper" if evo.kb.facts == HOPPER_FACTS else "tpu_v5e", "steps": step,
+              "paid_evals": scorer.n_evaluations, "commits": len(evo.lineage),
+              "commit_notes": [c.note for c in evo.lineage.commits],
+              "commit_gains": gains, "floor": evo.operator.policy.min_rel,
+              "paid_evals_to_pipelined": reached, "pipelined_tflops": pipelined,
+              "launches": launches, "launches_by_body": by_body,
+              "launches_per_eval": launches / scorer.n_evaluations,
+              "wall_s": wall, "best_tflops": best.geomean,
+              "best_values": list(best.values), "best_genome": best.genome.kernel_kwargs()})
+        if plan == "h100":
+            rows = figure_rows("evolve", scorer, {"evolved": best.values,
+                                                  "seed": evo.lineage.commits[0].values})
+            state.update(launches=launches, best=best.genome, evolve_by_body=by_body,
+                         per_eval=launches / scorer.n_evaluations, fig3=rows)
+        else:
+            state.update(tpu_plan_launches=launches, model_checks_s=state.get(
+                "model_checks_s", 0.0) + t_ref + wall)
+        evo.close()
+        del evo, scorer
+        torch.cuda.empty_cache()
+    emit({"phase": "evolve", "planning_ab": True, "gate": False, **{
+        f"{plan}_{k}": v for plan, row in plans.items() for k, v in row.items()}})
+    state["planning_ab"] = plans
 
 
 def _held_to_plain(phase, scorer, genome, names) -> float:
@@ -1148,6 +1295,7 @@ def phase_gqa(state):
 
     from repro_torch.core.evals import MEASURED, InlineBackend
     from repro_torch.core.evolution import ContinuousEvolution, default_agent
+    from repro_torch.core.knowledge_h100 import HOPPER_FACTS
     from repro_torch.core.perfmodel import gqa_suite
     from repro_torch.core.variation import AgenticVariationOperator
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1160,7 +1308,7 @@ def phase_gqa(state):
         scorer.full_inputs(cfg)
     torch.cuda.synchronize()
     reset_counts(flash_attention)
-    step, wall = _drive(evo, "gqa", GQA_EVALS)
+    step, wall, _ = _drive(evo, "gqa", GQA_EVALS)
     launches = flash_attention.launches
     by_body = dict(flash_attention.launches_by_body)
     by_rep = dict(flash_attention.launches_by_rep)
@@ -1171,12 +1319,15 @@ def phase_gqa(state):
         faults.append(f"launches by body {by_body}: the measured launches must take wgmma")
     if not len(evo.lineage) or evo.lineage.commits[0].genome != mha_genome:
         faults.append("the adaptation did not start from the MHA genome")
+    if evo.kb.facts != HOPPER_FACTS:
+        faults.append("the adaptation did not plan from the Hopper facts")
     if faults:
         raise AssertionError("gqa: " + "; ".join(faults))
     gains = check_commits(evo.lineage, "gqa")
     best = evo.lineage.best()
-    emit({"phase": "gqa", "summary": True, "steps": step,
+    emit({"phase": "gqa", "summary": True, "plan": scorer.plan_machine, "steps": step,
           "paid_evals": scorer.n_evaluations, "commits": len(evo.lineage),
+          "commit_notes": [c.note for c in evo.lineage.commits],
           "commit_gains": gains, "floor": evo.operator.policy.min_rel,
           "launches": launches, "launches_by_body": by_body, "launches_by_rep": by_rep,
           "wall_s": wall, "zero_shot_tflops": evo.lineage.commits[0].geomean,
@@ -1468,9 +1619,12 @@ def phase_kernels(state):
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:251",
-        "launches": state.get("launches", 0) + state.get("gqa_launches", 0)
+        "launches": state.get("launches", 0) + state.get("tpu_plan_launches", 0)
+        + state.get("rank_launches", 0) + state.get("gqa_launches", 0)
         + state.get("decode_suite_launches", 0) + serve_launches.get("flash_attention", 0),
         "launches_by_path": {"evolve": state.get("launches", 0),
+                             "evolve_tpu_plan": state.get("tpu_plan_launches", 0),
+                             "rank": state.get("rank_launches", 0),
                              "gqa": state.get("gqa_launches", 0),
                              "decode_suite": state.get("decode_suite_launches", 0),
                              "serve": serve_launches.get("flash_attention", 0)},
@@ -1543,9 +1697,11 @@ def main() -> int:
     if "device" in phases:
         emit({"phase": "device", "name": name, "count": count, "nvidia_smi": smi,
               "torch": torch.__version__, "cuda": torch.version.cuda})
+        device_check()
     runners = {"build": lambda st: phase_build(), "kernel": phase_kernel,
                "decode_kernel": phase_decode_kernel, "ssd_kernel": phase_ssd_kernel,
-               "serve": phase_serve, "noise": phase_noise, "evolve": phase_evolve,
+               "serve": phase_serve, "noise": phase_noise, "rank": phase_rank,
+               "evolve": phase_evolve,
                "gqa": phase_gqa, "decode_suite": phase_decode_suite,
                "times": phase_times, "kernels": phase_kernels}
     for phase in PHASES[1:]:
@@ -1553,7 +1709,10 @@ def main() -> int:
             t1 = time.perf_counter()
             runners[phase](state)
             emit({"phase": phase, "done": True, "wall_s": time.perf_counter() - t1})
-    emit({"phase": "done", "wall_s": time.perf_counter() - t0})
+    # model_checks_s: the rank phase, the pipelined reference scoring and the
+    # TPU-planned evolution, which check the rung-0 models against the card
+    emit({"phase": "done", "wall_s": time.perf_counter() - t0,
+          "model_checks_s": state.get("model_checks_s")})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

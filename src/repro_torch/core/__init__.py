@@ -5,8 +5,10 @@ from repro_torch.core.evals import InlineBackend, ScoreCache, ScoreVector, Score
 from repro_torch.core.evolution import ContinuousEvolution, EvolutionReport
 from repro_torch.core.islands import Island
 from repro_torch.core.knowledge import KnowledgeBase
+from repro_torch.core.knowledge_h100 import HOPPER_FACTS, knowledge_for
 from repro_torch.core.perfmodel import (BenchConfig, decode_suite, estimate,
                                         gqa_suite, mha_suite, suite_by_name)
+from repro_torch.core.perfmodel_h100 import estimate as estimate_h100
 from repro_torch.core.population import Commit, Lineage
 from repro_torch.core.search_space import KernelGenome, seed_genome
 from repro_torch.core.supervisor import Supervisor
@@ -19,7 +21,9 @@ __all__ = [
     "AgentPolicy", "Directive", "ScriptedAgent", "VariationResult",
     "InlineBackend", "ScoreCache", "ScoreVector", "Scorer",
     "ContinuousEvolution", "EvolutionReport", "Island", "KnowledgeBase",
-    "BenchConfig", "decode_suite", "estimate", "gqa_suite", "mha_suite",
+    "HOPPER_FACTS", "knowledge_for",
+    "BenchConfig", "decode_suite", "estimate", "estimate_h100", "gqa_suite",
+    "mha_suite",
     "suite_by_name", "Commit", "Lineage", "KernelGenome", "seed_genome",
     "Supervisor", "RefutedMemory", "Toolbelt", "AgenticVariationOperator",
     "PlanExecuteSummarize", "SingleShotMutation", "make_operator",

@@ -7,20 +7,24 @@ blocks clamped by :meth:`Scorer._clamped_kwargs`) against the oracle
 gate runs the hand-written sm_90a kernel in IEEE fp32; on ``device="cpu"`` it
 runs the kernel's plain PyTorch version.  Throughput depends on the rung:
 
-- ``perfmodel`` (rung 0): ``perfmodel.estimate``, the reference's TPU v5e
-  model, verbatim, so lineages match the JAX package.  Its TFLOP/s are a
-  model's output for a TPU, not a time on the card.
+- ``perfmodel`` (rung 0): a model of one machine, chosen by ``machine``:
+  ``"tpu_v5e"`` (the default) is ``perfmodel.estimate``, the reference's TPU
+  v5e model, verbatim, so lineages match the JAX package; ``"h100"`` is
+  ``perfmodel_h100.estimate``, the model of this port's kernel on the card.
+  Their TFLOP/s are a model's output, not a time on the card.
 - ``measured`` (rung 2): times the kernel on the card at each suite config's
   full shape in bf16 with CUDA events (1 warm-up, median of 3) and reports
   ``useful_flops(cfg)`` / time.  It refuses ``device="cpu"``: there is no
-  modelled timer filed under a device's name.
+  modelled timer filed under a device's name.  Its feasibility and the
+  profiles the agent plans from come from the ``"h100"`` model.
 - ``hlo`` (rung 1) is not ported yet (ROADMAP Queue 1 item 6).
 
 :meth:`Scorer.score_batch` is the reference's batch path: one
-``estimate_batch`` call per slate at rung 0, each genome in turn at the
-measured rung.  :meth:`Scorer.baselines` gives the paper's yardsticks per
-suite config: at rung 0 the reference's modelled expert and FA genomes,
-exactly; at the measured rung the TFLOP/s of PyTorch's
+``estimate_batch`` call per slate at rung 0 (the chosen machine's), each
+genome in turn at the measured rung.  :meth:`Scorer.baselines` gives the
+paper's yardsticks per suite config: at rung 0 the reference's expert and FA
+genomes through the chosen machine's model (exactly the reference's under
+``"tpu_v5e"``); at the measured rung the TFLOP/s of PyTorch's
 ``scaled_dot_product_attention`` under its cuDNN backend (``"expert"``) and
 its FlashAttention backend (``"fa_reference"``), timed with this rung's own
 timer on this rung's own inputs.  They are yardsticks: nothing on the
@@ -37,13 +41,15 @@ Decision, diverging from the reference: the JAX ``_timed_values`` times the
 suite's full shapes, where the card does real work, and counts FLOPs with
 ``useful_flops`` (the FlashAttention convention), so a genome's score is the
 rate a user of that shape would see.  Each config's value is still gated on
-``estimate(g, cfg).feasible``, as in the reference.
+the rung-0 model's feasibility, as in the reference, but on the card's
+model: ``perfmodel_h100.estimate(g, cfg).feasible``.
 
 :class:`Scorer` is a deterministic function of the genome at rung 0: the
 proxy inputs are rebuilt from ``rng_seed`` with numpy exactly as the
 reference builds them.  :meth:`Scorer.score_key` and
-:meth:`Scorer.structural_key` carry the device type, so the plain and the
-kernel gate in one process never answer each other from the memo.
+:meth:`Scorer.structural_key` carry the device type and the machine, so the
+plain and the kernel gate, and the two models, never answer each other from
+the memo.
 """
 from __future__ import annotations
 
@@ -63,13 +69,17 @@ from repro_torch.core import obs
 from repro_torch.core.evals.cache import (FIDELITIES, HLO, MEASURED, PERFMODEL,
                                           ScoreCache, fidelity_key)
 from repro_torch.core.evals.vector import ScoreVector
-from repro_torch.core import perfmodel
-from repro_torch.core.perfmodel import (BenchConfig, estimate, estimate_batch,
-                                        mha_suite, useful_flops)
+from repro_torch.core import perfmodel, perfmodel_h100
+from repro_torch.core.perfmodel import BenchConfig, mha_suite, useful_flops
 from repro_torch.core.search_space import KernelGenome
 from repro_torch.device import resolve_device
 
 CORRECTNESS_TOL = 2e-5
+
+# rung 0's machines: the reference's TPU v5e model (lineage parity with the
+# JAX package) and the model of this port's kernel on the H100
+MACHINES = ("tpu_v5e", "h100")
+_MODELS = {"tpu_v5e": perfmodel, "h100": perfmodel_h100}
 
 # the measured rung: CUDA-event timing, 1 warm-up then the median of 3
 TIMING_WARMUP = 1
@@ -233,13 +243,30 @@ class Scorer:
 
     The memo lives in ``self.cache`` (a :class:`ScoreCache`); pass one in to
     share it, or read it afterwards.  ``device=None`` is the card.
+    ``machine`` picks rung 0's model (:data:`MACHINES`; default
+    ``"tpu_v5e"``); the measured rung takes ``"h100"`` only.  ``plan_machine``
+    is the machine whose model gives the profiles the agent plans from.
+    ``_plan_machine`` is for the planning A/B only: at the measured rung it
+    attaches that machine's profiles instead of the card's (feasibility stays
+    the card's).
     """
 
     def __init__(self, suite: Optional[Sequence[BenchConfig]] = None,
                  check_correctness: bool = True, rng_seed: int = 0,
                  cache: Optional[ScoreCache] = None,
                  fidelity: str = PERFMODEL,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 machine: Optional[str] = None,
+                 _plan_machine: Optional[str] = None):
+        for m in (machine, _plan_machine):
+            if m is not None and m not in MACHINES:
+                raise ValueError(f"unknown machine {m!r}; known: {MACHINES}")
+        if fidelity == MEASURED and machine not in (None, "h100"):
+            raise ValueError(
+                "the measured rung plans from the card's model: machine must "
+                f"be 'h100', got {machine!r}")
+        if _plan_machine is not None and fidelity != MEASURED:
+            raise ValueError("_plan_machine is for the measured rung's planning A/B")
         if fidelity not in FIDELITIES:
             raise ValueError(f"unknown fidelity {fidelity!r}; "
                              f"known: {FIDELITIES}")
@@ -256,6 +283,9 @@ class Scorer:
         self.check_correctness = check_correctness
         self.rng_seed = rng_seed
         self.fidelity = fidelity
+        self.machine = machine or ("h100" if fidelity == MEASURED else "tpu_v5e")
+        self.plan_machine = _plan_machine or self.machine
+        self._model = _MODELS[self.machine]
         self.cache = cache if cache is not None else ScoreCache()
         # paid-eval counter: itertools.count().__next__ is GIL-atomic
         self._eval_count = itertools.count()
@@ -307,15 +337,16 @@ class Scorer:
         return kw
 
     def structural_key(self, genome: KernelGenome) -> tuple:
-        """The correctness-memo key: the device type, the proxy-shape
-        signature, the input seed and the clamped kernel kwargs."""
+        """The correctness-memo key: the device type, the machine, the
+        proxy-shape signature, the input seed and the clamped kernel
+        kwargs."""
         if self._shape_sig is None:
             self._shape_sig = tuple(sorted(
                 (sh["B"], sh["Hq"], sh["Hkv"], sh["S"], sh["D"], sh["causal"],
                  -1 if sh["window"] is None else sh["window"])
                 for sh in _correctness_proxy_shapes(self.suite)))
         kw = self._clamped_kwargs(genome)
-        return (self.device.type, self._shape_sig, self.rng_seed,
+        return (self.device.type, self.machine, self._shape_sig, self.rng_seed,
                 tuple(sorted(kw.items())))
 
     def check(self, genome: KernelGenome) -> tuple[bool, str]:
@@ -348,10 +379,11 @@ class Scorer:
 
     # -- scoring ----------------------------------------------------------------
     def score_key(self, genome: KernelGenome) -> str:
-        """The cache/dedup key for this genome at this scorer's fidelity, on
-        this device type (suffixed, so ``key_fidelity`` still reads the
-        rung)."""
-        return f"{fidelity_key(genome.key(), self.fidelity)}@{self.device.type}"
+        """The cache/dedup key for this genome at this scorer's fidelity,
+        planned on this machine, on this device type (suffixed, so
+        ``key_fidelity`` still reads the rung)."""
+        return (f"{fidelity_key(genome.key(), self.fidelity)}"
+                f"@{self.plan_machine}@{self.device.type}")
 
     def __call__(self, genome: KernelGenome) -> ScoreVector:
         key = self.score_key(genome)
@@ -387,16 +419,16 @@ class Scorer:
         else:
             values, profiles = [], {}
             for cfg in self.suite:
-                p = estimate(genome, cfg)
+                p = self._model.estimate(genome, cfg)
                 profiles[cfg.name] = p
                 values.append(p.tflops if p.feasible else 0.0)
         return self._assemble(values, profiles)
 
     def score_batch(self, genomes: Sequence[KernelGenome]) -> list[ScoreVector]:
         """Batched :meth:`score_uncached`: pay the evaluation cost for every
-        entry (no cache, no dedup) with one vectorized rung-0 model call for
-        the whole slate and one structural-memo lookup per genome.  The
-        measured rung times each genome in turn.  With the batch path
+        entry (no cache, no dedup) with one rung-0 model call for the whole
+        slate (the machine's ``estimate_batch``) and one structural-memo
+        lookup per genome.  The measured rung times each genome in turn.  With the batch path
         disabled this *is* the scalar path."""
         genomes = list(genomes)
         if not genomes:
@@ -418,7 +450,8 @@ class Scorer:
                                          tuple(0.0 for _ in self.suite),
                                          False, why)
             if self.fidelity == PERFMODEL:
-                be = estimate_batch([genomes[i] for i in todo], self.suite)
+                be = self._model.estimate_batch([genomes[i] for i in todo],
+                                                self.suite)
                 for k, i in enumerate(todo):
                     profiles = be.profiles(k)
                     values = [profiles[c.name].tflops
@@ -457,14 +490,14 @@ class Scorer:
     def _measured_values(self, genome: KernelGenome):
         """Rung 2: CUDA-event time of the kernel at every config's full
         shape; TFLOP/s = ``useful_flops(cfg)`` / median time.  A config the
-        rung-0 model finds infeasible scores 0.0, as in the reference."""
+        card's model finds infeasible scores 0.0, as in the reference."""
         from repro_torch.kernels.flash_attention import flash_attention
         kw = genome.kernel_kwargs()
-        values, profiles = [], {}
+        values, profiles = [], self.measured_profiles(genome)
+        card = (profiles if self.plan_machine == "h100" else
+                {c.name: perfmodel_h100.estimate(genome, c) for c in self.suite})
         for cfg in self.suite:
-            p = estimate(genome, cfg)
-            profiles[cfg.name] = p
-            if not p.feasible:
+            if not card[cfg.name].feasible:
                 values.append(0.0)
                 continue
             q, k, v = self.full_inputs(cfg)
@@ -473,20 +506,28 @@ class Scorer:
             values.append(useful_flops(cfg) / (ms * 1e-3) / 1e12)
         return values, profiles
 
+    def measured_profiles(self, genome: KernelGenome) -> dict:
+        """``{config name: Profile}`` the measured rung attaches for the
+        agent to plan from: the card's model (``plan_machine``'s under the
+        planning A/B)."""
+        model = _MODELS[self.plan_machine]
+        return {cfg.name: model.estimate(genome, cfg) for cfg in self.suite}
 
     # -- the paper's yardsticks ------------------------------------------------
     def baselines(self) -> dict:
         """Expert (cuDNN) and FA-reference TFLOP/s per suite config, under the
         keys ``"expert"`` and ``"fa_reference"``.  Rung 0: the reference's
-        modelled genomes (TPU v5e model), exactly.  Measured rung: SDPA under
+        two genomes modelled by the chosen machine (under ``"tpu_v5e"`` the
+        reference's values, exactly).  Measured rung: SDPA under
         ``SDPBackend.CUDNN_ATTENTION`` and ``SDPBackend.FLASH_ATTENTION``,
         timed once per scorer.  A config a backend refuses gets ``None``, its
         error text in ``self.baseline_errors[key][config name]``; no other
         backend stands in."""
         if self.fidelity != MEASURED:
             return {
-                "expert": tuple(perfmodel.expert_reference(c) for c in self.suite),
-                "fa_reference": tuple(perfmodel.fa_reference(c) for c in self.suite),
+                "expert": tuple(self._model.expert_reference(c) for c in self.suite),
+                "fa_reference": tuple(self._model.fa_reference(c)
+                                      for c in self.suite),
             }
         if self._baselines is None:
             from torch.nn.attention import SDPBackend

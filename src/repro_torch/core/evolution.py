@@ -5,7 +5,11 @@ on stagnation and commit-per-version persistence.
 ``ContinuousEvolution`` drives one :class:`Island` serially, scoring through
 the inline backend on the card (``device=None``) or on the CPU
 (``device="cpu"``, the plain PyTorch kernel path).  Its default operator
-commits at the scorer's rung's floor (:func:`default_agent`).
+commits at the scorer's rung's floor (:func:`default_agent`), and its
+knowledge base holds the facts of the machine the scorer plans from
+(:func:`knowledge_for`): Hopper facts at the measured rung and at rung 0
+under ``machine="h100"``, the reference's TPU facts at rung 0 under
+``"tpu_v5e"`` (the default, for lineage parity with the JAX package).
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ from repro_torch.core.agent import ScriptedAgent
 from repro_torch.core.evals import (MEASURED, MEASURED_MIN_REL, PERFMODEL,
                                     InlineBackend, Scorer)
 from repro_torch.core.islands import EvolutionReport, Island
+from repro_torch.core.knowledge import KnowledgeBase
+from repro_torch.core.knowledge_h100 import knowledge_for
 from repro_torch.core.perfmodel import suite_by_name
 from repro_torch.core.population import Lineage
 from repro_torch.core.search_space import KernelGenome
@@ -47,20 +53,27 @@ class ContinuousEvolution:
                  persist_path: Optional[str] = None,
                  target_suite: Optional[str] = None,
                  fidelity: str = PERFMODEL,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 machine: Optional[str] = None,
+                 kb: Optional[KnowledgeBase] = None):
         """``target_suite`` names a scenario suite from the perfmodel registry
-        ('mha', 'gqa', 'decode', or a '+'-union; default mha); ``fidelity``
-        and ``device`` configure the inline scorer.  All three are ignored
-        when an explicit ``scorer`` is given.  Without an ``operator`` the
-        agent commits at the scorer's rung's floor (:func:`default_agent`);
-        an explicit one is used as given."""
+        ('mha', 'gqa', 'decode', or a '+'-union; default mha); ``fidelity``,
+        ``device`` and ``machine`` (rung 0's model) configure the inline
+        scorer.  All four are ignored when an explicit ``scorer`` is given.
+        Without an ``operator`` the agent commits at the scorer's rung's
+        floor (:func:`default_agent`); without a ``kb`` the facts are those
+        of the scorer's ``plan_machine``.  An explicit operator or kb is
+        used as given."""
         if scorer is None:
             suite = suite_by_name(target_suite) if target_suite else None
-            scorer = InlineBackend(suite=suite, fidelity=fidelity, device=device)
+            scorer = InlineBackend(suite=suite, fidelity=fidelity, device=device,
+                                   machine=machine)
         if operator is None:
             operator = AgenticVariationOperator(default_agent(scorer.fidelity))
+        if kb is None:
+            kb = knowledge_for(scorer.plan_machine)
         self.island = Island(
-            name="main", scorer=scorer,
+            name="main", scorer=scorer, kb=kb,
             operator=operator,
             supervisor=supervisor or Supervisor(),
             lineage=lineage, persist_path=persist_path)
