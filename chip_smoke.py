@@ -8,8 +8,11 @@ Phases, each printing JSON lines (any failure exits non-zero):
   device         card name, count, and nvidia-smi's name and power limit; the
                  H100 model's SM count, L2 size and shared memory per block
                  held against torch.cuda.get_device_properties
-  build          nvcc of the three sm_90a libraries from the checkout, all
-                 started together; registers and spills of every kernel
+  build          the three sm_90a libraries built from the checkout by
+                 BUILD_PROCS spawned processes at once, as the workers of a pool
+                 on a cold build directory would: nvcc must run once per
+                 source (the others wait on its lock and load); registers
+                 and spills of every kernel
   kernel         flash_attention vs its plain PyTorch version and vs the
                  oracle: every combination of the six non-block genome axes
                  x 3 block pairs on the gate's fp32 proxy shapes, bf16 at
@@ -50,6 +53,21 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  Fig. 3 rows of the H100-planned run: evolved, seed, cuDNN
                  and flash TFLOP/s per config (Scorer.baselines(): SDPA's
                  two backends)
+  backends       the evaluation backends on the card (mha_suite, measured
+                 rung): a slate of 8 genomes (the seed, the pipelined genome,
+                 6 drawn as rank draws them) through the process and the
+                 service backend, POOL_WORKERS spawned workers each, against
+                 inline: equal gate verdicts, geomeans within
+                 MEASURED_MIN_REL; the card lock's sections of every process
+                 disjoint; flash_attention launched on its fp32 and wgmma
+                 bodies inside the workers; the measured evolution through
+                 the process backend (spawn and warm seconds apart from the
+                 steady state, seconds per paid evaluation beside evolve's
+                 inline figure), no commit at or below the floor; a service
+                 worker SIGKILLed with REQUEUE_SLATE genomes in flight, every
+                 result arriving with inline's verdicts; the elastic pool
+                 (spawned slots) grown to POOL_WORKERS and shrunk back under
+                 a queue held by a modelled latency
   gqa            paper §4.3: the evolve phase's best genome adapted to
                  gqa_suite at the measured rung for GQA_EVALS paid
                  evaluations, planned from the Hopper facts; launches at
@@ -94,6 +112,7 @@ import argparse
 import contextlib
 import json
 import os
+import queue
 import random
 import subprocess
 import sys
@@ -108,8 +127,15 @@ NOISE_REPS = 8              # scorings of one genome in the noise phase
 GQA_EVALS = 8               # paid evaluations of the GQA adaptation
 RANK_GENOMES = 24           # genomes drawn for the rank phase (besides the
 RANK_SEED = 0               # seed and the pipelined genome), and their seed
+BUILD_PROCS = 2                # processes that build the kernels at once
+POOL_WORKERS = 2            # workers of each pool of the backends phase
+SLATE_DRAWN = 6             # genomes drawn (as rank draws them) for its slate
+REQUEUE_SLATE = 6           # genomes in flight when a service worker is killed
+ELASTIC_LATENCY_S = 0.5     # modelled latency that holds the elastic pool's queue
+ELASTIC_IDLE_S = 1.0        # idle seconds after which it retires a worker
 PHASES = ("device", "build", "kernel", "decode_kernel", "ssd_kernel", "serve",
-          "noise", "rank", "evolve", "gqa", "decode_suite", "times", "kernels")
+          "noise", "rank", "evolve", "backends", "gqa", "decode_suite", "times",
+          "kernels")
 SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd.cu")
 TOL_SSD_F32 = 2e-5          # SSD kernel vs plain, fp32: relative to max |y|
 SERVE_ARCH, SERVE_LAYERS = "jamba-v0.1-52b", 16
@@ -218,20 +244,65 @@ def device_check() -> None:
         raise AssertionError(f"the H100 model's constants {model} are not the card's {card}")
 
 
-def phase_build():
-    """One nvcc for each source, all started together, then loaded."""
+def _build_all(out) -> None:
+    """One build process: every source built at once, one thread each;
+    its pid and BUILD_INFO go to the queue ``out``."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
-    t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as ex:
         list(ex.map(_build.build, SOURCES))
+    out.put((os.getpid(), {src: _build.BUILD_INFO[src] for src in SOURCES}))
+
+
+def phase_build():
+    """BUILD_PROCS spawned processes build the three sources at once, as the
+    workers of a pool on a cold build directory would: each source's nvcc
+    must run once (none if it was built already), the other build processes wait
+    on its lock and load.  Then the libraries are loaded here."""
+    import multiprocessing
+
+    from repro_torch.kernels import _build
+    cold = {src: not _build.library_path(src).exists() for src in SOURCES}
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_build_all, args=(out,)) for _ in range(BUILD_PROCS)]
+    try:
+        for p in procs:
+            p.start()
+        infos: dict = {}
+        while len(infos) < len(procs):          # drained before the joins
+            try:
+                pid, info = out.get(timeout=5)
+            except queue.Empty:
+                failed = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if failed or time.perf_counter() - t0 > 600:
+                    raise AssertionError(f"a build process failed (exit codes {failed}); "
+                                         "its nvcc error is on stderr")
+                continue
+            infos[pid] = info
+        for p in procs:
+            p.join(timeout=60)
+            if p.exitcode != 0:
+                raise AssertionError(f"build process {p.pid} exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
     for src in SOURCES:
         _build.load(src)
     wall = time.perf_counter() - t0
     for src in SOURCES:
-        emit({"phase": "build", "source": src, "wall_s": wall,
-              **_build.BUILD_INFO[src]})
+        built = [pid for pid, info in infos.items() if not info[src]["cached"]]
+        info = next((infos[pid][src] for pid in built), infos[next(iter(infos))][src])
+        emit({"phase": "build", "source": src, "wall_s": wall, "cold": cold[src],
+              "build_procs": len(procs), "nvcc_runs": len(built),
+              "lock_wait_s": [i[src]["lock_wait_s"] for i in infos.values()],
+              **{k: v for k, v in info.items() if k != "lock_wait_s"}})
+        if len(built) != int(cold[src]):
+            raise AssertionError(f"{src}: nvcc ran {len(built)} times across "
+                                 f"{len(procs)} build processes (cold: {cold[src]})")
 
 
 def _proxy(rng, Hkv, causal, window):
@@ -1213,6 +1284,7 @@ def phase_evolve(state):
     t_ref = time.perf_counter() - t_ref
     target = pipelined * (1.0 - MEASURED_MIN_REL)
     emit({"phase": "evolve", "pipelined_tflops": pipelined, "target_tflops": target})
+    state["pipelined_tflops"] = pipelined
     plans = {}
     for plan in ("h100", "tpu_v5e"):
         if plan == "h100":
@@ -1251,7 +1323,8 @@ def phase_evolve(state):
             rows = figure_rows("evolve", scorer, {"evolved": best.values,
                                                   "seed": evo.lineage.commits[0].values})
             state.update(launches=launches, best=best.genome, evolve_by_body=by_body,
-                         per_eval=launches / scorer.n_evaluations, fig3=rows)
+                         per_eval=launches / scorer.n_evaluations, fig3=rows,
+                         evolve_s_per_eval=wall / scorer.n_evaluations)
         else:
             state.update(tpu_plan_launches=launches, model_checks_s=state.get(
                 "model_checks_s", 0.0) + t_ref + wall)
@@ -1261,6 +1334,246 @@ def phase_evolve(state):
     emit({"phase": "evolve", "planning_ab": True, "gate": False, **{
         f"{plan}_{k}": v for plan, row in plans.items() for k, v in row.items()}})
     state["planning_ab"] = plans
+
+
+def _draw(n, seed):
+    """``n`` genomes drawn as the rank phase draws its sample: fp32
+    accumulators, ``numpy.random.default_rng(seed).choice``."""
+    import numpy as np
+
+    from repro_torch.core.search_space import full_space
+    space = [g for g in full_space() if g.acc_dtype == "f32"]
+    rng = np.random.default_rng(seed)
+    return [space[i] for i in rng.choice(len(space), n, replace=False)]
+
+
+def _spans_disjoint(snapshots: dict) -> dict:
+    """Every held card-lock section of every process, per card: sorted by
+    start, each must begin after the one before it ended."""
+    per_card: dict = {}
+    for who, st in snapshots.items():
+        for uuid, rec in st["card_locks"].items():
+            per_card.setdefault(uuid, []).extend((a, b, who) for a, b in rec["spans"])
+    out = {}
+    for uuid, spans in per_card.items():
+        spans.sort()
+        overlaps = [(p[2], q[2], p[1] - q[0]) for p, q in zip(spans, spans[1:])
+                    if q[0] < p[1]]
+        out[uuid] = {"spans": len(spans), "processes": len({w for *_, w in spans}),
+                     "overlaps": len(overlaps), "first_overlaps": overlaps[:3]}
+        if overlaps:
+            raise AssertionError(f"backends: {len(overlaps)} locked sections overlap "
+                                 f"on card {uuid}: {overlaps[:3]}")
+    return out
+
+
+def _worker_lines(pool, snapshots: dict) -> None:
+    """One line per worker of ``pool``: lock waits, sections, peak device
+    memory and flash_attention launches by body, all counted in the worker."""
+    for pid, st in snapshots.items():
+        locks = list(st["card_locks"].values())
+        emit({"phase": "backends", "pool": pool, "worker_pid": pid,
+              "lock_wait_s": sum(r["wait_s"] for r in locks),
+              "locked_sections": sum(r["sections"] for r in locks),
+              "peak_memory_gib": (st["peak_memory_bytes"] or 0) / 2**30,
+              "launches": st["launches"], "launches_by_body": st["launches_by_body"]})
+
+
+def _launched_in_workers(pool, snapshots: dict) -> None:
+    for pid, st in snapshots.items():
+        by_body = st["launches_by_body"]
+        if st["launches"] <= 0 or by_body["fp32"] <= 0 or by_body["wgmma"] <= 0:
+            raise AssertionError(f"backends: {pool} worker {pid} did not launch "
+                                 f"flash_attention on both bodies: {by_body}")
+
+
+def phase_backends(state):
+    """The evaluation backends on the card: a slate of 8 genomes through
+    the process and service backends (POOL_WORKERS spawned workers each)
+    against inline; the card lock's sections disjoint across every process;
+    the kernel launched in the workers; the measured evolution through the
+    process backend; a service worker killed with a slate in flight; the
+    elastic pool grown and shrunk."""
+    import torch
+
+    from repro_torch.core.evals import (MEASURED, MEASURED_MIN_REL,
+                                        ElasticProcessPool, EvalSpec,
+                                        ProcessBackend, Scorer, make_backend)
+    from repro_torch.core.evals.worker import worker_stats
+    from repro_torch.core.evolution import ContinuousEvolution
+    from repro_torch.core.perfmodel import mha_suite
+    from repro_torch.core.search_space import seed_genome
+
+    suite = mha_suite()
+    slate = [seed_genome(), pipelined_genome()]
+    slate += [g for g in _draw(SLATE_DRAWN, RANK_SEED) if g not in slate]
+    extra = [g for g in _draw(2 * REQUEUE_SLATE, RANK_SEED + 1)
+             if g not in slate][:REQUEUE_SLATE]
+    spec = EvalSpec.resolve(suite, fidelity=MEASURED)
+    snapshots: dict = {}          # process -> its latest worker_stats()
+    launches: dict = {}           # pool -> flash_attention launches in its workers
+
+    # 1. the slate inline, in this process
+    inline = Scorer(suite=suite, fidelity=MEASURED)
+    inline.warm()
+    want = [inline(g) for g in slate]
+    verdicts_extra = [inline.check(g)[0] for g in extra]
+    pipelined = state.get("pipelined_tflops", want[1].geomean)
+    del inline
+    torch.cuda.empty_cache()
+
+    got, timing = {}, {}
+    for name in ("process", "service"):
+        t0 = time.perf_counter()
+        b = make_backend(name, suite=spec, **{
+            "max_workers" if name == "process" else "workers": POOL_WORKERS})
+        try:
+            t1 = time.perf_counter()
+            stats = (b.worker_stats() if name == "process"
+                     else b.coordinator.worker_stats(timeout=120))
+            if len(stats) != POOL_WORKERS:
+                raise AssertionError(f"backends: {len(stats)} of {POOL_WORKERS} "
+                                     f"{name} workers answered")
+            t2 = time.perf_counter()
+            got[name] = b.map(slate)
+            t3 = time.perf_counter()
+            stats = (b.worker_stats() if name == "process"
+                     else b.coordinator.worker_stats(timeout=60))
+            snapshots.update({f"{name}:{st['pid']}": st for st in stats.values()})
+            _worker_lines(name, {st["pid"]: st for st in stats.values()})
+            _launched_in_workers(name, {st["pid"]: st for st in stats.values()})
+            launches[name] = stats
+            # a process pool answers once its initializer has warmed the
+            # scorer; a service worker answers while it warms in the
+            # background, so its warm-up lands in the slate's seconds
+            timing[name] = {"start_s": t1 - t0, "first_reply_s": t2 - t1,
+                            "slate_s": t3 - t2}
+            if name == "service":
+                # 5. requeue on the card: SIGKILL one worker with a slate in flight
+                futs = b.submit_many(extra)
+                time.sleep(0.6)
+                b._procs[0].kill()
+                requeued = [f.result(300) for f in futs]
+                if [sv.correct for sv in requeued] != verdicts_extra:
+                    raise AssertionError("backends: verdicts after the requeue differ "
+                                         "from inline's")
+                st = b.coordinator.stats()
+                events = [e for e in st["events"] if e["event"] in ("leave", "requeue")]
+                emit({"phase": "backends", "check": "requeue", "genomes": len(extra),
+                      "tasks_requeued": st["tasks_requeued"], "workers_left": st["workers"],
+                      "events": events,
+                      "geomeans": [sv.geomean for sv in requeued]})
+                if st["tasks_requeued"] < 1 or not any(e["event"] == "requeue"
+                                                       for e in events):
+                    raise AssertionError(f"backends: no requeue after the kill: {events}")
+                for s2 in b.coordinator.worker_stats(timeout=60).values():
+                    snapshots[f"service:{s2['pid']}"] = s2
+        finally:
+            b.close()
+    for i, g in enumerate(slate):
+        row = {"phase": "backends", "genome": g.kernel_kwargs(),
+               "inline_tflops": want[i].geomean,
+               "process_tflops": got["process"][i].geomean,
+               "service_tflops": got["service"][i].geomean,
+               "verdicts": [want[i].correct, got["process"][i].correct,
+                            got["service"][i].correct]}
+        emit(row)
+        if not (want[i].correct == got["process"][i].correct == got["service"][i].correct):
+            raise AssertionError(f"backends: gate verdicts differ: {row}")
+        for name in ("process", "service"):
+            rel = got[name][i].geomean / want[i].geomean - 1.0
+            if abs(rel) > MEASURED_MIN_REL:
+                raise AssertionError(f"backends: {name} geomean {rel:+.2%} off inline's "
+                                     f"for {g}: over the floor {MEASURED_MIN_REL}")
+
+    # 4. the measured evolution through the process backend
+    t0 = time.perf_counter()
+    evo = ContinuousEvolution(fidelity=MEASURED, eval_backend="process",
+                              workers=POOL_WORKERS)
+    try:
+        t1 = time.perf_counter()
+        evo.scorer.worker_stats()               # every worker up and warm
+        t2 = time.perf_counter()
+        target = pipelined * (1.0 - MEASURED_MIN_REL)
+        step, wall, reached = _drive(evo, "backends", EVOLVE_EVALS, target=target,
+                                     backend="process")
+        gains = check_commits(evo.lineage, "backends")
+        stats = evo.scorer.worker_stats()
+        snapshots.update({f"evolve:{pid}": st for pid, st in stats.items()})
+        launches["evolve"] = stats
+        _worker_lines("evolve", stats)
+        paid = evo.scorer.n_evaluations
+        emit({"phase": "backends", "check": "evolution", "backend": "process",
+              "workers": POOL_WORKERS, "spawn_s": t1 - t0, "warm_s": t2 - t1,
+              "steady_s": wall, "steps": step, "paid_evals": paid,
+              "s_per_eval": wall / paid, "inline_s_per_eval": state.get("evolve_s_per_eval"),
+              "paid_evals_to_pipelined": reached, "pipelined_tflops": pipelined,
+              "commits": len(evo.lineage), "commit_gains": gains,
+              "best_tflops": evo.lineage.best().geomean})
+        state["backends_evolution"] = {"s_per_eval": wall / paid, "reached": reached}
+        # the pooled backend's yardsticks: a scorer built in this process on
+        # first use, timing SDPA under the card lock
+        base = evo.scorer.baselines()
+        refused = [c.name for c, v in zip(suite, base["expert"]) if v is None]
+        emit({"phase": "backends", "check": "baselines", "backend": "process",
+              "cudnn_tflops": base["expert"], "flash_tflops": base["fa_reference"],
+              "refused": refused})
+        if refused or not all(v and v > 0 for v in base["fa_reference"]):
+            raise AssertionError(f"backends: baselines refused on {refused}")
+    finally:
+        evo.close()
+
+    # 6. the elastic pool on the card: rung 0 (H100 model) behind the gate,
+    # held open by a modelled latency so the queue builds up
+    espec = EvalSpec.resolve(suite, machine="h100", service_latency_s=ELASTIC_LATENCY_S)
+    pool = ElasticProcessPool((espec,), min_workers=1, max_workers=POOL_WORKERS,
+                              grow_depth=1.0, hysteresis=1, shrink_idle_s=ELASTIC_IDLE_S)
+    backend = ProcessBackend(spec=espec, executor=pool)
+    try:
+        t0 = time.perf_counter()
+        els = [f.result(300) for f in [backend.submit(g) for g in slate[2:]]]
+        burst_s = time.perf_counter() - t0
+        stats = backend.worker_stats()
+        snapshots.update({f"elastic:{pid}": st for pid, st in stats.items()})
+        launches["elastic"] = stats
+        ref = Scorer(suite=suite, machine="h100")
+        if [sv.values for sv in els] != [ref(g).values for g in slate[2:]]:
+            raise AssertionError("backends: the elastic pool's rung-0 values differ "
+                                 "from inline's")
+        deadline = time.monotonic() + 60
+        while pool.n_workers > 1 and time.monotonic() < deadline:
+            time.sleep(ELASTIC_IDLE_S + 0.2)
+            pool.submit(worker_stats).result(60)
+        st = pool.stats()
+        emit({"phase": "backends", "check": "elastic", "start": "spawn",
+              "grown": st["grown"], "shrunk": st["shrunk"],
+              "peak_workers": st["peak_workers"], "workers": st["workers"],
+              "burst_s": burst_s, "resize_events": st["resize_events"]})
+        if not (st["grown"] >= 1 and st["peak_workers"] == POOL_WORKERS
+                and st["shrunk"] >= 1 and st["workers"] == 1):
+            raise AssertionError(f"backends: the elastic pool did not grow to "
+                                 f"{POOL_WORKERS} and shrink back: {st}")
+    finally:
+        backend.close()
+        pool.shutdown(wait=True, cancel_futures=True)
+
+    # 2. one timer per card: no two locked sections of any process overlap
+    from repro_torch.device import card_lock_stats
+    snapshots["parent"] = {"card_locks": card_lock_stats()}
+    cards = _spans_disjoint(snapshots)
+    emit({"phase": "backends", "check": "lock_spans", "cards": cards})
+    by_body: dict = {}
+    total = 0
+    for stats in launches.values():
+        for st in stats.values():
+            total += st["launches"]
+            for k, v in st["launches_by_body"].items():
+                by_body[k] = by_body.get(k, 0) + v
+    emit({"phase": "backends", "summary": True, "timing": timing,
+          "worker_launches": total, "worker_launches_by_body": by_body,
+          "s_per_eval_process": state["backends_evolution"]["s_per_eval"],
+          "s_per_eval_inline": state.get("evolve_s_per_eval")})
+    state.update(backends_launches=total, backends_by_body=by_body)
 
 
 def _held_to_plain(phase, scorer, genome, names) -> float:
@@ -1621,14 +1934,17 @@ def phase_kernels(state):
         "replaces": "src/repro/kernels/flash_attention.py:251",
         "launches": state.get("launches", 0) + state.get("tpu_plan_launches", 0)
         + state.get("rank_launches", 0) + state.get("gqa_launches", 0)
-        + state.get("decode_suite_launches", 0) + serve_launches.get("flash_attention", 0),
+        + state.get("decode_suite_launches", 0) + serve_launches.get("flash_attention", 0)
+        + state.get("backends_launches", 0),
         "launches_by_path": {"evolve": state.get("launches", 0),
+                             "backends_workers": state.get("backends_launches", 0),
                              "evolve_tpu_plan": state.get("tpu_plan_launches", 0),
                              "rank": state.get("rank_launches", 0),
                              "gqa": state.get("gqa_launches", 0),
                              "decode_suite": state.get("decode_suite_launches", 0),
                              "serve": serve_launches.get("flash_attention", 0)},
         "launches_by_body": {"evolve": state.get("evolve_by_body"),
+                             "backends_workers": state.get("backends_by_body"),
                              "gqa": state.get("gqa_by_body"),
                              "decode_suite": state.get("decode_suite_by_body"),
                              "serve": serve.get("by_body")},
@@ -1701,7 +2017,7 @@ def main() -> int:
     runners = {"build": lambda st: phase_build(), "kernel": phase_kernel,
                "decode_kernel": phase_decode_kernel, "ssd_kernel": phase_ssd_kernel,
                "serve": phase_serve, "noise": phase_noise, "rank": phase_rank,
-               "evolve": phase_evolve,
+               "evolve": phase_evolve, "backends": phase_backends,
                "gqa": phase_gqa, "decode_suite": phase_decode_suite,
                "times": phase_times, "kernels": phase_kernels}
     for phase in PHASES[1:]:

@@ -44,6 +44,10 @@ rate a user of that shape would see.  Each config's value is still gated on
 the rung-0 model's feasibility, as in the reference, but on the card's
 model: ``perfmodel_h100.estimate(g, cfg).feasible``.
 
+On a card, the gate, the timed section and the baselines each hold the
+card's lock (``device.card_lock``): any number of scorers, in threads or in
+worker processes, time one at a time per card.
+
 :class:`Scorer` is a deterministic function of the genome at rung 0: the
 proxy inputs are rebuilt from ``rng_seed`` with numpy exactly as the
 reference builds them.  :meth:`Scorer.score_key` and
@@ -72,7 +76,7 @@ from repro_torch.core.evals.vector import ScoreVector
 from repro_torch.core import perfmodel, perfmodel_h100
 from repro_torch.core.perfmodel import BenchConfig, mha_suite, useful_flops
 from repro_torch.core.search_space import KernelGenome
-from repro_torch.device import resolve_device
+from repro_torch.device import card_lock, resolve_device
 
 CORRECTNESS_TOL = 2e-5
 
@@ -80,6 +84,20 @@ CORRECTNESS_TOL = 2e-5
 # JAX package) and the model of this port's kernel on the H100
 MACHINES = ("tpu_v5e", "h100")
 _MODELS = {"tpu_v5e": perfmodel, "h100": perfmodel_h100}
+
+
+def default_machine(fidelity: str) -> str:
+    """The machine rung 0 models when none is named: the card's at the
+    measured rung, the reference's TPU v5e otherwise."""
+    return "h100" if fidelity == MEASURED else "tpu_v5e"
+
+
+def rung_key(genome: KernelGenome, fidelity: str, plan_machine: str,
+             device_type: str) -> str:
+    """The cache/dedup key of a genome scored at ``fidelity``, planned on
+    ``plan_machine``, on a device of ``device_type`` (suffixed, so
+    ``key_fidelity`` still reads the rung)."""
+    return f"{fidelity_key(genome.key(), fidelity)}@{plan_machine}@{device_type}"
 
 # the measured rung: CUDA-event timing, 1 warm-up then the median of 3
 TIMING_WARMUP = 1
@@ -248,12 +266,14 @@ class Scorer:
     is the machine whose model gives the profiles the agent plans from.
     ``_plan_machine`` is for the planning A/B only: at the measured rung it
     attaches that machine's profiles instead of the card's (feasibility stays
-    the card's).
+    the card's).  ``service_latency_s`` > 0 holds every paid evaluation for
+    that long and changes no value, as in the reference.
     """
 
     def __init__(self, suite: Optional[Sequence[BenchConfig]] = None,
                  check_correctness: bool = True, rng_seed: int = 0,
                  cache: Optional[ScoreCache] = None,
+                 service_latency_s: float = 0.0,
                  fidelity: str = PERFMODEL,
                  device: Optional[Union[str, torch.device]] = None,
                  machine: Optional[str] = None,
@@ -282,8 +302,9 @@ class Scorer:
         self.suite = list(suite) if suite is not None else mha_suite()
         self.check_correctness = check_correctness
         self.rng_seed = rng_seed
+        self.service_latency_s = service_latency_s
         self.fidelity = fidelity
-        self.machine = machine or ("h100" if fidelity == MEASURED else "tpu_v5e")
+        self.machine = machine or default_machine(fidelity)
         self.plan_machine = _plan_machine or self.machine
         self._model = _MODELS[self.machine]
         self.cache = cache if cache is not None else ScoreCache()
@@ -304,9 +325,16 @@ class Scorer:
 
     # -- correctness ----------------------------------------------------------
     def warm(self) -> None:
-        """Build the RNG-derived proxy inputs eagerly (a no-op once built)."""
-        if self.check_correctness:
-            self._proxy_data()
+        """Build the RNG-derived proxy inputs, and at the measured rung the
+        full-shape inputs, eagerly (a no-op once built)."""
+        if not (self.check_correctness or self.fidelity == MEASURED):
+            return
+        with card_lock(self.device):
+            if self.check_correctness:
+                self._proxy_data()
+            if self.fidelity == MEASURED:
+                for cfg in self.suite:
+                    self.full_inputs(cfg)
 
     def _proxy_data(self):
         """The reference's proxy inputs, bit for bit: float64 draws from
@@ -367,23 +395,23 @@ class Scorer:
         from repro_torch.kernels.flash_attention import flash_attention
         from repro_torch.kernels.ref import mha_reference
         kw = self._clamped_kwargs(genome)
-        for sh, q, k, v in self._proxy_data():
-            o = flash_attention(q, k, v, causal=sh["causal"], window=sh["window"],
-                                **kw)
-            r = mha_reference(q, k, v, causal=sh["causal"], window=sh["window"])
-            err = float((o - r).abs().max())
-            if not math.isfinite(err) or err > CORRECTNESS_TOL:
-                return False, (f"numerical mismatch vs oracle: max|err|={err:.2e} "
-                               f"on {sh}")
+        with card_lock(self.device):
+            for sh, q, k, v in self._proxy_data():
+                o = flash_attention(q, k, v, causal=sh["causal"],
+                                    window=sh["window"], **kw)
+                r = mha_reference(q, k, v, causal=sh["causal"], window=sh["window"])
+                err = float((o - r).abs().max())
+                if not math.isfinite(err) or err > CORRECTNESS_TOL:
+                    return False, (f"numerical mismatch vs oracle: "
+                                   f"max|err|={err:.2e} on {sh}")
         return True, ""
 
     # -- scoring ----------------------------------------------------------------
     def score_key(self, genome: KernelGenome) -> str:
         """The cache/dedup key for this genome at this scorer's fidelity,
-        planned on this machine, on this device type (suffixed, so
-        ``key_fidelity`` still reads the rung)."""
-        return (f"{fidelity_key(genome.key(), self.fidelity)}"
-                f"@{self.plan_machine}@{self.device.type}")
+        planned on this machine, on this device type (:func:`rung_key`)."""
+        return rung_key(genome, self.fidelity, self.plan_machine,
+                        self.device.type)
 
     def __call__(self, genome: KernelGenome) -> ScoreVector:
         key = self.score_key(genome)
@@ -408,6 +436,8 @@ class Scorer:
 
     def _score_uncached_inner(self, genome: KernelGenome) -> ScoreVector:
         next(self._eval_count)
+        if self.service_latency_s > 0:
+            time.sleep(self.service_latency_s)
         if self.check_correctness:
             ok, why = self.check(genome)
             if not ok:
@@ -428,7 +458,8 @@ class Scorer:
         """Batched :meth:`score_uncached`: pay the evaluation cost for every
         entry (no cache, no dedup) with one rung-0 model call for the whole
         slate (the machine's ``estimate_batch``) and one structural-memo
-        lookup per genome.  The measured rung times each genome in turn.  With the batch path
+        lookup per genome.  The measured rung times each genome in turn.  The
+        modelled service latency is held once per batch.  With the batch path
         disabled this *is* the scalar path."""
         genomes = list(genomes)
         if not genomes:
@@ -439,6 +470,8 @@ class Scorer:
         try:
             for _ in genomes:
                 next(self._eval_count)
+            if self.service_latency_s > 0:
+                time.sleep(self.service_latency_s)
             checks = ([self.check(g) for g in genomes]
                       if self.check_correctness
                       else [(True, "")] * len(genomes))
@@ -496,14 +529,15 @@ class Scorer:
         values, profiles = [], self.measured_profiles(genome)
         card = (profiles if self.plan_machine == "h100" else
                 {c.name: perfmodel_h100.estimate(genome, c) for c in self.suite})
-        for cfg in self.suite:
-            if not card[cfg.name].feasible:
-                values.append(0.0)
-                continue
-            q, k, v = self.full_inputs(cfg)
-            ms = time_cuda_ms(lambda: flash_attention(
-                q, k, v, causal=cfg.causal, window=cfg.window, **kw))
-            values.append(useful_flops(cfg) / (ms * 1e-3) / 1e12)
+        with card_lock(self.device):
+            for cfg in self.suite:
+                if not card[cfg.name].feasible:
+                    values.append(0.0)
+                    continue
+                q, k, v = self.full_inputs(cfg)
+                ms = time_cuda_ms(lambda: flash_attention(
+                    q, k, v, causal=cfg.causal, window=cfg.window, **kw))
+                values.append(useful_flops(cfg) / (ms * 1e-3) / 1e12)
         return values, profiles
 
     def measured_profiles(self, genome: KernelGenome) -> dict:
@@ -531,11 +565,13 @@ class Scorer:
             }
         if self._baselines is None:
             from torch.nn.attention import SDPBackend
-            self._baselines = {
-                key: tuple(self._sdpa_tflops(cfg, key, backend)
-                           for cfg in self.suite)
-                for key, backend in (("expert", SDPBackend.CUDNN_ATTENTION),
-                                     ("fa_reference", SDPBackend.FLASH_ATTENTION))}
+            with card_lock(self.device):
+                self._baselines = {
+                    key: tuple(self._sdpa_tflops(cfg, key, backend)
+                               for cfg in self.suite)
+                    for key, backend in (("expert", SDPBackend.CUDNN_ATTENTION),
+                                         ("fa_reference",
+                                          SDPBackend.FLASH_ATTENTION))}
         return dict(self._baselines)
 
     def _sdpa_tflops(self, cfg: BenchConfig, key: str, backend) -> Optional[float]:

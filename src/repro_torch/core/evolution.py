@@ -3,8 +3,10 @@ committed versions without human intervention, with supervisor interventions
 on stagnation and commit-per-version persistence.
 
 ``ContinuousEvolution`` drives one :class:`Island` serially, scoring through
-the inline backend on the card (``device=None``) or on the CPU
-(``device="cpu"``, the plain PyTorch kernel path).  Its default operator
+the evaluation backend named by ``eval_backend`` (``inline``, ``thread``,
+``process`` or ``service``; ``core/evals/backends.py``) on the card
+(``device=None``) or on the CPU (``device="cpu"``, the plain PyTorch kernel
+path).  Its default operator
 commits at the scorer's rung's floor (:func:`default_agent`), and its
 knowledge base holds the facts of the machine the scorer plans from
 (:func:`knowledge_for`): Hopper facts at the measured rung and at rung 0
@@ -22,7 +24,7 @@ import torch
 from repro_torch.core import obs
 from repro_torch.core.agent import ScriptedAgent
 from repro_torch.core.evals import (MEASURED, MEASURED_MIN_REL, PERFMODEL,
-                                    InlineBackend, Scorer)
+                                    Scorer, make_backend)
 from repro_torch.core.islands import EvolutionReport, Island
 from repro_torch.core.knowledge import KnowledgeBase
 from repro_torch.core.knowledge_h100 import knowledge_for
@@ -55,19 +57,31 @@ class ContinuousEvolution:
                  fidelity: str = PERFMODEL,
                  device: Optional[Union[str, torch.device]] = None,
                  machine: Optional[str] = None,
-                 kb: Optional[KnowledgeBase] = None):
+                 kb: Optional[KnowledgeBase] = None,
+                 eval_backend: str = "inline",
+                 workers: Optional[int] = None):
         """``target_suite`` names a scenario suite from the perfmodel registry
         ('mha', 'gqa', 'decode', or a '+'-union; default mha); ``fidelity``,
-        ``device`` and ``machine`` (rung 0's model) configure the inline
-        scorer.  All four are ignored when an explicit ``scorer`` is given.
+        ``device`` and ``machine`` (rung 0's model) configure the scorer;
+        ``eval_backend`` selects the evaluation service ('inline' |
+        'thread' | 'process' | 'service') and ``workers`` its width (the
+        backend's default when None; 'service' starts that many local
+        workers).  All six are ignored when an explicit ``scorer`` is given.
         Without an ``operator`` the agent commits at the scorer's rung's
         floor (:func:`default_agent`); without a ``kb`` the facts are those
         of the scorer's ``plan_machine``.  An explicit operator or kb is
         used as given."""
         if scorer is None:
             suite = suite_by_name(target_suite) if target_suite else None
-            scorer = InlineBackend(suite=suite, fidelity=fidelity, device=device,
-                                   machine=machine)
+            kw = {}
+            if workers is not None:
+                if eval_backend == "inline":
+                    raise ValueError("workers= needs a pooled eval_backend "
+                                     "('thread', 'process' or 'service')")
+                kw["workers" if eval_backend == "service"
+                   else "max_workers"] = workers
+            scorer = make_backend(eval_backend, suite=suite, fidelity=fidelity,
+                                  device=device, machine=machine, **kw)
         if operator is None:
             operator = AgenticVariationOperator(default_agent(scorer.fidelity))
         if kb is None:
@@ -110,7 +124,8 @@ class ContinuousEvolution:
         return cls(lineage=lineage, persist_path=persist_path, **kw)
 
     def close(self) -> None:
-        """Release backend resources."""
+        """Release backend resources (worker pools for thread/process, the
+        owned coordinator and its workers for service)."""
         closer = getattr(self.island.scorer, "close", None)
         if closer is not None:
             closer()

@@ -5,6 +5,13 @@ counterpart of ``examples/evolve_attention.py``'s serial mode.
   python -m repro_torch.evolve --gqa --commits 2 --max-steps 4     # GQA transfer (paper §4.3)
   python -m repro_torch.evolve --fidelity perfmodel --device cpu   # rung 0, plain path
   python -m repro_torch.evolve --fidelity perfmodel --machine h100 --device cpu
+  python -m repro_torch.evolve --backend process --workers 2      # spawned workers on the card
+
+``--backend`` picks the evaluation service: ``inline`` (the default, in this
+process), ``thread``, ``process`` (spawned worker processes on the card) or
+``service`` (a coordinator on loopback with ``--workers`` local worker
+processes).  On the card every worker's gate and timing hold the card's
+lock, so workers overlap host work and the card times one at a time.
 
 Every paid evaluation runs the flash-attention kernel twice: in the
 correctness gate (fp32, proxy shapes) and, with ``--fidelity measured`` (the
@@ -62,12 +69,20 @@ def main(argv=None) -> None:
                          "or h100; the measured rung takes h100 only")
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs the plain PyTorch path")
+    ap.add_argument("--backend", choices=("inline", "thread", "process", "service"),
+                    default="inline",
+                    help="evaluation backend (default inline: in this process)")
+    ap.add_argument("--workers", type=int, default=None,
+                    help="worker count of a thread, process or service backend "
+                         "(default: 2 on the card)")
     ap.add_argument("--out", default=os.path.join("results", "torch"),
                     help="directory for the persisted lineage")
     args = ap.parse_args(argv)
     if args.fidelity == MEASURED and args.machine not in (None, "h100"):
         ap.error("--fidelity measured plans from the card's model: "
                  "--machine must be h100")
+    if args.workers is not None and args.backend == "inline":
+        ap.error("--workers needs --backend thread, process or service")
 
     operator = None
     suite = args.suite
@@ -81,9 +96,12 @@ def main(argv=None) -> None:
     path = os.path.join(args.out, f"lineage_{suite.replace('+', '_')}.json")
     evo = ContinuousEvolution.resume(path, target_suite=suite, operator=operator,
                                      fidelity=args.fidelity, device=args.device,
-                                     machine=args.machine)
+                                     machine=args.machine,
+                                     eval_backend=args.backend, workers=args.workers)
     print(f"scoring on {device_name(evo.scorer.device)} at fidelity "
-          f"{args.fidelity}, planning from the {evo.scorer.plan_machine} model")
+          f"{args.fidelity} through the {args.backend} backend "
+          f"({evo.scorer.max_workers} worker{'s' * (evo.scorer.max_workers != 1)}), "
+          f"planning from the {evo.scorer.plan_machine} model")
     rep = evo.run(max_steps=args.max_steps, target_commits=args.commits,
                   verbose=True)
     traj = evo.lineage.trajectory()

@@ -6,10 +6,17 @@ repository root (listed in ``.gitignore``), named by a hash of the source and
 the flags, so an edited source rebuilds and an unchanged one loads at once.
 Nothing is compiled when a module is imported: the CPU tests import every
 module on a host without ``nvcc``.
+
+Processes that build at once (the workers of an evaluation pool on a cold
+``build/kernels/``) compile each library once: the compiling process holds an
+``fcntl.flock`` on a lock file beside the library, and whoever takes it
+after the build finds the library and loads it.  A lock file left behind by
+a killed build is harmless: the kernel lets go of a dead process's flock.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -28,7 +35,7 @@ LINK_FLAGS = ("-ldl",)
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
-BUILD_INFO: dict = {}     # source name -> {"seconds", "cached", "ptxas"}
+BUILD_INFO: dict = {}     # source name -> {"seconds", "cached", "ptxas", "lock_wait_s"}
 
 
 def _nvcc() -> str:
@@ -64,26 +71,42 @@ def _ptxas_summary(log: str) -> list:
     return out
 
 
+def library_path(source: str) -> Path:
+    """Where ``csrc/<source>`` is built: named by a hash of source and flags."""
+    src = CSRC / source
+    flags = " ".join(NVCC_FLAGS + LINK_FLAGS).encode()
+    tag = hashlib.sha256(src.read_bytes() + flags).hexdigest()[:12]
+    return BUILD_DIR / f"lib{src.stem}-{tag}.so"
+
+
 def build(source: str) -> str:
     """Compile ``csrc/<source>`` (if not built yet) and return the library path."""
     src = CSRC / source
-    text = src.read_bytes()
-    flags = " ".join(NVCC_FLAGS + LINK_FLAGS).encode()
-    tag = hashlib.sha256(text + flags).hexdigest()[:12]
-    lib = BUILD_DIR / f"lib{src.stem}-{tag}.so"
+    lib = library_path(source)
     if lib.exists():
-        BUILD_INFO.setdefault(source, {"seconds": 0.0, "cached": True, "ptxas": []})
+        BUILD_INFO.setdefault(source, {"seconds": 0.0, "cached": True, "ptxas": [],
+                                       "lock_wait_s": 0.0})
         return str(lib)
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src), *LINK_FLAGS],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr[-8000:]}")
-    os.replace(tmp, lib)
+    t_wait = time.perf_counter()
+    with open(lib.with_suffix(".lock"), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        waited = time.perf_counter() - t_wait
+        if lib.exists():                  # another process built it meanwhile
+            BUILD_INFO[source] = {"seconds": 0.0, "cached": True, "ptxas": [],
+                                  "lock_wait_s": waited}
+            return str(lib)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src),
+                               *LINK_FLAGS], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr[-8000:]}")
+        os.replace(tmp, lib)
     BUILD_INFO[source] = {"seconds": time.perf_counter() - t0, "cached": False,
-                          "ptxas": _ptxas_summary(proc.stderr + proc.stdout)}
+                          "ptxas": _ptxas_summary(proc.stderr + proc.stdout),
+                          "lock_wait_s": waited}
     return str(lib)
 
 

@@ -80,7 +80,10 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
             "repro_torch.kernels.ops, repro_torch.kernels.ref, "
             "repro_torch.configs, repro_torch.configs.registry, "
             "repro_torch.models, repro_torch.models.convert, "
-            "repro_torch.launch.serve, repro_torch.serve; "
+            "repro_torch.launch.serve, repro_torch.serve, "
+            "repro_torch.core.evals.backends, repro_torch.core.evals.elastic, "
+            "repro_torch.core.evals.service, "
+            "repro_torch.core.evals.service_worker; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')); print(bad)")
