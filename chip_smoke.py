@@ -68,6 +68,21 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  result arriving with inline's verdicts; the elastic pool
                  (spawned slots) grown to POOL_WORKERS and shrunk back under
                  a queue held by a modelled latency
+  islands        the island engine (scenario_specs(): mha, gqa, decode and
+                 mha-explorer at the suites' full shapes, seed 0, rung 0 on
+                 the H100 model, every gate on the fp32 kernel): the card's
+                 lineages and migration ledger equal the same engine's on
+                 the CPU, with fp32 gate launches on the card and none on
+                 the CPU and this process's card-lock sections disjoint
+                 across its threads; a run killed after ISLAND_RESUME_AT
+                 steps and resumed from its file equals the uninterrupted
+                 one; pipelined stepping on the process backend
+                 (POOL_WORKERS spawned workers, a shared speculation budget)
+                 equals it too, with every process's lock sections
+                 disjoint; each island's best genome and the pipelined
+                 genome read once at the measured rung beside cuDNN and
+                 flash; the four islands raced against the serial loop on
+                 the union suite to the serial run's final coverage
   gqa            paper §4.3: the evolve phase's best genome adapted to
                  gqa_suite at the measured rung for GQA_EVALS paid
                  evaluations, planned from the Hopper facts; launches at
@@ -133,9 +148,15 @@ SLATE_DRAWN = 6             # genomes drawn (as rank draws them) for its slate
 REQUEUE_SLATE = 6           # genomes in flight when a service worker is killed
 ELASTIC_LATENCY_S = 0.5     # modelled latency that holds the elastic pool's queue
 ELASTIC_IDLE_S = 1.0        # idle seconds after which it retires a worker
+ISLAND_STEPS = 6            # steps per island of the islands phase's runs
+ISLAND_INTERVAL = 2         # steps per epoch (migration barrier)
+ISLAND_RESUME_AT = 4        # steps before the resume check's kill
+ISLAND_PREFETCH_BUDGET = 6  # shared speculation budget of the pipelined run
+RACE_SERIAL_STEPS = 24      # steps of the serial side of the race
+RACE_ISLAND_STEPS = 12      # steps per island of the island side
 PHASES = ("device", "build", "kernel", "decode_kernel", "ssd_kernel", "serve",
-          "noise", "rank", "evolve", "backends", "gqa", "decode_suite", "times",
-          "kernels")
+          "noise", "rank", "evolve", "backends", "islands", "gqa", "decode_suite",
+          "times", "kernels")
 SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd.cu")
 TOL_SSD_F32 = 2e-5          # SSD kernel vs plain, fp32: relative to max |y|
 SERVE_ARCH, SERVE_LAYERS = "jamba-v0.1-52b", 16
@@ -1347,7 +1368,7 @@ def _draw(n, seed):
     return [space[i] for i in rng.choice(len(space), n, replace=False)]
 
 
-def _spans_disjoint(snapshots: dict) -> dict:
+def _spans_disjoint(snapshots: dict, phase: str = "backends") -> dict:
     """Every held card-lock section of every process, per card: sorted by
     start, each must begin after the one before it ended."""
     per_card: dict = {}
@@ -1362,7 +1383,7 @@ def _spans_disjoint(snapshots: dict) -> dict:
         out[uuid] = {"spans": len(spans), "processes": len({w for *_, w in spans}),
                      "overlaps": len(overlaps), "first_overlaps": overlaps[:3]}
         if overlaps:
-            raise AssertionError(f"backends: {len(overlaps)} locked sections overlap "
+            raise AssertionError(f"{phase}: {len(overlaps)} locked sections overlap "
                                  f"on card {uuid}: {overlaps[:3]}")
     return out
 
@@ -1574,6 +1595,286 @@ def phase_backends(state):
           "s_per_eval_process": state["backends_evolution"]["s_per_eval"],
           "s_per_eval_inline": state.get("evolve_s_per_eval")})
     state.update(backends_launches=total, backends_by_body=by_body)
+
+
+def _island_engine(device=None, on_commit=None, **kw):
+    """The phase's archipelago: ``scenario_specs()`` (mha, gqa, decode,
+    mha-explorer at the suites' full shapes), seed 0, migration every
+    ISLAND_INTERVAL steps, rung 0 on the H100 model."""
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.islands import IslandEvolution, scenario_specs
+    return IslandEvolution(config=EngineConfig.from_kwargs(
+        specs=scenario_specs(), seed=0, migration_interval=ISLAND_INTERVAL,
+        machine="h100", device=device, **kw), on_commit=on_commit)
+
+
+def _island_prints(eng) -> tuple:
+    """Per-island lineage fingerprints and the migration ledger."""
+    return ({i.name: [(c.genome.key(), round(c.geomean, 9), c.note)
+                      for c in i.lineage.commits] for i in eng.islands},
+            eng.migration_stats.to_payload(), eng.migrations_accepted)
+
+
+def _island_steps(eng, steps, **tags) -> tuple:
+    """Run ``eng`` for ``steps`` steps per island; one line per island.
+    Returns (report, wall seconds)."""
+    t0 = time.perf_counter()
+    rep = eng.run(max_steps=steps)
+    wall = time.perf_counter() - t0
+    for name, r in rep.islands.items():
+        emit({"phase": "islands", **tags, "island": name, "commits": r.commits,
+              "steps": r.steps, "best_tflops_model": r.best_geomean})
+    return rep, wall
+
+
+def _lock_delta(before: dict, after: dict, since: float) -> dict:
+    """This process's card-lock waits and held sections between two
+    ``card_lock_stats()`` snapshots; the sections held since ``since``
+    (``time.monotonic()``): seconds in all, the longest, the first."""
+    out = {"wait_s": 0.0, "sections": 0}
+    held = []
+    for uuid, rec in after.items():
+        prev = before.get(uuid, {"wait_s": 0.0, "sections": 0})
+        out["wait_s"] += rec["wait_s"] - prev["wait_s"]
+        out["sections"] += rec["sections"] - prev["sections"]
+        held += sorted((a, b - a) for a, b in rec["spans"] if a >= since)
+    out.update(held_s=sum(d for _, d in held),
+               longest_held_s=max((d for _, d in held), default=0.0),
+               first_held_s=held[0][1] if held else None)
+    return out
+
+
+def _coverage_timeline(events, suite_of, union) -> list:
+    """(seconds, coverage geomean, paid evaluations) after each commit
+    event of an island run, replayed as ``bench_islands.py`` does: each
+    config under the best island targeting its suite; 0 until every config
+    of ``union`` is covered."""
+    import math
+    best: dict = {}
+    out = []
+    for t, island, gm, values, paid in sorted(events):
+        best[island] = (gm, values)
+        per_suite: dict = {}
+        for name, (g, vals) in best.items():
+            key = suite_of[name]
+            if key not in per_suite or g > per_suite[key][0]:
+                per_suite[key] = (g, vals)
+        covered = {c: v for key, (_, vals) in per_suite.items()
+                   for c, v in zip(key, vals)}
+        cov = 0.0
+        if set(covered) == union and all(v > 0 for v in covered.values()):
+            cov = math.exp(sum(math.log(v) for v in covered.values()) / len(covered))
+        out.append((t, cov, paid))
+    return out
+
+
+def phase_islands(state):
+    """The island engine on the card (rung 0, H100 model, scenario_specs()):
+    card against CPU, resume identity, pipelined stepping on spawned
+    workers, a measured reading of each island's best genome, and a race
+    against the serial loop to one coverage target."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core.evals import MEASURED, Scorer
+    from repro_torch.core.evals.scorer import _CHECK_MEMO
+    from repro_torch.core.evolution import ContinuousEvolution
+    from repro_torch.core.islands import IslandEvolution
+    from repro_torch.core.perfmodel import suite_by_name
+    from repro_torch.device import card_lock_stats
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    # 1. the card against the CPU, in this process, through the thread backend
+    launches: dict = {}
+    reset_counts(flash_attention)
+    locks0, since = card_lock_stats(), time.monotonic()
+    card = _island_engine()
+    try:
+        rep, wall = _island_steps(card, ISLAND_STEPS, run="card")
+    finally:
+        card.close()
+    locks1 = card_lock_stats()
+    card_by_body = dict(flash_attention.launches_by_body)
+    launches["card"] = flash_attention.launches
+    reset_counts(flash_attention)
+    cpu = _island_engine("cpu")
+    try:
+        _, wall_cpu = _island_steps(cpu, ISLAND_STEPS, run="cpu")
+    finally:
+        cpu.close()
+    cpu_launches = flash_attention.launches
+    want = _island_prints(card)
+    spans = _spans_disjoint({"parent": {"card_locks": locks1}}, "islands")
+    emit({"phase": "islands", "check": "card_vs_cpu", "equal": want == _island_prints(cpu),
+          "card_s": wall, "cpu_s": wall_cpu, "paid_evals": rep.evaluations,
+          "cache_hits": rep.cache_hits, "commits": rep.commits,
+          "migrations_accepted": rep.migrations_accepted,
+          "migration_edges": {f"{card.islands[s].name}->{card.islands[d].name}":
+                              [st.accepts, st.attempts]
+                              for (s, d), st in sorted(card.migration_stats.edges.items())},
+          "coverage_tflops_model": rep.coverage_geomean,
+          "launches": launches["card"], "launches_by_body": card_by_body,
+          "cpu_launches": cpu_launches, "card_lock": _lock_delta(locks0, locks1, since),
+          "lock_spans": spans})
+    if want != _island_prints(cpu):
+        raise AssertionError("islands: the card's lineages differ from the CPU's")
+    if card_by_body["fp32"] <= 0 or cpu_launches:
+        raise AssertionError(f"islands: gate launches card {card_by_body}, cpu {cpu_launches}")
+
+    # 2. killed after ISLAND_RESUME_AT steps, resumed from its file, finished
+    root = os.path.join(HERE, "results", "chip_smoke_islands")
+    shutil.rmtree(root, ignore_errors=True)
+    path = os.path.join(root, "archipelago.json")
+    reset_counts(flash_attention)
+    t0 = time.perf_counter()
+    first = _island_engine(persist_path=path)
+    try:
+        _island_steps(first, ISLAND_RESUME_AT, run="before_kill")
+    finally:
+        first.close()
+    with open(path) as f:
+        machine = json.load(f)["machine"]
+    resumed = IslandEvolution.resume(path)
+    try:
+        _island_steps(resumed, ISLAND_STEPS - ISLAND_RESUME_AT, run="resumed")
+    finally:
+        resumed.close()
+    launches["resume"] = flash_attention.launches
+    same = _island_prints(resumed) == want
+    emit({"phase": "islands", "check": "resume", "equal": same, "machine": machine,
+          "topology_state": resumed.topology.state(), "wall_s": time.perf_counter() - t0,
+          "launches": launches["resume"]})
+    if not same or machine != "h100":
+        raise AssertionError("islands: the resumed run differs from the uninterrupted one")
+
+    # 3. pipelined stepping on the process backend, POOL_WORKERS spawned workers
+    reset_counts(flash_attention)
+    t0 = time.perf_counter()
+    piped = _island_engine(backend="process", max_workers=POOL_WORKERS, pipeline=True,
+                           prefetch_budget=ISLAND_PREFETCH_BUDGET)
+    try:
+        piped.prewarm_eval_pool()
+        t1 = time.perf_counter()
+        rep3, wall3 = _island_steps(piped, ISLAND_STEPS, run="pipelined_process")
+        stats = next(iter(piped.scorers.values())).worker_stats()
+    finally:
+        piped.close()
+    launches["parent_pipelined"] = flash_attention.launches
+    snapshots = {f"islands:{pid}": st for pid, st in stats.items()}
+    snapshots["parent"] = {"card_locks": card_lock_stats()}
+    spans = _spans_disjoint(snapshots, "islands")
+    for pid, st in stats.items():
+        locks = list(st["card_locks"].values())
+        emit({"phase": "islands", "pool": "process", "worker_pid": pid,
+              "lock_wait_s": sum(r["wait_s"] for r in locks),
+              "locked_sections": sum(r["sections"] for r in locks),
+              "peak_memory_gib": (st["peak_memory_bytes"] or 0) / 2**30,
+              "launches": st["launches"], "launches_by_body": st["launches_by_body"]})
+    worker_launches = sum(st["launches"] for st in stats.values())
+    worker_by_body: dict = {}
+    for st in stats.values():
+        for k, v in st["launches_by_body"].items():
+            worker_by_body[k] = worker_by_body.get(k, 0) + v
+    same = _island_prints(piped) == want
+    emit({"phase": "islands", "check": "pipelined_process", "equal": same,
+          "workers": len(stats), "spawn_warm_s": t1 - t0, "steps_s": wall3,
+          "paid_evals": rep3.evaluations, "proposed": rep3.proposed,
+          "prefetch_caps": [isl.prefetch_k for isl in piped.islands],
+          "worker_launches": worker_launches, "worker_launches_by_body": worker_by_body,
+          "parent_launches": launches["parent_pipelined"], "lock_spans": spans})
+    if not same:
+        raise AssertionError("islands: pipelined process-pool lineages differ from step 1's")
+    if len(stats) != POOL_WORKERS or worker_by_body.get("fp32", 0) <= 0 \
+            or rep3.proposed <= 0:
+        raise AssertionError(f"islands: {len(stats)} workers, launches {worker_by_body}, "
+                             f"{rep3.proposed} proposals")
+
+    # 4. a reading: each island's best genome once at the measured rung on its
+    # own suite, beside cuDNN and flash, and the pipelined genome on mha_suite
+    reset_counts(flash_attention)
+    t0 = time.perf_counter()
+    by_suite: dict = {}
+    for isl, spec in zip(card.islands, card.specs):
+        by_suite.setdefault(spec.target_suite, []).append((isl.name, isl.lineage.best().genome))
+    by_suite["mha"].append(("pipelined", pipelined_genome()))
+    reading = {}
+    for suite_name, entries in by_suite.items():
+        scorer = Scorer(suite=suite_by_name(suite_name), fidelity=MEASURED)
+        for cfg in scorer.suite:
+            scorer.full_inputs(cfg)
+        columns = {}
+        for name, genome in entries:
+            sv = scorer(genome)
+            if not (sv.correct and all(v > 0 and v == v and v != float("inf")
+                                       for v in sv.values)):
+                raise AssertionError(f"islands: {name}'s best on {suite_name}: "
+                                     f"{sv.failure} {sv.values}")
+            columns[name] = list(sv.values)
+            reading[name] = {"suite": suite_name, "geomean_tflops": sv.geomean,
+                             "genome": genome.kernel_kwargs()}
+        figure_rows("islands", scorer, columns)
+        del scorer
+        torch.cuda.empty_cache()
+    launches["measured"] = flash_attention.launches
+    by_body4 = dict(flash_attention.launches_by_body)
+    emit({"phase": "islands", "check": "measured_reading", "reading": reading,
+          "launches": launches["measured"], "launches_by_body": by_body4,
+          "wall_s": time.perf_counter() - t0})
+    if by_body4["wgmma"] <= 0:
+        raise AssertionError(f"islands: the reading never took the wgmma body: {by_body4}")
+
+    # 5. the race: the four islands and the serial loop to one coverage target
+    reset_counts(flash_attention)
+    union = "mha+gqa+decode"
+    _CHECK_MEMO.clear()                # each side pays its own gates
+    evo = ContinuousEvolution(target_suite=union, machine="h100")
+    serial = []
+    t_serial = time.perf_counter()
+
+    def on_serial_commit(island):
+        serial.append((time.perf_counter() - t_serial, island.lineage.best().geomean,
+                       evo.scorer.n_evaluations))
+    evo.island.on_commit = on_serial_commit
+    evo.run(max_steps=RACE_SERIAL_STEPS)
+    serial_wall = time.perf_counter() - t_serial
+    evo.close()
+    target = max((c for _, c, _ in serial), default=0.0)
+
+    _CHECK_MEMO.clear()
+    events = []
+
+    def on_island_commit(ev):
+        events.append((ev["t"], ev["island"], ev["geomean"], ev["values"],
+                       sum(s.n_evaluations for s in race.scorers.values())))
+    race = _island_engine(on_commit=on_island_commit)
+    union_cfgs = {c.name for c in suite_by_name(union)}
+    suite_of = {i.name: tuple(c.name for c in i.scorer.suite) for i in race.islands}
+    try:
+        rep5, race_wall = _island_steps(race, RACE_ISLAND_STEPS, run="race")
+    finally:
+        race.close()
+    launches["race"] = flash_attention.launches
+    timeline = _coverage_timeline(events, suite_of, union_cfgs)
+    hit_s = next(((t, p) for t, c, p in serial if c >= target), (None, None))
+    hit_i = next(((t, p) for t, c, p in timeline if c >= target), (None, None))
+    emit({"phase": "islands", "check": "race", "target_coverage_tflops_model": target,
+          "serial": {"seconds_to_target": hit_s[0], "paid_evals_to_target": hit_s[1],
+                     "wall_s": serial_wall, "steps": RACE_SERIAL_STEPS,
+                     "paid_evals": evo.scorer.n_evaluations, "commits": len(evo.lineage)},
+          "islands": {"seconds_to_target": hit_i[0], "paid_evals_to_target": hit_i[1],
+                      "wall_s": race_wall, "steps_per_island": RACE_ISLAND_STEPS,
+                      "paid_evals": rep5.evaluations, "commits": rep5.commits,
+                      "final_coverage_tflops_model": max((c for _, c, _ in timeline),
+                                                         default=0.0)},
+          "launches": launches["race"]})
+    total = sum(launches.values())
+    by_path = dict(launches, workers_pipelined=worker_launches)
+    emit({"phase": "islands", "summary": True, "launches": total,
+          "worker_launches": worker_launches, "launches_by_path": by_path})
+    state.update(islands_launches=total, islands_worker_launches=worker_launches,
+                 islands_by_body={"card": card_by_body, "workers": worker_by_body,
+                                  "measured": by_body4})
 
 
 def _held_to_plain(phase, scorer, genome, names) -> float:
@@ -1935,9 +2236,12 @@ def phase_kernels(state):
         "launches": state.get("launches", 0) + state.get("tpu_plan_launches", 0)
         + state.get("rank_launches", 0) + state.get("gqa_launches", 0)
         + state.get("decode_suite_launches", 0) + serve_launches.get("flash_attention", 0)
-        + state.get("backends_launches", 0),
+        + state.get("backends_launches", 0) + state.get("islands_launches", 0)
+        + state.get("islands_worker_launches", 0),
         "launches_by_path": {"evolve": state.get("launches", 0),
                              "backends_workers": state.get("backends_launches", 0),
+                             "islands": state.get("islands_launches", 0),
+                             "islands_workers": state.get("islands_worker_launches", 0),
                              "evolve_tpu_plan": state.get("tpu_plan_launches", 0),
                              "rank": state.get("rank_launches", 0),
                              "gqa": state.get("gqa_launches", 0),
@@ -1945,6 +2249,7 @@ def phase_kernels(state):
                              "serve": serve_launches.get("flash_attention", 0)},
         "launches_by_body": {"evolve": state.get("evolve_by_body"),
                              "backends_workers": state.get("backends_by_body"),
+                             "islands": state.get("islands_by_body"),
                              "gqa": state.get("gqa_by_body"),
                              "decode_suite": state.get("decode_suite_by_body"),
                              "serve": serve.get("by_body")},
@@ -2018,6 +2323,7 @@ def main() -> int:
                "decode_kernel": phase_decode_kernel, "ssd_kernel": phase_ssd_kernel,
                "serve": phase_serve, "noise": phase_noise, "rank": phase_rank,
                "evolve": phase_evolve, "backends": phase_backends,
+               "islands": phase_islands,
                "gqa": phase_gqa, "decode_suite": phase_decode_suite,
                "times": phase_times, "kernels": phase_kernels}
     for phase in PHASES[1:]:

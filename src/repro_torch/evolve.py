@@ -1,11 +1,24 @@
-"""Serial AVO evolution of the attention kernel on the card — the port's
-counterpart of ``examples/evolve_attention.py``'s serial mode.
+"""AVO evolution of the attention kernel on the card — the port's
+counterpart of ``examples/evolve_attention.py``: one lineage, or an
+archipelago of islands.
 
   python -m repro_torch.evolve --commits 4 --max-steps 12          # measured, on the card
   python -m repro_torch.evolve --gqa --commits 2 --max-steps 4     # GQA transfer (paper §4.3)
   python -m repro_torch.evolve --fidelity perfmodel --device cpu   # rung 0, plain path
   python -m repro_torch.evolve --fidelity perfmodel --machine h100 --device cpu
   python -m repro_torch.evolve --backend process --workers 2      # spawned workers on the card
+  python -m repro_torch.evolve --islands 4 --scenario-sweep        # islands, rung 0, on the card
+  python -m repro_torch.evolve --islands 3 --device cpu            # islands, plain path
+  python -m repro_torch.evolve --islands 4 --pipeline --backend process --prefetch-budget 6
+
+``--islands N`` runs the island engine (``core/islands.py``): N lineages on
+``--suite`` with diverse initial genomes (``--scenario-sweep``: one
+specialist island per suite family), migration along ``--topology`` every
+epoch, persisted to ``archipelago.json`` (``archipelago_sweep.json``) and
+resumed from it on the next run.  Islands score at rung 0 (the default
+``--fidelity perfmodel`` there; the measured rung comes to islands with the
+evaluation cascade, ROADMAP Queue 1 item 6), through the ``thread`` backend
+unless ``--backend`` says otherwise, with every island's gate on the card.
 
 ``--backend`` picks the evaluation service: ``inline`` (the default, in this
 process), ``thread``, ``process`` (spawned worker processes on the card) or
@@ -34,9 +47,13 @@ import os
 
 import numpy as np
 
+from repro_torch.core.config import EngineConfig
 from repro_torch.core.evals import MACHINES, MEASURED, PERFMODEL
 from repro_torch.core.evolution import ContinuousEvolution, default_agent
+from repro_torch.core.islands import IslandEvolution, scenario_specs
+from repro_torch.core.perfmodel import suite_by_name
 from repro_torch.core.population import Lineage
+from repro_torch.core.topology import topology_names
 from repro_torch.core.variation import AgenticVariationOperator
 from repro_torch.device import device_name
 
@@ -51,6 +68,71 @@ def baseline_line(scorer, key: str) -> str:
     return f"none (refused on {len(refused)} of {len(vals)} configs: {refused[0]})"
 
 
+def run_islands(args) -> None:
+    """The island engine at rung 0, resumed from (and persisted to) one
+    archipelago file per mode."""
+    kw = dict(seed=args.seed, prefetch=args.prefetch, backend=args.backend,
+              topology=args.topology, pipeline=args.pipeline,
+              elastic_workers=args.elastic_workers,
+              prefetch_budget=args.prefetch_budget,
+              migrant_policy=args.migrant_policy, migrant_k=args.migrant_k,
+              device=args.device, machine=args.machine)
+    if args.backend == "service":
+        kw["service_workers"] = 2 if args.workers is None else args.workers
+    elif args.workers is not None:
+        kw["max_workers"] = args.workers
+    mode = "pipelined" if args.pipeline else "barrier"
+    if args.scenario_sweep:
+        path = os.path.join(args.out, "archipelago_sweep.json")
+        cfg = EngineConfig.from_kwargs(specs=scenario_specs(), **kw)
+    else:
+        path = os.path.join(args.out, "archipelago.json")
+        cfg = EngineConfig.from_kwargs(n_islands=args.islands,
+                                       suite=suite_by_name(args.suite), **kw)
+    engine = IslandEvolution.resume(path, config=cfg)
+    try:
+        scorer = next(iter(engine.scorers.values()))
+        print(f"{len(engine.islands)} islands ("
+              + ", ".join(i.name for i in engine.islands)
+              + f"; topology {args.topology}, {mode} stepping) scoring on "
+              f"{device_name(scorer.device)} at rung 0 through the "
+              f"{args.backend} backend, planning from the {engine.machine} model")
+        rep = engine.run(max_steps=args.max_steps, target_commits=args.commits,
+                         verbose=True)
+        print(f"\n{rep.commits} commits across {len(engine.islands)} islands / "
+              f"{rep.internal_attempts} internal attempts / "
+              f"{rep.migrations_accepted} migrations accepted")
+        print(f"evaluations: {rep.evaluations} paid, {rep.cache_hits} "
+              f"shared-cache hits" + (f", {rep.proposed} speculative proposals"
+                                      if args.pipeline else ""))
+        if rep.eval_pool:
+            p = rep.eval_pool
+            if "grown" in p:                   # elastic process pool
+                print(f"elastic pool: {p['workers']} workers now (peak "
+                      f"{p['peak_workers']}, grew {p['grown']}x, shrank "
+                      f"{p['shrunk']}x over {p['tasks_completed']} tasks)")
+            else:                              # service coordinator registry
+                print(f"eval service: {p['workers']} workers / "
+                      f"{p['total_slots']} slots ({p['tasks_requeued']} "
+                      f"requeued over {p['tasks_completed']} tasks)")
+        if engine.migration_stats.edges:
+            rates = ", ".join(
+                f"{engine.islands[s].name}->{engine.islands[d].name} "
+                f"{st.accepts}/{st.attempts}"
+                for (s, d), st in sorted(engine.migration_stats.edges.items()))
+            print(f"migration acceptance per edge: {rates}")
+        print(f"global best: {rep.best_geomean:.1f} TFLOPS on "
+              f"'{rep.best_island}' ({engine.machine} model)")
+        print(f"scenario coverage geomean: {rep.coverage_geomean:.1f} TFLOPS")
+        for name, r in rep.islands.items():
+            print(f"  {name:14s} commits={r.commits:3d} "
+                  f"best={r.best_geomean:7.1f} interventions={r.interventions}")
+        print(f"gates ran on {device_name(scorer.device)}; archipelago "
+              f"persisted to {path} (+ per-island files)")
+    finally:
+        engine.close()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.evolve")
     ap.add_argument("--commits", type=int, default=12)
@@ -60,29 +142,71 @@ def main(argv=None) -> None:
     ap.add_argument("--gqa", action="store_true",
                     help="adapt the best genome of lineage_mha.json to gqa_suite "
                          "(overrides --suite)")
-    ap.add_argument("--fidelity", choices=(PERFMODEL, MEASURED), default=MEASURED,
+    ap.add_argument("--fidelity", choices=(PERFMODEL, MEASURED), default=None,
                     help="measured: CUDA-event time of the kernel at the full "
-                         "suite shapes (default); perfmodel: the reference's "
-                         "TPU v5e model")
+                         "suite shapes (the default of one lineage); "
+                         "perfmodel: rung 0's model (the default, and the "
+                         "only rung, of --islands)")
     ap.add_argument("--machine", choices=MACHINES, default=None,
                     help="rung 0's model: tpu_v5e (default, the reference's) "
                          "or h100; the measured rung takes h100 only")
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs the plain PyTorch path")
     ap.add_argument("--backend", choices=("inline", "thread", "process", "service"),
-                    default="inline",
-                    help="evaluation backend (default inline: in this process)")
+                    default=None,
+                    help="evaluation backend (default: inline, in this "
+                         "process; thread with --islands)")
     ap.add_argument("--workers", type=int, default=None,
                     help="worker count of a thread, process or service backend "
                          "(default: 2 on the card)")
+    ap.add_argument("--islands", type=int, default=0,
+                    help="run N islands in parallel instead of one lineage")
+    ap.add_argument("--scenario-sweep", action="store_true",
+                    help="islands: one specialist island per suite family "
+                         "(mha, gqa, decode, mha-explorer)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="islands: operator seeds and diverse initial genomes")
+    ap.add_argument("--topology", choices=topology_names(), default="ring",
+                    help="islands: migration graph (ring, star, all-to-all, "
+                         "adaptive)")
+    ap.add_argument("--pipeline", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="islands: propose -> submit -> harvest stepping "
+                         "(lineages identical to --no-pipeline)")
+    ap.add_argument("--prefetch", type=int, default=0,
+                    help="islands: KB candidate edits speculatively scored "
+                         "per step (cache warming only)")
+    ap.add_argument("--prefetch-budget", type=int, default=None,
+                    help="islands: shared speculative-evaluation budget, "
+                         "re-divided across islands every epoch")
+    ap.add_argument("--elastic-workers", type=int, default=0,
+                    help="islands: cap of an elastic worker-process pool "
+                         "(needs --backend process)")
+    ap.add_argument("--migrant-policy", choices=("best", "top-k"),
+                    default="best",
+                    help="islands: what a donor sends per migration edge")
+    ap.add_argument("--migrant-k", type=int, default=3,
+                    help="islands: k for --migrant-policy top-k")
     ap.add_argument("--out", default=os.path.join("results", "torch"),
                     help="directory for the persisted lineage")
     args = ap.parse_args(argv)
+    islands = bool(args.islands or args.scenario_sweep)
+    if islands and args.fidelity == MEASURED:
+        ap.error("--islands scores at rung 0: the measured rung comes to the "
+                 "island engine with the evaluation cascade (ROADMAP Queue 1 "
+                 "item 6); use --fidelity perfmodel")
+    if args.fidelity is None:
+        args.fidelity = PERFMODEL if islands else MEASURED
+    if args.backend is None:
+        args.backend = "thread" if islands else "inline"
     if args.fidelity == MEASURED and args.machine not in (None, "h100"):
         ap.error("--fidelity measured plans from the card's model: "
                  "--machine must be h100")
     if args.workers is not None and args.backend == "inline":
         ap.error("--workers needs --backend thread, process or service")
+    if islands:
+        run_islands(args)
+        return
 
     operator = None
     suite = args.suite
