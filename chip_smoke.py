@@ -36,12 +36,13 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  and the pipelined genome on mha_suite and gqa_suite, each
                  paid anew; the commit floor MEASURED_MIN_REL must not lie
                  below the largest spread (max / min - 1 of the geomean)
-  rank           rung 0 against rung 2 on mha_suite: RANK_GENOMES genomes
-                 drawn with a fixed numpy seed (fp32 accumulators), the seed
-                 and the pipelined genome, each scored once at the measured
-                 rung; Spearman's rho of each model's geomeans (H100, TPU
-                 v5e) against the card's, and the host seconds per estimate
-                 call of each model
+  rank           rungs 0 and 1 against rung 2 on mha_suite: RANK_GENOMES
+                 genomes drawn with a fixed numpy seed (fp32 accumulators),
+                 the seed and the pipelined genome, each scored once at the
+                 measured rung; Spearman's rho of each rung-0 model's
+                 geomeans (H100, TPU v5e) and of rung 1's against the
+                 card's, the host seconds per estimate call of each model
+                 and per rung-1 scoring (traced anew)
   evolve         ContinuousEvolution(fidelity="measured") on mha_suite() for
                  a bounded number of paid evaluations, twice in turn: planned
                  from the H100 model and Hopper facts (the default), and from
@@ -83,6 +84,24 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  genome read once at the measured rung beside cuDNN and
                  flash; the four islands raced against the serial loop on
                  the union suite to the serial run's final coverage
+  cascade        the evaluation cascade through the island engine: the islands
+                 phase's archipelago with cascade_eta=3 and slates of the best
+                 genome and up to 8 suggestions, rung 0 on the H100 model
+                 (fp32 gates), rung 1 traced on the meta device, rung 2
+                 timed on the wgmma body, thread backend; gates: lineages
+                 equal with the cascade off, promotion off and on; every
+                 pass promotes at most max(1, n // 3) a rung, and a full
+                 9-genome slate 1/3 to rung 1 and 1/9 to rung 2; the run's
+                 card seconds (cache stats of rungs 0 and 2; rung 1 runs no
+                 kernel, its host seconds printed beside) below the slates
+                 scored flat at rung 2; rung 1 on the card equal to rung 1
+                 on the CPU;
+                 rung 2 on the wgmma body with lock sections disjoint; a run
+                 killed after ISLAND_RESUME_AT steps adopts the payload's
+                 calibration and log and resumes to the same lineages.
+                 Printed, not gated: rung 0 against rung 2 rank inversions
+                 before and after calibration, the factors, and rung 1's
+                 launch overhead (LAUNCH_REPS launches of the fp32 body)
   gqa            paper §4.3: the evolve phase's best genome adapted to
                  gqa_suite at the measured rung for GQA_EVALS paid
                  evaluations, planned from the Hopper facts; launches at
@@ -154,9 +173,13 @@ ISLAND_RESUME_AT = 4        # steps before the resume check's kill
 ISLAND_PREFETCH_BUDGET = 6  # shared speculation budget of the pipelined run
 RACE_SERIAL_STEPS = 24      # steps of the serial side of the race
 RACE_ISLAND_STEPS = 12      # steps per island of the island side
+CASCADE_ETA = 3             # successive-halving rate of the cascade phase
+CASCADE_SLATE = 8           # KB suggestions beside each island's best, at most
+CASCADE_SEED = 1            # seed of the full 9-genome slate (drawn as rank draws)
+LAUNCH_REPS = 200           # back-to-back launches timed for the launch overhead
 PHASES = ("device", "build", "kernel", "decode_kernel", "ssd_kernel", "serve",
-          "noise", "rank", "evolve", "backends", "islands", "gqa", "decode_suite",
-          "times", "kernels")
+          "noise", "rank", "evolve", "backends", "islands", "cascade", "gqa",
+          "decode_suite", "times", "kernels")
 SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd.cu")
 TOL_SSD_F32 = 2e-5          # SSD kernel vs plain, fp32: relative to max |y|
 SERVE_ARCH, SERVE_LAYERS = "jamba-v0.1-52b", 16
@@ -1226,13 +1249,15 @@ def spearman(a, b) -> float:
 
 
 def phase_rank(state):
-    """Rung 0 against rung 2: a seeded genome sample scored once each at
-    the measured rung on mha_suite, ranked against each model's geomeans."""
+    """Rungs 0 and 1 against rung 2: a seeded genome sample scored once
+    each at the measured rung on mha_suite, ranked against each rung-0
+    model's geomeans and rung 1's (traced anew for each genome)."""
     import numpy as np
     import torch
 
     from repro_torch.core import perfmodel, perfmodel_h100
-    from repro_torch.core.evals import MEASURED, Scorer
+    from repro_torch.core.evals import HLO, MEASURED, Scorer
+    from repro_torch.core.evals.scorer import _TRACE_MEMO
     from repro_torch.core.perfmodel import mha_suite
     from repro_torch.core.search_space import full_space, seed_genome
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1267,10 +1292,19 @@ def phase_rank(state):
         return geo, (time.perf_counter() - t) / (len(genomes) * len(suite))
     h100, h100_s = modelled(perfmodel_h100)
     tpu, tpu_s = modelled(perfmodel)
-    for g, c, h, t in zip(genomes, card, h100, tpu):
+    # rung 1: each genome's walk traced anew (the trace memo emptied first)
+    _TRACE_MEMO.clear()
+    rung1_scorer = Scorer(suite=suite, fidelity=HLO, check_correctness=False,
+                          machine="h100")
+    t1 = time.perf_counter()
+    rung1 = [rung1_scorer(g).geomean for g in genomes]
+    rung1_s = (time.perf_counter() - t1) / len(genomes)
+    for g, c, h, t, r in zip(genomes, card, h100, tpu, rung1):
         emit({"phase": "rank", "genome": g.kernel_kwargs(), "card_tflops": c,
-              "h100_model_tflops": h, "tpu_v5e_model_tflops": t})
+              "h100_model_tflops": h, "tpu_v5e_model_tflops": t, "rung1_tflops": r})
     out = {"rho_h100_model": spearman(h100, card), "rho_tpu_v5e_model": spearman(tpu, card),
+           "rho_rung1": spearman(rung1, card), "rung1_s_per_scoring": rung1_s,
+           "rung1_traces": _TRACE_MEMO.stats()["entries"],
            "genomes": len(genomes), "sample_seed": RANK_SEED,
            "estimate_s_h100_model": h100_s, "estimate_s_tpu_v5e_model": tpu_s,
            "model_s_per_scoring_h100": h100_s * len(suite),
@@ -1877,6 +1911,214 @@ def phase_islands(state):
                                   "measured": by_body4})
 
 
+def launch_seconds(n: int = LAUNCH_REPS) -> float:
+    """Seconds per launch of flash_attention's fp32 body at its smallest
+    shape, (1, 1, 16, 64), ``n`` back to back through the wrapper (CUDA
+    events): rung 1's launch overhead as this port issues a launch."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.randn(1, 1, 16, 64, device="cuda")
+    for _ in range(10):
+        flash_attention(q, q, q, block_q=16, block_k=16)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(n):
+        flash_attention(q, q, q, block_q=16, block_k=16)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e-3 / n
+
+
+def _inversions(pred, meas) -> int:
+    """Pairwise order disagreements of two rankings."""
+    import itertools
+    return sum(1 for i, j in itertools.combinations(range(len(pred)), 2)
+               if (pred[i] - pred[j]) * (meas[i] - meas[j]) < 0)
+
+
+def phase_cascade(state):
+    """The evaluation cascade through the island engine on the card: the
+    islands phase's archipelago with cascade_eta=3 and slates of up to
+    1 + 8 genomes, rung 0 on the H100 model with every gate on the fp32
+    kernel, rung 1 traced on the meta device, rung 2 timed on the wgmma
+    body, thread backend.  Six gates (see the module docstring); the rank
+    inversions of rung 0 against rung 2, before and after calibration, are
+    printed and not gated."""
+    import json as _json
+    import shutil
+
+    import torch
+
+    from repro_torch.core.evals import (FIDELITIES, HLO, MEASURED, PERFMODEL,
+                                        Scorer, make_backend)
+    from repro_torch.core.evals.scorer import _CHECK_MEMO, _TRACE_MEMO, LAUNCH_S
+    from repro_torch.core.islands import IslandEvolution
+    from repro_torch.core.perfmodel import PerfModelCalibration, mha_suite
+    from repro_torch.core.search_space import KernelGenome
+    from repro_torch.device import card_lock_stats
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    _TRACE_MEMO.clear()                # rung 1 pays its traces in this phase
+    launch_s = launch_seconds()
+    emit({"phase": "cascade", "launch_overhead_s": launch_s, "launch_s_in_force": LAUNCH_S,
+          "launches_timed": LAUNCH_REPS, "shape": [1, 1, 16, 64], "body": "fp32"})
+    eta, slate = CASCADE_ETA, CASCADE_SLATE
+
+    def run(steps=ISLAND_STEPS, **kw):
+        eng = _island_engine(**kw)
+        try:
+            rep = eng.run(max_steps=steps)
+        finally:
+            eng.close()
+        return eng, rep
+
+    # 1. lineages: the cascade off, promotion off, promotion on
+    t0 = time.perf_counter()
+    off, _ = run()
+    quiet, _ = run(cascade_eta=eta, cascade_slate=slate, cascade_promote=False)
+    locks0, since = card_lock_stats(), time.monotonic()
+    _CHECK_MEMO.clear()                # the promoting run pays its own gates
+    reset_counts(flash_attention)
+    t1 = time.perf_counter()
+    on, rep = run(cascade_eta=eta, cascade_slate=slate)
+    wall_on = time.perf_counter() - t1
+    launches, by_body = flash_attention.launches, dict(flash_attention.launches_by_body)
+    spans = _spans_disjoint({"parent": {"card_locks": card_lock_stats()}}, "cascade")
+    want = _island_prints(off)
+    same = {"promotion_off": _island_prints(quiet) == want, "promotion_on": _island_prints(on) == want}
+    totals = on.cascade_totals()
+    emit({"phase": "cascade", "check": "lineages", "equal": same, "eta": eta,
+          "cascade_slate": slate, "steps": ISLAND_STEPS, "wall_s_promoting": wall_on,
+          "wall_s_all_three": time.perf_counter() - t0, "totals": totals,
+          "commits": rep.commits, "paid_evals_rung0": rep.evaluations,
+          "launches": launches, "launches_by_body": by_body,
+          "card_lock": _lock_delta(locks0, card_lock_stats(), since), "lock_spans": spans})
+    for entry in on.cascade_log:
+        emit({"phase": "cascade", "log": True, **{k: entry[k] for k in (
+            "epoch", "island", "slate", "evals", "promoted")}})
+    if not all(same.values()):
+        raise AssertionError(f"cascade: lineages differ from the cascade-free run: {same}")
+
+    # 2. promote fractions: every logged pass, and one full 9-genome slate
+    rates_ok = bool(on.cascade_log)
+    for entry in on.cascade_log:
+        n0, n1, n2 = (entry["evals"][f] for f in FIDELITIES)
+        rates_ok = rates_ok and n1 <= max(1, n0 // eta) and n2 <= max(1, n1 // eta)
+    full = make_backend("cascade", suite="mha", machine="h100", eta=eta)
+    try:
+        t2 = time.perf_counter()
+        log9 = full.run_cascade(_draw(eta * eta, CASCADE_SEED))
+        full_s = time.perf_counter() - t2
+    finally:
+        full.close()
+    r1, r2 = log9["evals"][HLO] / log9["slate"], log9["evals"][MEASURED] / log9["slate"]
+    emit({"phase": "cascade", "check": "promote_fractions", "engine_ok": rates_ok,
+          "full_slate": log9["slate"], "full_evals": log9["evals"], "rung1_fraction": r1,
+          "rung2_fraction": r2, "full_wall_s": full_s})
+    if not (rates_ok and log9["slate"] == eta * eta and r1 <= 1 / eta and r2 <= 1 / eta ** 2):
+        raise AssertionError(f"cascade: promote fractions broken: {log9['evals']}")
+
+    # 3. cost: the cascade's card seconds per rung against the whole slate
+    # flat at rung 2.  Rungs 0 and 2 hold the card for their seconds (every
+    # rung-0 second of the run counted, stepping included); rung 1 runs no
+    # kernel, so its seconds are the host's, printed beside and not gated
+    suite_of = {i.name: sp.target_suite for i, sp in zip(on.islands, on.specs)}
+    n0 = {key: 0 for key in on.cascades}
+    for entry in on.cascade_log:
+        n0[suite_of[entry["island"]]] += entry["evals"][PERFMODEL]
+    per_rung = dict.fromkeys(FIDELITIES, 0.0)
+    flat = 0.0
+    for key, casc in on.cascades.items():
+        st = casc.cache.stats()
+        for fid, sec in st["eval_seconds"].items():
+            per_rung[fid] += sec
+        paid2 = st["per_fidelity"].get(MEASURED, 0)
+        if paid2:
+            flat += n0[key] * st["eval_seconds"][MEASURED] / paid2
+    cost = per_rung[PERFMODEL] + per_rung[MEASURED]
+    emit({"phase": "cascade", "check": "cost", "seconds_per_rung": per_rung,
+          "card_s": cost, "flat_rung2_s": flat, "rung1_host_s": per_rung[HLO],
+          "with_rung1_host_s": cost + per_rung[HLO], "slate_evals_rung0": n0,
+          "paid_per_rung": {k: c.cache.stats()["per_fidelity"] for k, c in on.cascades.items()}})
+    if not 0 < cost < flat:
+        raise AssertionError(f"cascade: {cost} card s against {flat} s flat at rung 2")
+
+    # 4. rung 1 on the card equals rung 1 on the CPU, traced anew
+    checked = 0
+    _TRACE_MEMO.clear()
+    for key, casc in on.cascades.items():
+        rung1 = casc.rungs[1]
+        cpu = Scorer(suite=rung1.suite, check_correctness=False, fidelity=HLO,
+                     device="cpu", machine="h100")
+        keys = {g for e in on.cascade_log if suite_of[e["island"]] == key
+                for g in e["promoted"][HLO]}
+        for gk in sorted(keys):
+            g = KernelGenome.from_dict(_json.loads(gk))
+            if rung1.cache.peek(rung1.score_key(g)).values != cpu(g).values:
+                raise AssertionError(f"cascade: rung 1 of {gk} on {key} differs card / cpu")
+            checked += 1
+    emit({"phase": "cascade", "check": "rung1_card_vs_cpu", "equal": True, "genomes": checked})
+
+    # 5. rung 2 on the wgmma body; lock sections disjoint (checked above)
+    if by_body["wgmma"] <= 0 or by_body["fp32"] <= 0 or totals["evals"][MEASURED] <= 0:
+        raise AssertionError(f"cascade: launches {by_body}, totals {totals}")
+
+    # the calibration's effect, not gated: rung 0 against rung 2 over every
+    # genome the run timed, raw and with the run's final factors
+    rows = []
+    for key, casc in on.cascades.items():
+        rung0, rung2 = casc.rungs[0], casc.rungs[2]
+        for gk in sorted({g for e in on.cascade_log if suite_of[e["island"]] == key
+                          for g in e["promoted"][MEASURED]}):
+            g = KernelGenome.from_dict(_json.loads(gk))
+            sv0, sv2 = rung0.cache.peek(rung0.score_key(g)), rung2.cache.peek(rung2.score_key(g))
+            rows.append((key, sv0.geomean, sv2.geomean, sv0.dominant_bottleneck()))
+    cal = PerfModelCalibration()
+    cal.load_state(totals["calibration"])
+    raw = [a for _, a, _, _ in rows]
+    meas = [b for _, _, b, _ in rows]
+    emit({"phase": "cascade", "calibration": True, "gate": False, "timed_genomes": len(rows),
+          "factors": cal.factors, "observations": cal.observations,
+          "inversions_raw": _inversions(raw, meas),
+          "inversions_calibrated": _inversions([cal.corrected(d, a) for _, a, _, d in rows], meas),
+          "rows": [{"suite": k, "rung0": a, "rung2": b, "class": d} for k, a, b, d in rows]})
+
+    # 6. killed after ISLAND_RESUME_AT steps, resumed from its file; the
+    # engines above and their full-shape inputs freed first
+    promotions = [e["promoted"] for e in on.cascade_log]
+    del off, quiet, on, full
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    emit({"phase": "cascade", "device_memory_gib": {"free": free / 2**30, "total": total / 2**30,
+          "allocated": torch.cuda.memory_allocated() / 2**30,
+          "reserved": torch.cuda.memory_reserved() / 2**30}})
+    root = os.path.join(HERE, "results", "chip_smoke_cascade")
+    shutil.rmtree(root, ignore_errors=True)
+    path = os.path.join(root, "archipelago.json")
+    t3 = time.perf_counter()
+    run(ISLAND_RESUME_AT, cascade_eta=eta, cascade_slate=slate, persist_path=path)
+    with open(path) as f:
+        at_kill = _json.load(f)["cascade"]
+    resumed = IslandEvolution.resume(path)
+    try:
+        adopted = (resumed.calibration.state() == at_kill["calibration"]
+                   and resumed.cascade_log == at_kill["log"])
+        resumed.run(max_steps=ISLAND_STEPS - ISLAND_RESUME_AT)
+    finally:
+        resumed.close()
+    same = _island_prints(resumed) == want
+    emit({"phase": "cascade", "check": "resume", "equal": same, "adopted": adopted,
+          "calibration_at_kill": at_kill["calibration"], "log_at_kill": len(at_kill["log"]),
+          "promotions_equal_uninterrupted": [
+              e["promoted"] for e in resumed.cascade_log] == promotions,
+          "wall_s": time.perf_counter() - t3})
+    if not (same and adopted):
+        raise AssertionError("cascade: the resumed run differs from the uninterrupted one")
+    state.update(cascade_launches=launches, cascade_by_body=by_body, cascade=totals)
+
+
 def _held_to_plain(phase, scorer, genome, names) -> float:
     """The kernel at suite configs ``names`` (full shape, the measured
     rung's inputs) against its plain version under the bf16 bounds; these
@@ -2237,11 +2479,12 @@ def phase_kernels(state):
         + state.get("rank_launches", 0) + state.get("gqa_launches", 0)
         + state.get("decode_suite_launches", 0) + serve_launches.get("flash_attention", 0)
         + state.get("backends_launches", 0) + state.get("islands_launches", 0)
-        + state.get("islands_worker_launches", 0),
+        + state.get("islands_worker_launches", 0) + state.get("cascade_launches", 0),
         "launches_by_path": {"evolve": state.get("launches", 0),
                              "backends_workers": state.get("backends_launches", 0),
                              "islands": state.get("islands_launches", 0),
                              "islands_workers": state.get("islands_worker_launches", 0),
+                             "cascade": state.get("cascade_launches", 0),
                              "evolve_tpu_plan": state.get("tpu_plan_launches", 0),
                              "rank": state.get("rank_launches", 0),
                              "gqa": state.get("gqa_launches", 0),
@@ -2250,6 +2493,7 @@ def phase_kernels(state):
         "launches_by_body": {"evolve": state.get("evolve_by_body"),
                              "backends_workers": state.get("backends_by_body"),
                              "islands": state.get("islands_by_body"),
+                             "cascade": state.get("cascade_by_body"),
                              "gqa": state.get("gqa_by_body"),
                              "decode_suite": state.get("decode_suite_by_body"),
                              "serve": serve.get("by_body")},
@@ -2323,7 +2567,7 @@ def main() -> int:
                "decode_kernel": phase_decode_kernel, "ssd_kernel": phase_ssd_kernel,
                "serve": phase_serve, "noise": phase_noise, "rank": phase_rank,
                "evolve": phase_evolve, "backends": phase_backends,
-               "islands": phase_islands,
+               "islands": phase_islands, "cascade": phase_cascade,
                "gqa": phase_gqa, "decode_suite": phase_decode_suite,
                "times": phase_times, "kernels": phase_kernels}
     for phase in PHASES[1:]:

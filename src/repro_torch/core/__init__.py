@@ -1,7 +1,7 @@
 """The search half of the port: genome, scorer, agent, operators, supervisor,
 lineage, the serial evolution loop and the island engine with its
-configuration and migration topologies (``repro.core`` without the cascade
-and the search frontier)."""
+configuration, migration topologies and evaluation cascade (``repro.core``
+without the search frontier)."""
 from repro_torch.core.agent import AgentPolicy, Directive, ScriptedAgent, VariationResult
 from repro_torch.core.config import (EngineConfig, EvalConfig, MigrationConfig,
                                      engine_config_from_legacy)

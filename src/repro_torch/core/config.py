@@ -28,9 +28,8 @@ persisted by a kwarg-path engine resumes under the config path, and
 payload alone.  Runtime-only fields (an injected shared coordinator, the
 scheduling tenant) are deliberately excluded from the payload — they name
 live resources of ONE process, not search state.  ``device`` and ``machine``
-are persisted as strings.  The cascade fields stay so that the payload keeps
-the reference's shape; the port's engine refuses ``cascade_eta`` until the
-cascade is ported.
+are persisted as strings.  The cascade fields are the reference's: on the
+card the cascade climbs rungs 0-2, on ``device="cpu"`` rungs 0-1.
 """
 from __future__ import annotations
 

@@ -1,19 +1,22 @@
 """The evaluation service of the port: scoring function, cache, and parallel
 backends.
 
-Layout (``repro.core.evals`` without its cascade):
+Layout (``repro.core.evals``):
   vector.py          ScoreVector — the value of f(x), picklable
   cache.py           ScoreCache — the explicit memo API every backend shares —
                      + the fidelity ladder (FIDELITIES / fidelity_key)
   scorer.py          Scorer / InlineBackend — the correctness gate on the card,
-                     the perfmodel (rung 0: the TPU v5e or the H100 model) and
-                     measured (rung 2) rungs, the batch path, the paper's
+                     the perfmodel (rung 0: the TPU v5e or the H100 model),
+                     hlo (rung 1: a meta-device trace on the H100 roofline)
+                     and measured (rung 2) rungs, the batch path, the paper's
                      baselines and the measured commit floor, in-process
   worker.py          evaluate_genome / EvalSpec — the pure picklable worker fn
                      (the spec names the device and rung 0's machine)
   backends.py        EvalBackend protocol + the backend registry
                      (register_backend); thread (BatchScorer) + process ship
-                     here, service self-registers
+                     here, service/cascade self-register
+  cascade.py         CascadeBackend — successive-halving promotion across
+                     rungs (0-1 on the CPU, 0-2 on the card)
   elastic.py         ElasticProcessPool — worker count follows queue depth
   protocol.py        length-prefixed socket frames (spec+genome out, scores
                      back; the HELLO names the package)
@@ -27,8 +30,7 @@ Every backend exposes the same sync (``__call__``/``map``) and async
 tables, and wire frames are all keyed per ``(genome, spec, fidelity)`` — a
 genome scored at one rung re-scores (never aliases) at another.  On a card,
 every worker's gate and timing hold the card's lock (``device.card_lock``):
-one timer per card, however many workers share it.  The cascade is a later
-slice.
+one timer per card, however many workers share it.
 """
 from repro_torch.core.evals.backends import (BackendInfo, BatchScorer,
                                              EvalBackend, ProcessBackend,
@@ -39,6 +41,7 @@ from repro_torch.core.evals.backends import (BackendInfo, BatchScorer,
                                              register_backend,
                                              registered_backends,
                                              unregister_backend)
+from repro_torch.core.evals.cascade import DEFAULT_ETA, CascadeBackend
 from repro_torch.core.evals.cache import (FIDELITIES, HLO, MEASURED, PERFMODEL,
                                           ScoreCache, fidelity_key, key_fidelity)
 from repro_torch.core.evals.elastic import ElasticProcessPool
@@ -61,7 +64,8 @@ from repro_torch.core.evals.worker import (EvalSpec, evaluate_frame,  # noqa: F4
                                            warm_worker, worker_stats)
 
 __all__ = [
-    "BackendInfo", "BatchScorer", "CORRECTNESS_TOL",
+    "BackendInfo", "BatchScorer", "CORRECTNESS_TOL", "CascadeBackend",
+    "DEFAULT_ETA",
     "ClientSession", "ElasticProcessPool", "EvalBackend", "EvalCoordinator",
     "EvalSpec", "FIDELITIES", "HLO", "InlineBackend", "MACHINES", "MEASURED",
     "MEASURED_MIN_REL", "PERFMODEL",

@@ -165,8 +165,9 @@ def _scorer_for(spec: EvalSpec) -> Scorer:
 def warm_worker(specs: Sequence,
                 batch_scoring: Optional[bool] = None) -> None:
     """Process-pool initializer: pre-build the scorer (its proxy inputs, and
-    at the measured rung its full-shape inputs) for every suite this pool
-    will serve, so the first real evaluation in each worker pays no warm-up.
+    at the measured rung its full-shape inputs; rung 1 traces on the meta
+    device and builds nothing) for every suite this pool will serve, so the
+    first real evaluation in each worker pays no warm-up.
     Accepts ``(spec_id, spec)`` pairs (registered for the compact
     :func:`evaluate_frame` path) or bare :class:`EvalSpec`\\ s.
     ``batch_scoring`` hands a spawned worker the parent's batch-path setting,
@@ -258,7 +259,8 @@ def _prestart_noop() -> None:
 def prepare_parent(specs: Sequence[EvalSpec]) -> None:
     """What a parent does before it starts workers for ``specs``: a spec on
     the card needs a card here (raises without one), and the kernel its
-    workers launch is built and loaded once, so that workers only load."""
+    workers launch (a gate or the measured rung; rung 1 launches none) is
+    built and loaded once, so that workers only load."""
     card = [s for s in specs if s.on_card]
     if not card:
         return

@@ -70,11 +70,13 @@ results do not depend on thread scheduling.  A fixed seed reproduces the same
 per-island lineages, commit for commit — pipelined or not, on the card or on
 the CPU.
 
-Not ported yet: the multi-fidelity evaluation cascade (``cascade_eta``),
-which needs rung 1 on the card.  An engine asked for it raises
-``NotImplementedError``; a ``cascade`` entry of a loaded payload is kept as
-data and written back, never run.  Lineage commits are scored at rung 0, as
-in the reference.
+**The evaluation cascade** (``cascade_eta``): at every epoch barrier each
+island's slate runs successive halving over the fidelity ladder (rung 0 on
+its own backend, rung 1 the meta-device trace on the H100 roofline, rung 2
+the kernel timed on the card), and rung-2 residuals calibrate rung 0's
+promotion ranking.  On the CPU a cascade runs rungs 0-1.  Lineage commits
+are scored at rung 0, as in the reference: the cascade only decides where
+card time is bought.
 
 ``ContinuousEvolution`` (evolution.py) is the single-island special case of
 :class:`Island` + this engine's serial loop.
@@ -82,6 +84,7 @@ in the reference.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import os
 import time
@@ -90,16 +93,18 @@ from typing import Callable, Optional, Sequence, Union
 
 from repro_torch.core import obs
 from repro_torch.core.config import EngineConfig, engine_config_from_legacy
-from repro_torch.core.evals import (PERFMODEL, BatchScorer,
+from repro_torch.core.evals import (PERFMODEL, BatchScorer, CascadeBackend,
                                     ElasticProcessPool, EvalCoordinator,
                                     EvalSpec, backend_info, make_backend,
                                     make_process_executor, stop_local_workers)
+from repro_torch.core.evals.cascade import ladder, rung_spec
 from repro_torch.core.evals.protocol import parse_address
 from repro_torch.core.evals.scorer import default_machine
 from repro_torch.core.evals.worker import prepare_parent
 from repro_torch.core.knowledge import KnowledgeBase, suggestion_sort_key
 from repro_torch.core.knowledge_h100 import knowledge_for
-from repro_torch.core.perfmodel import registered_suites, suite_by_name
+from repro_torch.core.perfmodel import (PerfModelCalibration,
+                                        registered_suites, suite_by_name)
 from repro_torch.core.population import Commit, Lineage, atomic_write_json
 from repro_torch.core.search_space import KernelGenome, seed_genome
 from repro_torch.core.supervisor import Supervisor
@@ -578,8 +583,23 @@ class IslandEvolution:
         recipient re-scores all of them on its own suite and adopts the best
         survivor).
 
-        ``cascade_eta`` (the multi-fidelity evaluation cascade) is not
-        ported: any value but ``None`` raises ``NotImplementedError``."""
+        ``cascade_eta`` (>= 2) turns on the multi-fidelity evaluation
+        cascade: every epoch barrier, each island's candidate slate (its
+        best genome + up to ``cascade_slate`` KB suggestions) runs
+        successive halving across the fidelity ladder — the whole slate at
+        rung 0 (``perfmodel``, through the island's own backend, so it is
+        pure cache warming), the top ``1/eta`` at rung 1 (``hlo``: the
+        block walk traced on the meta device, scored on the H100 roofline),
+        the top ``1/eta`` of that at rung 2 (``measured``: the kernel timed
+        on the card, planned from the card's model) — and measured-vs-
+        predicted residuals feed a per-bottleneck-class EMA correction that
+        sharpens rung-0 promotion ranking over the run
+        (:class:`~repro_torch.core.perfmodel.PerfModelCalibration`;
+        persisted in the archipelago payload with the promotion log).  With
+        ``device="cpu"`` the ladder stops at rung 1.  ``cascade_promote=
+        False`` keeps the cascade at rung 0 only.  Lineage commits are
+        *never* scored above rung 0; the cascade only decides where
+        expensive signal is bought."""
         if config is not None and legacy:
             raise TypeError(
                 "pass either config=EngineConfig(...) or the legacy flat "
@@ -619,17 +639,14 @@ class IslandEvolution:
             raise ValueError(f"cascade_eta must be >= 2, got {ev.cascade_eta}")
         if ev.cascade_slate < 1:
             raise ValueError(f"cascade_slate must be >= 1, got {ev.cascade_slate}")
-        if ev.cascade_eta is not None:
-            raise NotImplementedError(
-                "the evaluation cascade is not ported to the card yet: it "
-                "needs rung 1 (ROADMAP Queue 1 item 6); leave cascade_eta "
-                "at None")
+        self.cascade_eta = ev.cascade_eta
+        self.cascade_slate = ev.cascade_slate
+        self.cascade_promote = ev.cascade_promote
+        self.calibration = PerfModelCalibration()
+        self.cascade_log: list[dict] = []
         # rung 0's model: what every lineage of this engine is scored under,
         # recorded in the payload so a resume never mixes two machines
         self.machine = ev.machine or default_machine(PERFMODEL)
-        # the cascade stays unported: a loaded payload's cascade entry is
-        # kept as data and written back
-        self._cascade_payload: dict = {}
         self._prefetch_allocator = (PrefetchAllocator(config.prefetch_budget)
                                     if config.prefetch_budget is not None
                                     else None)
@@ -667,7 +684,14 @@ class IslandEvolution:
             key: EvalSpec.resolve(cfgs, check_correctness=ev.check_correctness,
                                   device=ev.device, machine=ev.machine)
             for key, cfgs in suite_cfgs.items()}
-        warm_specs = tuple(eval_specs.values())
+        # higher-fidelity rungs of each suite (cascade only): correctness was
+        # already verified at rung 0, so the expensive rungs skip it
+        rung_specs = {
+            key: [rung_spec(dataclasses.replace(espec, check_correctness=False), f)
+                  for f in ladder(espec)[1:]]
+            for key, espec in eval_specs.items()} if ev.cascade_eta else {}
+        warm_specs = tuple(eval_specs.values()) + tuple(
+            s for rungs in rung_specs.values() for s in rungs)
         # which shared resource this backend wants injected is registry
         # metadata, not a name branch — raises the stable 'unknown eval
         # backend' ValueError for unregistered names
@@ -700,6 +724,7 @@ class IslandEvolution:
                 # on timeout this closes the coordinator + stops the procs
                 self._service_procs = self.service_coordinator.spawn_workers(
                     ev.service_workers, device=ev.device)
+        self.cascades: dict[str, CascadeBackend] = {}
         for key, espec in eval_specs.items():
             extra: dict = {}
             if info.executor == "process":
@@ -710,7 +735,16 @@ class IslandEvolution:
                 extra["coordinator"] = self.service_coordinator
                 if ev.tenant:
                     extra["tenant"] = ev.tenant
-            self.scorers[key] = make_backend(backend, suite=espec, **extra)
+            sc = self.scorers[key] = make_backend(backend, suite=espec, **extra)
+            if ev.cascade_eta:
+                # sibling rung backends share the rung-0 cache (fidelity-
+                # prefixed keys keep rungs from aliasing) and the same
+                # executor/coordinator, so the cascade adds no new pools
+                rungs = [sc] + [
+                    make_backend(backend, suite=rspec, cache=sc.cache, **extra)
+                    for rspec in rung_specs[key]]
+                self.cascades[key] = CascadeBackend(
+                    rungs, eta=ev.cascade_eta, calibration=self.calibration)
         self._warm(warm_specs)
 
         def scorer_for(suite_name: Optional[str]):
@@ -744,11 +778,13 @@ class IslandEvolution:
         before any island or scorer thread starts: the kernel built and
         loaded (``prepare_parent``; a no-op for CPU specs, a raise for a
         card spec on a host without one), and the proxy inputs of every
-        in-process scorer (the thread backend builds its own at
-        construction; pooled backends' workers warm in their
-        initializers)."""
+        in-process scorer and the full-shape inputs of every in-process
+        rung-2 scorer (the thread backend builds its own at construction;
+        pooled backends' workers warm in their initializers).  Rung 1
+        builds nothing on the card."""
         prepare_parent(specs)
-        for sc in self.scorers.values():
+        rungs = [r for c in self.cascades.values() for r in c.rungs[1:]]
+        for sc in list(self.scorers.values()) + rungs:
             warm = getattr(sc, "warm", None)
             if warm is not None:
                 warm()
@@ -942,22 +978,62 @@ class IslandEvolution:
             # the barrier-mode KB prefetch
             isl.prefetch_cap = isl.prefetch_k = alloc.get(isl.name, 0)
 
+    def _cascade_slate(self, island: Island) -> list[KernelGenome]:
+        """The candidate slate one island feeds the cascade: its current best
+        plus the KB's top suggested edits, deterministically ordered
+        (``suggestion_sort_key``) and capped at ``cascade_slate``.  A pure
+        function of the lineage + KB state the payload persists, so a
+        resumed run rebuilds the identical slate."""
+        best = island.lineage.best()
+        if best is None:
+            return []
+        sv = island.scorer(best.genome)              # cached after stepping
+        if not sv.correct:
+            return [best.genome]
+        sugg = island.kb.suggestions(best.genome, sv, island.scorer.suite,
+                                     sv.dominant_bottleneck(), count=False)
+        sugg = sorted(sugg, key=suggestion_sort_key)[:self.cascade_slate]
+        return [best.genome] + [best.genome.with_(**s.edit) for s in sugg]
+
+    def _run_cascades(self) -> None:
+        """One successive-halving pass per island, in island order (the
+        calibration EMA update order is part of the replayed decision
+        sequence).  Rung-0 scoring goes through each island's own backend —
+        pure cache warming — so lineages never depend on this running."""
+        if not self.cascades:
+            return
+        epoch = len(self.cascade_log) and self.cascade_log[-1]["epoch"] + 1
+        for isl, spec in zip(self.islands, self.specs):
+            cascade = self.cascades[spec.target_suite or "default"]
+            log = cascade.run_cascade(self._cascade_slate(isl),
+                                      promote=self.cascade_promote)
+            self.cascade_log.append({"epoch": int(epoch), "island": isl.name,
+                                     **log})
+
     def cascade_totals(self) -> dict:
-        """Aggregate cascade accounting for reports: ``{}``, as the
-        reference's with no cascade (the port's engine runs none)."""
-        return {}
+        """Aggregate cascade accounting (per-rung eval counts over all epochs
+        + current calibration factors) for reports and benchmarks."""
+        if not self.cascades:
+            return {}
+        totals: dict[str, int] = {}
+        for entry in self.cascade_log:
+            for fid, n in entry["evals"].items():
+                totals[fid] = totals.get(fid, 0) + n
+        return {"eta": self.cascade_eta, "epochs": len(self.cascade_log),
+                "evals": totals, "calibration": self.calibration.state()}
 
     def _epoch_barrier(self) -> None:
-        """Epoch barrier: publish refuted memory, migrate along the
-        topology's edges (each migrant re-scored on the recipient's scorer,
-        in this thread), record acceptance per edge, re-divide the
-        speculative-prefetch budget, persist.  Nothing here waits on scoring
-        futures — in pipelined mode each island's next-step proposals keep
-        evaluating in the workers while this runs."""
+        """Epoch barrier: publish refuted memory, run the evaluation cascade,
+        migrate along the topology's edges (each migrant re-scored on the
+        recipient's scorer, in this thread), record acceptance per edge,
+        re-divide the speculative-prefetch budget, persist.  Nothing here
+        waits on scoring futures — in pipelined mode each island's next-step
+        proposals keep evaluating in the workers while this runs."""
         for isl in self.islands:
             mem = isl.tools.memory_refuted
             if isinstance(mem, EpochMemoryView):
                 mem.publish()
+        self._run_cascades()
         stats = self.migration_stats
         stats.island_best = [isl.best_geomean() for isl in self.islands]
         edges = self.topology.edges(len(self.islands), stats)
@@ -1012,8 +1088,11 @@ class IslandEvolution:
                          "state": self.topology.state()},
             "migration_stats": self.migration_stats.to_payload(),
             "refuted": self.memory.to_payload(),
-            # a loaded payload's cascade entry, kept as data (never run)
-            "cascade": self._cascade_payload,
+            # calibration factors must survive kill/resume bit-exactly, or a
+            # resumed cascade would rank (and so promote) differently; the
+            # log tail is observability only
+            "cascade": {"calibration": self.calibration.state(),
+                        "log": self.cascade_log[-64:]} if self.cascades else {},
             "islands": [
                 {"name": isl.name,
                  "suite": spec.target_suite or "default",
@@ -1092,7 +1171,11 @@ class IslandEvolution:
                 mem = isl.tools.memory_refuted
                 if isinstance(mem, EpochMemoryView):
                     mem.refreeze()
-        self._cascade_payload = dict(payload.get("cascade") or {})
+        cascade = payload.get("cascade") or {}
+        if cascade.get("calibration"):
+            self.calibration.load_state(cascade["calibration"])
+        if cascade.get("log"):
+            self.cascade_log = list(cascade["log"])
 
     @classmethod
     def resume(cls, persist_path: str,
@@ -1161,6 +1244,8 @@ class IslandEvolution:
     def close(self) -> None:
         for scorer in self.scorers.values():
             scorer.close()
+        for cascade in self.cascades.values():
+            cascade.close()          # higher rungs; rung-0 close is idempotent
         self._pool.shutdown(wait=True, cancel_futures=True)
         self._scorer_pool.shutdown(wait=True, cancel_futures=True)
         if self._process_pool is not None:

@@ -15,10 +15,12 @@ archipelago of islands.
 ``--suite`` with diverse initial genomes (``--scenario-sweep``: one
 specialist island per suite family), migration along ``--topology`` every
 epoch, persisted to ``archipelago.json`` (``archipelago_sweep.json``) and
-resumed from it on the next run.  Islands score at rung 0 (the default
-``--fidelity perfmodel`` there; the measured rung comes to islands with the
-evaluation cascade, ROADMAP Queue 1 item 6), through the ``thread`` backend
-unless ``--backend`` says otherwise, with every island's gate on the card.
+resumed from it on the next run.  Islands commit at rung 0 (the default
+``--fidelity perfmodel`` there), as the reference's CLI does, through the
+``thread`` backend unless ``--backend`` says otherwise, with every island's
+gate on the card; measured signal reaches islands only through the
+evaluation cascade of the engine (``IslandEvolution(cascade_eta=...)``),
+which this CLI, like the reference's, does not expose.
 
 ``--backend`` picks the evaluation service: ``inline`` (the default, in this
 process), ``thread``, ``process`` (spawned worker processes on the card) or
@@ -192,9 +194,10 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     islands = bool(args.islands or args.scenario_sweep)
     if islands and args.fidelity == MEASURED:
-        ap.error("--islands scores at rung 0: the measured rung comes to the "
-                 "island engine with the evaluation cascade (ROADMAP Queue 1 "
-                 "item 6); use --fidelity perfmodel")
+        ap.error("--islands commits at rung 0, as the reference's engine does; "
+                 "measured signal reaches islands through the evaluation "
+                 "cascade (IslandEvolution(cascade_eta=...)), which this CLI "
+                 "does not expose; use --fidelity perfmodel")
     if args.fidelity is None:
         args.fidelity = PERFMODEL if islands else MEASURED
     if args.backend is None:

@@ -978,15 +978,20 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int D, int S, int BH) {
 
 template <int D, bool ACC_BF16, bool GRID, bool EAGER>
 cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
+    // The runtime call comes first: it makes the device's primary context
+    // current in the calling thread, which cuTensorMapEncodeTiled (a driver
+    // call) needs.  A thread whose earlier CUDA work all came from cached
+    // allocations has no current context until then.
+    const size_t smem = WLayout<D, GRID ? 2 : 1>::smem;
+    cudaError_t err = cudaFuncSetAttribute(fa_fwd_wgmma<D, ACC_BF16, GRID, EAGER>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
     CUtensorMap tq, tk, tv;
     const int Hkv = p.Hq / p.rep;
-    cudaError_t err = make_map(&tq, p.q, D, p.Sq, p.B * p.Hq);
+    err = make_map(&tq, p.q, D, p.Sq, p.B * p.Hq);
     if (err == cudaSuccess) err = make_map(&tk, p.k, D, p.Sk, p.B * Hkv);
     if (err == cudaSuccess) err = make_map(&tv, p.v, D, p.Sk, p.B * Hkv);
-    if (err != cudaSuccess) return err;
-    const size_t smem = WLayout<D, GRID ? 2 : 1>::smem;
-    err = cudaFuncSetAttribute(fa_fwd_wgmma<D, ACC_BF16, GRID, EAGER>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid((p.Sq + W_BQ - 1) / W_BQ, p.Hq, p.B);
     fa_fwd_wgmma<D, ACC_BF16, GRID, EAGER><<<grid, W_THREADS, smem, stream>>>(tq, tk, tv, p);

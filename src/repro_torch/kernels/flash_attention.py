@@ -416,8 +416,10 @@ def _launch(q, k, v, *, causal, window, softcap, scale, block_q, block_k,
              int(rescale_mode == "branched"), int(mask_mode == "block_skip"),
              int(div_mode == "eager"), int(body == "wgmma"), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed ({body} body): "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed ({body} body, "
+                           f"q {tuple(q.shape)}, k {tuple(k.shape)}, blocks {bq} x "
+                           f"{bk}, kv_in_grid={kv_in_grid}, gqa_pack={gqa_pack}, "
+                           f"div_mode={div_mode}): CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.launches_by_body[body] += 1
     rep_of_call = Hq0 // k.shape[1]

@@ -1,1 +1,2 @@
-"""Launch-level entry points of the port: the batched server."""
+"""Launch-level pieces of the port: the batched server and the meta-device
+trace analysis (rung 1's counts)."""

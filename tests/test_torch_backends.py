@@ -114,7 +114,7 @@ def test_registry_builds_each_backend(name, cls):
                    device="cpu")(seed_genome()).values
     assert ThreadBackend is BatchScorer
     with pytest.raises(ValueError, match="unknown eval backend"):
-        make_backend("cascade")
+        make_backend("bogus")
 
 
 def test_worker_width_defaults():

@@ -84,6 +84,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
             "repro_torch.core.evals.backends, repro_torch.core.evals.elastic, "
             "repro_torch.core.evals.service, "
             "repro_torch.core.evals.service_worker, "
+            "repro_torch.core.evals.cascade, repro_torch.launch.trace_analysis, "
             "repro_torch.core.islands, repro_torch.core.topology, "
             "repro_torch.core.config, repro_torch.core; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -3,8 +3,9 @@ seed and configuration give the same per-island lineages (fingerprints
 ``(genome key, round(geomean, 9), note)``) and the same migration ledger —
 over topologies, migrant policies, barrier and pipelined stepping,
 ``scenario_specs()`` and the inline, thread, process and service backends —
-and the port's persistence resumes a killed run exactly.  Also: the
-refused cascade, and no history adopted from another rung-0 machine.
+and the port's persistence resumes a killed run exactly.  Also: a payload's
+cascade entry adopted on resume, and no history adopted from another rung-0
+machine.
 
 Rung 0 runs on the reference's TPU v5e model in both packages, with batch
 scoring off in both (scalar and columnar rung 0 differ by an ulp on some
@@ -398,29 +399,33 @@ def test_history_from_another_machine_is_not_adopted(tmp_path):
     assert all(i.kb.facts == KnowledgeBase().facts for i in eng.islands)
 
 
-def test_cascade_is_refused_and_a_payload_cascade_kept(tmp_path):
-    for build in (lambda: T.IslandEvolution(
-                      config=T.EngineConfig(evals=T.EvalConfig(cascade_eta=3))),
-                  lambda: _engine(T, cascade_eta=3)):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            build()
+def test_a_payload_cascade_is_adopted_on_resume(tmp_path):
+    """A resumed engine takes the payload's calibration factors and
+    continues its promotion log from the epoch after the last one."""
     p = str(tmp_path / "arch.json")
-    _run(T, steps=2, persist_path=p, check_correctness=False)
+    _run(T, steps=2, persist_path=p, check_correctness=False,
+         cascade_eta=2, cascade_slate=2)
     with open(p) as f:
         payload = json.load(f)
-    payload["cascade"] = {"calibration": {"factors": {"mxu": 1.5}}, "log": []}
+    log = payload["cascade"]["log"]
+    assert [e["epoch"] for e in log] == [0] * BASE["n_islands"]
+    payload["cascade"]["calibration"] = {"alpha": 0.5, "observations": 3,
+                                         "factors": {"mxu": 1.5}}
     with open(p, "w") as f:
         json.dump(payload, f)
     eng = T.IslandEvolution.resume(p)
     try:
+        assert eng.calibration.state() == payload["cascade"]["calibration"]
+        assert eng.cascade_log == log
         rep = eng.run(max_steps=2)
-        assert rep.cascade == {} and eng.cascade_totals() == {}
+        assert rep.cascade["calibration"] == payload["cascade"]["calibration"]
+        assert [e["epoch"] for e in eng.cascade_log[len(log):]] == \
+            [1] * BASE["n_islands"]
     finally:
         eng.close()
     with open(p) as f:
-        assert json.load(f)["cascade"] == payload["cascade"]
-    assert not any("cascade" in m for m in __import__("sys").modules
-                   if m.startswith("repro_torch"))
+        saved = json.load(f)["cascade"]
+    assert saved["log"][:len(log)] == log and len(saved["log"]) == 2 * len(log)
 
 
 # -- pieces ------------------------------------------------------------------------
@@ -495,4 +500,4 @@ def test_cli_islands_resume_and_refusals(tmp_path, capsys):
         evolve.main(["--islands", "-1", "--device", "cpu", "--out", str(tmp_path)])
     with pytest.raises(SystemExit):
         evolve.main(["--islands", "2", "--fidelity", "measured", "--out", str(tmp_path)])
-    assert "item 6" in capsys.readouterr().err
+    assert "evaluation cascade" in capsys.readouterr().err

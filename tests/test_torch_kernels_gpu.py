@@ -4,6 +4,8 @@ one.  This file imports no JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_kernels_gpu.py -m gpu -q
 """
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
@@ -64,6 +66,24 @@ def test_kernel_bf16_full_width_on_card():
     mag = flash_attention_plain(q, k, v.abs(), **kw)
     stats = bf16_agreement(out, plain, mag)
     assert bf16_agrees(stats), stats
+
+
+@pytest.mark.gpu
+def test_wgmma_body_launches_from_a_fresh_thread():
+    """A thread whose only CUDA work is the launch (its output served from
+    the allocator's cache) has no current context until a runtime call
+    makes one current; the wgmma body's tensor maps need one."""
+    _need_card()
+    q, k, v = (torch.randn(1, 2, 256, 128, device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    want = flash_attention(q, k, v)
+    spare = torch.empty_like(q)          # a cached block for the thread's output
+    del spare
+    torch.cuda.synchronize()
+    with ThreadPoolExecutor(1) as ex:
+        got = ex.submit(lambda: flash_attention(q, k, v)).result()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

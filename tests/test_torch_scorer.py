@@ -11,7 +11,8 @@ from repro.core.evals import Scorer as JaxScorer
 from repro_torch.core.evals import (HLO, MEASURED, PERFMODEL, InlineBackend,
                                     Scorer, key_fidelity)
 from repro_torch.core.evals.scorer import _CHECK_MEMO
-from repro_torch.core.perfmodel import decode_suite, gqa_suite, mha_suite
+from repro_torch.core.perfmodel import (BenchConfig, decode_suite, gqa_suite,
+                                        mha_suite)
 from repro_torch.core.search_space import KernelGenome, full_space, seed_genome
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -54,9 +55,19 @@ def test_measured_on_cpu_raises():
         Scorer(fidelity=MEASURED, device="cpu")
 
 
-def test_hlo_rung_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        Scorer(fidelity=HLO, device="cpu")
+def test_hlo_rung_scores_on_cpu_through_the_trace():
+    """Rung 1 scores on the CPU (it was refused before the cascade): one
+    roofline value per proxy mask, keyed apart from rung 0, and an
+    infeasible config (the card's model) at 0.0."""
+    suite = mha_suite()[:2]
+    sv = Scorer(suite=suite, fidelity=HLO, device="cpu")(seed_genome())
+    assert sv.correct and all(v > 0 for v in sv.values)
+    assert len(set(sv.values)) == len({c.causal for c in suite})
+    scorer = Scorer(suite=suite, fidelity=HLO, device="cpu")
+    assert key_fidelity(scorer.score_key(seed_genome())) == HLO
+    wide = Scorer(suite=[BenchConfig("d256", 1, 4, 4, 4096, head_dim=256)],
+                  fidelity=HLO, device="cpu")(seed_genome())
+    assert wide.values == (0.0,) and "head_dim 256" in wide.failure
 
 
 def test_default_device_without_card_raises(monkeypatch):
