@@ -1,12 +1,16 @@
 """The search half of the port: genome, scorer, agent, operators, supervisor,
-lineage, the serial evolution loop and the island engine with its
-configuration, migration topologies and evaluation cascade (``repro.core``
-without the search frontier)."""
+lineage, the serial evolution loop, the island engine with its
+configuration, migration topologies and evaluation cascade, and the
+multi-tenant search frontier with its client (``repro.core``'s
+counterpart)."""
 from repro_torch.core.agent import AgentPolicy, Directive, ScriptedAgent, VariationResult
 from repro_torch.core.config import (EngineConfig, EvalConfig, MigrationConfig,
                                      engine_config_from_legacy)
 from repro_torch.core.evals import InlineBackend, ScoreCache, ScoreVector, Scorer
 from repro_torch.core.evolution import ContinuousEvolution, EvolutionReport
+from repro_torch.core.frontier import (JobEvent, SearchFrontier, SearchJob,
+                                       lineage_fingerprint)
+from repro_torch.core.frontier_client import FrontierClient
 from repro_torch.core.islands import (Archipelago, Island, IslandEvolution,
                                       IslandReport, IslandSpec,
                                       PrefetchAllocator, default_specs,
@@ -37,6 +41,8 @@ __all__ = [
     "engine_config_from_legacy",
     "InlineBackend", "ScoreCache", "ScoreVector", "Scorer",
     "ContinuousEvolution", "EvolutionReport", "KnowledgeBase",
+    "FrontierClient", "JobEvent", "SearchFrontier", "SearchJob",
+    "lineage_fingerprint",
     "Archipelago", "Island", "IslandEvolution", "IslandReport", "IslandSpec",
     "PrefetchAllocator", "default_specs", "scenario_specs",
     "HOPPER_FACTS", "knowledge_for",

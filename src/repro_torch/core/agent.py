@@ -167,6 +167,12 @@ class ScriptedAgent(AgentPolicy):
             failure = sv.failure
         return None
 
+    def _gain(self, tools: Toolbelt, parent: KernelGenome, parent_sv: ScoreVector,
+              cand: KernelGenome, sv: ScoreVector) -> float:
+        """The gain the commit decision reads: the candidate's geomean over
+        the incumbent's, minus 1."""
+        return sv.geomean / parent_sv.geomean - 1.0
+
     # -- the variation step --------------------------------------------------------
     def run_variation(self, tools: Toolbelt, directive: Directive = Directive()
                       ) -> VariationResult:
@@ -210,8 +216,12 @@ class ScriptedAgent(AgentPolicy):
                     continue
                 cand, sv = repaired, tools.evaluate(repaired)
                 attempts += 1
-            gain = sv.geomean / best_geo - 1.0
-            trace.append(("eval", f"geomean {sv.geomean:.1f} TFLOPS ({gain:+.2%}); "
+            unpaired = sv.geomean / best_geo - 1.0
+            gain = self._gain(tools, parent, parent_sv, cand, sv)
+            # a policy that decides on another gain shows both
+            shown = (f"{gain:+.2%}" if gain == unpaired else
+                     f"paired {gain:+.2%}, unpaired {unpaired:+.2%}")
+            trace.append(("eval", f"geomean {sv.geomean:.1f} TFLOPS ({shown}); "
                                   f"predicted {s.predicted_gain:+.1%} -> "
                                   f"{'CONFIRMED' if gain > 0 else 'REFUTED'}"))
             if gain > self.min_rel:

@@ -46,8 +46,9 @@ from repro_torch.core.evals.cache import (FIDELITIES, HLO, MEASURED, PERFMODEL,
                                           ScoreCache, fidelity_key, key_fidelity)
 from repro_torch.core.evals.elastic import ElasticProcessPool
 from repro_torch.core.evals.scorer import (CORRECTNESS_TOL, MACHINES,
+                                           MEASURED_CALL_SPREAD,
                                            MEASURED_MIN_REL, InlineBackend,
-                                           Scorer,
+                                           PairedGain, Scorer,
                                            batch_scoring_enabled,
                                            correctness_memo_stats,
                                            set_batch_scoring)
@@ -68,7 +69,7 @@ __all__ = [
     "DEFAULT_ETA",
     "ClientSession", "ElasticProcessPool", "EvalBackend", "EvalCoordinator",
     "EvalSpec", "FIDELITIES", "HLO", "InlineBackend", "MACHINES", "MEASURED",
-    "MEASURED_MIN_REL", "PERFMODEL",
+    "MEASURED_CALL_SPREAD", "MEASURED_MIN_REL", "PERFMODEL", "PairedGain",
     "ProcessBackend", "ScoreCache", "ScoreVector", "Scorer", "ServiceBackend",
     "ThreadBackend", "backend_info", "default_worker_count",
     "evaluate_genome", "make_backend", "make_process_executor",

@@ -93,6 +93,7 @@ _REGISTRY: dict[str, BackendInfo] = {}
 # service stack (and its import cycle) on inline users
 _LAZY_MODULES = {
     "service": "repro_torch.core.evals.service",
+    "frontier": "repro_torch.core.frontier",
 }
 
 

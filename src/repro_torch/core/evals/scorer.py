@@ -43,11 +43,15 @@ its FlashAttention backend (``"fa_reference"``), timed with this rung's own
 timer on this rung's own inputs.  They are yardsticks: nothing on the
 evolved path calls them.
 
-The measured rung is a timing, so two scorings of one genome differ.  A
-lineage scored there commits an edit only when it gains more than
-``MEASURED_MIN_REL``, set above the spread of repeated scorings measured on
-the card (``core/evolution.py`` applies it; rung 0 keeps the agent's own
-1e-4, so its lineages stay equal to the JAX package's).
+The measured rung is a timing, so two scorings of one genome differ, most
+of all between calls.  Its commit decision reads :meth:`Scorer.paired_gain`
+instead: candidate and incumbent timed in turns in one locked section,
+where drift between calls hits both sides alike.  A lineage scored there
+commits an edit only when that paired gain exceeds ``MEASURED_MIN_REL``,
+set above the spread of a genome paired against itself on the card
+(``core/evolution.py::PairedAgent`` applies it; rung 0 keeps the agent's
+own 1e-4 and its decision, so its lineages stay equal to the JAX
+package's).
 
 Decision, diverging from the reference: the JAX ``_timed_values`` times the
 *proxy* shape and counts FLOPs from the compiled HLO.  The port times the
@@ -68,6 +72,7 @@ the memo.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 import os
@@ -75,6 +80,7 @@ import statistics
 import threading
 import time
 from collections import OrderedDict
+from dataclasses import dataclass
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -122,16 +128,37 @@ LAUNCH_S = 3.248e-5
 TIMING_WARMUP = 1
 TIMING_REPS = 3
 
+# the paired commit rule (Scorer.paired_gain): rounds of the candidate and
+# the incumbent timed in turns per config, after one warm-up launch each
+PAIRED_REPS = 6
+# cycles of the spin kernel queued ahead of each round (about 100 us at the
+# H100's clocks): the card is still busy with it when the host has issued
+# the round's first launch, so neither side's time holds host issue time
+PAIRED_SPIN_CYCLES = 200_000
+
 # The commit floor of the measured rung: an edit commits only when its
-# geomean beats the parent's by more than this.  Derivation: 8 scorings of
-# one genome, each paid anew, for the seed and the pipelined genome on
-# mha_suite and on gqa_suite (chip_smoke.py's noise phase, every run on an
-# NVIDIA H100 80GB HBM3 at 700 W).  Two scorings of one genome differed by
-# at most max / min - 1 = 4.97 % of the geomean over the runs of the
-# measured rung so far (mha_suite, whose shapes run shortest; 3.32 % when
-# the floor was first set at 5 %).  The floor sits 1.5x above that spread,
-# the margin it was first set with.  PERF.md keeps the runs.
-MEASURED_MIN_REL = 0.075
+# paired gain (Scorer.paired_gain) over the incumbent exceeds this.
+# Derivation: 8 paired comparisons of a genome against itself, for the seed
+# and the pipelined genome on mha_suite and on gqa_suite (chip_smoke.py's
+# noise phase, on an NVIDIA H100 80GB HBM3 at 700 W).  The largest |gain|
+# over the runs of the paired rule so far is 1.07 % (mha_suite, pipelined
+# genome, read with 4 rounds and no synchronise after the warm-ups); the
+# floor sits 1.5x above it, the margin the first floor was set with.
+# Unpaired scorings of the same genomes spread up to 5.49 %: the floor was
+# 7.5 % while commits compared geomeans scored apart.  PERF.md keeps the
+# runs.
+MEASURED_MIN_REL = 0.0161
+
+# The spread of unpaired scorings: the tolerance of any comparison of
+# geomeans scored apart (a slate through a pool against inline, a search's
+# best against a reference scored earlier), and the unpaired loss past
+# which the paired agent refutes a candidate without pairing it.  It is
+# the floor commits read while they compared geomeans scored apart: 1.5x
+# the largest spread of 8 unpaired scorings of one genome then measured
+# on an NVIDIA H100 80GB HBM3 at 700 W (4.97 %; the noise phase has read
+# up to 5.49 % since, and fails above this).  Pairing narrows what a
+# commit sees, not what two calls see.
+MEASURED_CALL_SPREAD = 0.075
 
 # ---------------------------------------------------------------------------
 # batch-path switch
@@ -274,6 +301,36 @@ def time_cuda_ms(fn, warmup: int = TIMING_WARMUP, reps: int = TIMING_REPS) -> fl
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_pair_ms(first, second, swap: bool) -> tuple[float, float]:
+    """One round of the paired timing: ``first()`` and ``second()`` queued
+    back to back on the current stream behind a spin kernel, each between
+    its own CUDA events, then one synchronise.  ``swap`` launches
+    ``second`` first.  Returns (ms of ``first``, ms of ``second``)."""
+    order = (second, first) if swap else (first, second)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda._sleep(PAIRED_SPIN_CYCLES)
+    for i, fn in enumerate(order):
+        events[2 * i].record()
+        fn()
+        events[2 * i + 1].record()
+    events[3].synchronize()
+    ms = (events[0].elapsed_time(events[1]), events[2].elapsed_time(events[3]))
+    return ms[::-1] if swap else ms
+
+
+@dataclass(frozen=True)
+class PairedGain:
+    """:meth:`Scorer.paired_gain`'s answer: the candidate's gain over the
+    incumbent (the geomean of the per-config ratios, minus 1), each timed
+    config's ratio t_incumbent / t_candidate (the median over rounds), the
+    host seconds the comparison took, and each config's ratio per round
+    (the incumbent launched first in rounds 0, 2, ...)."""
+    gain: float
+    ratios: dict
+    seconds: float
+    rounds: dict
 
 
 class Scorer:
@@ -626,6 +683,47 @@ class Scorer:
                     q, k, v, causal=cfg.causal, window=cfg.window, **kw))
                 values.append(useful_flops(cfg) / (ms * 1e-3) / 1e12)
         return values, profiles, card
+
+    def paired_gain(self, incumbent: KernelGenome,
+                    candidate: KernelGenome) -> PairedGain:
+        """The measured rung's commit rule: both genomes timed in turns, in
+        one locked section, at every config both are feasible on (the
+        card's model), at its full shape on the inputs both share.  Per
+        config: one warm-up launch each, a synchronise, then
+        :data:`PAIRED_REPS` rounds in the order A B, B A, A B, ... so that a
+        linear drift and the launch position cancel; the
+        config's ratio is the median over rounds of t_incumbent /
+        t_candidate.  ``useful_flops`` is equal on both sides, so the gain
+        is the TFLOP/s ratio.  The L2 cache is left as the launches leave
+        it: both sides find it in the same state.  Raises off the measured
+        rung and off a card."""
+        if self.fidelity != MEASURED or self.device.type != "cuda":
+            raise ValueError(
+                "paired_gain times two genomes on a CUDA device at the measured "
+                f"rung; this scorer is at {self.fidelity!r} on {self.device}")
+        from repro_torch.kernels.flash_attention import flash_attention
+        t0 = time.perf_counter()
+        cfgs = [c for c in self.suite
+                if all(perfmodel_h100.estimate(g, c).feasible
+                       for g in (incumbent, candidate))]
+        rounds = {}
+        with card_lock(self.device):
+            for cfg in cfgs:
+                q, k, v = self.full_inputs(cfg)
+                inc, cand = (functools.partial(
+                    flash_attention, q, k, v, causal=cfg.causal,
+                    window=cfg.window, **g.kernel_kwargs())
+                    for g in (incumbent, candidate))
+                inc()
+                cand()
+                # every round starts from an idle card: a first round queued
+                # behind the warm-ups times its first launch unlike the rest
+                torch.cuda.synchronize(self.device)
+                rounds[cfg.name] = [a / b for a, b in (
+                    time_pair_ms(inc, cand, r % 2 == 1) for r in range(PAIRED_REPS))]
+        ratios = {name: statistics.median(rs) for name, rs in rounds.items()}
+        gain = math.exp(statistics.fmean(math.log(r) for r in ratios.values())) - 1.0
+        return PairedGain(gain, ratios, time.perf_counter() - t0, rounds)
 
     def measured_profiles(self, genome: KernelGenome) -> dict:
         """``{config name: Profile}`` rungs 1 and 2 attach for the agent to

@@ -23,8 +23,9 @@ import torch
 
 from repro_torch.core import obs
 from repro_torch.core.agent import ScriptedAgent
-from repro_torch.core.evals import (MEASURED, MEASURED_MIN_REL, PERFMODEL,
-                                    Scorer, make_backend)
+from repro_torch.core.evals import (MEASURED, MEASURED_CALL_SPREAD,
+                                    MEASURED_MIN_REL, PERFMODEL, Scorer,
+                                    make_backend)
 from repro_torch.core.islands import EvolutionReport, Island
 from repro_torch.core.knowledge import KnowledgeBase
 from repro_torch.core.knowledge_h100 import knowledge_for
@@ -34,17 +35,64 @@ from repro_torch.core.search_space import KernelGenome
 from repro_torch.core.supervisor import Supervisor
 from repro_torch.core.variation import AgenticVariationOperator
 
-__all__ = ["ContinuousEvolution", "EvolutionReport", "default_agent"]
+__all__ = ["ContinuousEvolution", "EvolutionReport", "PairedAgent",
+           "default_agent"]
+
+
+class PairedAgent(ScriptedAgent):
+    """The measured rung's agent: it commits on the paired gain
+    (:meth:`Scorer.paired_gain`: candidate and incumbent timed in turns in
+    one locked section), not on the ratio of two geomeans scored apart.  A
+    candidate whose unpaired gain is at or below ``-MEASURED_CALL_SPREAD``
+    is refuted on that alone, without pairing: the unpaired reading errs by
+    less than that, so such a candidate is slower.  A pooled backend
+    (process, service) has no ``paired_gain``: the agent then times on a
+    measured :class:`Scorer` of its own, on the backend's suite, device and
+    seed, built once; the card lock keeps its sections apart from the
+    workers'.
+
+    ``decisions`` records every decision: the candidate's genome key, the
+    paired and the unpaired gain, the seconds the pairing took (None:
+    refuted unpaired), whether it committed, and each config's ratio."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.decisions: list[dict] = []
+        self._timer: Optional[Scorer] = None
+
+    def _timer_for(self, scorer) -> Scorer:
+        if hasattr(scorer, "paired_gain"):
+            return scorer
+        if self._timer is None:
+            spec = scorer.spec
+            self._timer = Scorer(suite=spec.suite, check_correctness=False,
+                                 rng_seed=spec.rng_seed, fidelity=MEASURED,
+                                 device=spec.device)
+        return self._timer
+
+    def _gain(self, tools, parent, parent_sv, cand, sv) -> float:
+        unpaired = super()._gain(tools, parent, parent_sv, cand, sv)
+        row = {"genome": cand.key(), "unpaired": unpaired, "paired": None,
+               "seconds": None, "ratios": None}
+        gain = unpaired
+        if unpaired > -MEASURED_CALL_SPREAD:
+            pg = self._timer_for(tools.scorer).paired_gain(parent, cand)
+            gain = pg.gain
+            row.update(paired=pg.gain, seconds=pg.seconds, ratios=pg.ratios)
+        row["committed"] = gain > self.min_rel
+        self.decisions.append(row)
+        return gain
 
 
 def default_agent(fidelity: str, seed: Optional[KernelGenome] = None
                   ) -> ScriptedAgent:
-    """The scripted agent at ``fidelity``'s commit floor: ``MEASURED_MIN_REL``
-    at the measured rung, whose scores are timings; the agent's own 1e-4 at
-    rung 0, so its lineages equal the JAX package's.  ``seed`` starts an
-    adaptation (the GQA transfer)."""
+    """The scripted agent at ``fidelity``'s commit floor: at the measured
+    rung, whose scores are timings, a :class:`PairedAgent` committing above
+    ``MEASURED_MIN_REL``; the agent's own 1e-4 at rung 0, so its lineages
+    equal the JAX package's.  ``seed`` starts an adaptation (the GQA
+    transfer)."""
     if fidelity == MEASURED:
-        return ScriptedAgent(min_rel_improvement=MEASURED_MIN_REL, seed=seed)
+        return PairedAgent(min_rel_improvement=MEASURED_MIN_REL, seed=seed)
     return ScriptedAgent(seed=seed)
 
 

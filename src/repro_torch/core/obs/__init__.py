@@ -2,8 +2,10 @@
 
 One process-wide event bus (:data:`BUS`), a metrics registry
 (:data:`REGISTRY`), trace-id propagation for the evaluation lifecycle, and
-a JSONL run journal.  A copy of ``repro.core.obs`` without its report CLI:
-the journal format is the same, so the reference's report reads it.
+a JSONL run journal with a report CLI
+(``python -m repro_torch.core.obs.report``).  A copy of ``repro.core.obs``:
+the journal format is the same, so either package's report reads the
+other's journals.
 
 Telemetry is **off by default** and gated by the ``REPRO_OBS`` env var or
 :func:`set_enabled`.  The contract

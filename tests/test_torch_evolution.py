@@ -141,15 +141,17 @@ def test_gqa_adaptation_matches_jax(tmp_path, capsys):
 
 def test_measured_rung_commits_above_its_floor():
     """The default operator commits at the scorer's rung's floor: the
-    measured spread at the measured rung, the agent's 1e-4 at rung 0 (so
-    rung-0 lineages stay the JAX package's).  An explicit operator is used
-    as given."""
+    paired spread at the measured rung, through the paired agent, the
+    agent's 1e-4 at rung 0 (so rung-0 lineages stay the JAX package's).  An
+    explicit operator is used as given."""
     from repro_torch.core.agent import ScriptedAgent
     from repro_torch.core.evals import MEASURED, MEASURED_MIN_REL
-    from repro_torch.core.evolution import default_agent
+    from repro_torch.core.evolution import PairedAgent, default_agent
     from repro_torch.core.variation import AgenticVariationOperator
     assert MEASURED_MIN_REL > 1e-4
     assert default_agent(MEASURED).min_rel == MEASURED_MIN_REL
+    assert isinstance(default_agent(MEASURED), PairedAgent)
+    assert type(default_agent("perfmodel")) is ScriptedAgent
     assert default_agent("perfmodel").min_rel == ScriptedAgent().min_rel == 1e-4
     assert ContinuousEvolution(device="cpu").operator.policy.min_rel == 1e-4
     measured = InlineBackend(device="cpu")
