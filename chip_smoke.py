@@ -145,6 +145,19 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  must equal the CPU reference path's, and so must those of
                  reduced h2o-danube-3-4b and phi-3-vision-4.2b at their
                  published head dims (120, 96) with impl="auto"
+  train          training on the card, through the blocked references (the
+                 kernels have no backward): qwen2-7b at full width, 8 of
+                 its 28 layers, bf16 compute on fp32 state, remat, 8 steps
+                 of 8 x 1024 tokens in 2 microbatches (every loss finite,
+                 the last below the first, peak memory under 90 % of the
+                 card's; seconds per step, tokens/s, model TFLOP/s);
+                 reduced qwen2-7b and moonshot-v1-16b-a3b in fp32 for 3
+                 steps on the card and on the CPU from the same weights
+                 (per-step loss within TRAIN_PARITY_REL); a ResilientRunner
+                 with one fault against an uninterrupted run (final loss
+                 within TRAIN_RESTART_REL, one restart); the three kernel
+                 guards raising on inputs that require grad; no kernel
+                 launch in the phase
   times          flash_attention's wgmma body against its mma_sync body, in
                  turns (mma_sync, wgmma, wgmma, mma_sync), for the seed, a
                  fixed pipelined genome and the search's best at every
@@ -204,7 +217,7 @@ FRONTIER_STEPS = 6          # archipelago steps per job, migration every 2
 FRONTIER_SEED = 5           # both jobs' seed, and the direct run's
 FRONTIER_SUITE, FRONTIER_ISLANDS = "mha+gqa+decode", 4    # each job's archipelago
 PHASES = ("device", "build", "kernel", "decode_kernel", "ssd_kernel", "serve",
-          "rank", "noise", "evolve", "backends", "islands", "cascade", "frontier",
+          "train", "rank", "noise", "evolve", "backends", "islands", "cascade", "frontier",
           "gqa", "decode_suite", "times", "kernels")
 SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd.cu")
 TOL_SSD_F32 = 2e-5          # SSD kernel vs plain, fp32: relative to max |y|
@@ -215,6 +228,17 @@ DECODE_SPLITS = (1, 2, 3, 5, 8, None)   # None: the wrapper's split count
 DECODE_SWEEP = (2, 3, 5, 8, 9, 10, 16)  # split counts timed at the served shape
 TEACHER_STEPS = 8                   # decode steps of the teacher-forced reading
 PROFILE_NEW = 4                     # new tokens of the profiled pass
+TRAIN_ARCH, TRAIN_LAYERS = "qwen2-7b", 8    # full width, depth cut 28 -> 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 1024, 2, 8
+TRAIN_LR = 1e-4             # peak lr (2 warmup steps); 1e-3 diverges at this width
+TRAIN_WITNESS_STEPS = 3     # full-width steps again in fp32 compute, beside bf16's
+TRAIN_WITNESS_REL = (1e-3, 1e-3)    # first step: loss, grad norm, bf16 vs fp32
+TRAIN_PARITY_ARCHS = ("qwen2-7b", "moonshot-v1-16b-a3b")   # reduced, card vs CPU
+TRAIN_PARITY_STEPS = 3
+TRAIN_PARITY_REL = 1e-4     # per-step loss, card vs CPU (fp32; atomics on the card)
+TRAIN_RESTART_STEPS, TRAIN_RESTART_FAULT = 6, 3     # steps, and the step that faults
+TRAIN_RESTART_REL = 1e-5    # final loss, restarted run vs uninterrupted
+TRAIN_PEAK_SHARE = 0.9      # peak memory, share of the card's
 
 # bf16 kernel vs plain at full width.  Large logical blocks keep the plain
 # version's walk short at every shape; both kernel paths and both div modes
@@ -1111,6 +1135,355 @@ def phase_serve(state):
             faults.append(f"reduced {arch}: checked launches {seen}")
     if faults:
         raise AssertionError("serve: " + "; ".join(faults))
+
+
+def _train_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 per token for each parameter that
+    enters a matrix product (all but an untied embedding table), plus causal
+    attention forward and backward, 3 x (2 x tokens x S x Hq x Dh) per
+    layer.  The recompute of remat is not counted."""
+    n = cfg.param_count() - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+    n_attn = sum(b.kind == "attn" for b in cfg.pattern) * cfg.n_periods
+    return 6 * n * tokens + 6 * tokens * seq * cfg.n_heads * cfg.head_dim * n_attn
+
+
+def _profile_train_step(run) -> None:
+    """torch.profiler over one more full-width step (after the timed ones):
+    device time by kernel class and the top kernels, and the device's busy
+    share of the step's wall time.  A reading, not a check."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    classes = (("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90")),
+               ("softmax", ("softmax",)), ("reduce", ("reduce",)),
+               ("index_scatter_gather", ("index", "scatter", "gather")),
+               ("copy_cast", ("copy", "cast")),
+               ("elementwise", ("elementwise", "vectorized")))
+    by_class: dict = {}
+    for key, ms, _ in rows:
+        name = next((c for c, tags in classes if any(t in key.lower() for t in tags)), "other")
+        by_class[name] = by_class.get(name, 0.0) + ms
+    device_ms = sum(r[1] for r in rows)
+    emit({"phase": "train", "check": "profile", "gate": False, "wall_ms": wall_ms,
+          "device_ms": device_ms or "not measured",
+          "device_busy_share": device_ms / wall_ms if device_ms else "not measured",
+          "device_ms_by_class": by_class,
+          "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:15]]})
+
+
+def _full_width_steps(cfg, compute_dtype, steps: int, after=None) -> list:
+    """``steps`` train steps of ``cfg`` on the card from seed-0 weights and
+    the seed-0 pipeline, one row each (loss, grad norm, lr, seconds);
+    ``after(run_one)`` runs while the training state is alive.  The state
+    is freed before the rows are returned."""
+    import torch
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import batch_to_device, init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+
+    state = list(init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda"))
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                                            total_steps=TRAIN_STEPS),
+                           n_microbatches=TRAIN_MICRO, compute_dtype=compute_dtype)
+    pipe = TokenPipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+
+    def run_one() -> dict:
+        batch = batch_to_device(pipe.next_batch(), "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, residual, m = step(*state, batch)
+        state[:] = (params, opt_state, residual)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        return {"loss": loss, "grad_norm": float(m["grad_norm"]), "lr": m["lr"],
+                "s": time.perf_counter() - t0}
+
+    rows = [run_one() for _ in range(steps)]
+    if after is not None:
+        after(run_one)
+    state.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _train_fp32_witness(cfg, rows: list, faults: list) -> dict:
+    """The full-width run's first TRAIN_WITNESS_STEPS steps again, from the
+    same weights and batches, with fp32 compute: the first step's loss and
+    gradient norm (same weights) must agree with bf16's to its rounding;
+    later steps are printed only (Adam's first update is sign-like, so it
+    amplifies rounding)."""
+    import torch
+
+    fp32 = _full_width_steps(cfg, torch.float32, TRAIN_WITNESS_STEPS)
+    loss_rel = abs(rows[0]["loss"] - fp32[0]["loss"]) / abs(fp32[0]["loss"])
+    gn_rel = abs(rows[0]["grad_norm"] - fp32[0]["grad_norm"]) / abs(fp32[0]["grad_norm"])
+    out = {"fp32": fp32, "bf16": rows[:TRAIN_WITNESS_STEPS],
+           "first_step_loss_rel": loss_rel, "first_step_grad_norm_rel": gn_rel,
+           "tol": TRAIN_WITNESS_REL}
+    emit({"phase": "train", "check": "full_width_bf16_vs_fp32", **out})
+    if not (loss_rel <= TRAIN_WITNESS_REL[0] and gn_rel <= TRAIN_WITNESS_REL[1]):
+        faults.append(f"full width: bf16 and fp32 first steps differ: {out}")
+    return out
+
+
+def _train_full_width(faults: list) -> dict:
+    """TRAIN_STEPS steps of TRAIN_ARCH at full width, TRAIN_LAYERS deep, then
+    a profiled step and the fp32 witness."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+
+    full = get_arch(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    n = cfg.param_count()
+    emit({"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "of_layers": full.n_layers, "params_b": n / 1e9,
+          "full_params_b": full.param_count() / 1e9, "remat": cfg.remat,
+          "cut": f"depth {full.n_layers} -> {cfg.n_layers} layers; every width is the "
+                 f"published one (d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} "
+                 f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size})",
+          "reason": f"all {full.n_layers} layers are {full.param_count() / 1e9:.2f} B "
+                    f"parameters, {16 * full.param_count() / 1e9:.0f} GB of fp32 "
+                    f"parameters, gradients and two moments, above the card's 80 GB; "
+                    f"{cfg.n_layers} layers are {16 * n / 2 ** 30:.1f} GiB"})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    peak: list = []
+    rows = _full_width_steps(cfg, torch.bfloat16, TRAIN_STEPS, after=lambda run: (
+        peak.append(torch.cuda.max_memory_allocated()), _profile_train_step(run)))
+    card = torch.cuda.get_device_properties(0).total_memory
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = _train_flops(cfg, tokens, TRAIN_SEQ)
+    for i, r in enumerate(rows):
+        r.update(tokens_per_s=tokens / r["s"], model_tflops=flops / r["s"] / 1e12)
+        emit({"phase": "train", "width": "full", "step": i, **r})
+    witness = _train_fp32_witness(cfg, rows, faults)
+    steady = sorted(r["s"] for r in rows[1:])
+    s_step = steady[len(steady) // 2]
+    out = {"params_b": n / 1e9, "state_gib": 16 * n / 2 ** 30,
+           "peak_gib": peak[0] / 2 ** 30, "card_gib": card / 2 ** 30,
+           "peak_share": peak[0] / card, "tokens_per_step": tokens,
+           "model_flops_per_step": flops, "first_step_s": rows[0]["s"],
+           "s_per_step_median": s_step, "tokens_per_s": tokens / s_step,
+           "model_tflops": flops / s_step / 1e12,
+           "model_flops_share_of_bf16_peak": flops / s_step / PEAK_BF16,
+           "losses": [r["loss"] for r in rows], "fp32_witness": witness,
+           "nvidia_smi": nvidia_smi()}
+    emit({"phase": "train", "summary": "full_width", **out})
+    if not all(math.isfinite(r["loss"]) for r in rows):
+        faults.append(f"full width: a loss is not finite: {out['losses']}")
+    if not rows[-1]["loss"] < rows[0]["loss"]:
+        faults.append(f"full width: the last loss is not below the first: {out['losses']}")
+    if peak[0] >= TRAIN_PEAK_SHARE * card:
+        faults.append(f"full width: peak {peak[0] / 2 ** 30:.2f} GiB is "
+                      f"{100 * peak[0] / card:.1f} % of the card's")
+    return out
+
+
+def _train_card_vs_cpu(faults: list) -> dict:
+    """Reduced TRAIN_PARITY_ARCHS in fp32: TRAIN_PARITY_STEPS steps on the
+    card and on the CPU from the same weights and batches."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import batch_to_device, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree import tree_map
+
+    out = {}
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = get_arch(arch).reduced()
+        weights = init_params(cfg, torch.Generator().manual_seed(0))
+        losses = {}
+        for dev in ("cuda", "cpu"):
+            params = tree_map(lambda t: t.clone().to(dev), weights)
+            opt_state = adamw_init(params)
+            step = make_train_step(cfg, AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=10),
+                                   n_microbatches=2, compute_dtype=torch.float32)
+            pipe = TokenPipeline(cfg, 32, 4, seed=1)
+            losses[dev] = []
+            for _ in range(TRAIN_PARITY_STEPS):
+                params, opt_state, _, m = step(params, opt_state, None,
+                                               batch_to_device(pipe.next_batch(), dev))
+                losses[dev].append(float(m["loss"]))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+        out[arch] = {"card": losses["cuda"], "cpu": losses["cpu"], "max_rel": rel}
+        emit({"phase": "train", "check": "reduced_fp32_card_vs_cpu", "arch": arch,
+              "steps": TRAIN_PARITY_STEPS, **out[arch], "tol": TRAIN_PARITY_REL})
+        if not rel <= TRAIN_PARITY_REL:
+            faults.append(f"reduced {arch}: card and CPU losses differ by {rel:.3g} relative")
+    return out
+
+
+def _train_restart(faults: list) -> dict:
+    """A ResilientRunner over reduced TRAIN_ARCH on the card, checkpointing
+    every 2 steps, with one fault raised at TRAIN_RESTART_FAULT, against
+    the same run uninterrupted."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed.fault_tolerance import FaultPolicy, ResilientRunner
+    from repro_torch.launch.train import batch_to_device, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, AdamWState, adamw_init
+    from repro_torch.tree import tree_map
+
+    cfg = get_arch(TRAIN_ARCH).reduced()
+    weights = init_params(cfg, torch.Generator().manual_seed(1))
+    directory = os.path.join(HERE, "build", "train_restart")
+
+    def run(fault_at):
+        step = make_train_step(cfg, AdamWConfig(lr=3e-3, warmup_steps=1,
+                                                total_steps=TRAIN_RESTART_STEPS),
+                               compute_dtype=torch.float32)
+        pipe = TokenPipeline(cfg, 32, 4, seed=2)
+        raised = []
+
+        def step_fn(st, i):
+            if i == fault_at and not raised:
+                raised.append(i)
+                raise RuntimeError(f"simulated fault at step {i}")
+            params, opt_state, _ = st
+            params, opt_state, _, m = step(params, opt_state, None,
+                                           batch_to_device(pipe.next_batch(), "cuda"))
+            return params, opt_state, float(m["loss"])
+
+        def save(st):
+            return ({"params": st[0], "opt_state": st[1]._asdict()},
+                    {"pipeline": pipe.state_dict(), "loss": st[2]})
+
+        def load(tree, extra):
+            pipe.load_state_dict(extra["pipeline"])
+            tree = tree_map(lambda t: t.to("cuda"), tree)
+            o = tree["opt_state"]
+            return tree["params"], AdamWState(o["step"], o["mu"], o["nu"]), extra["loss"]
+
+        shutil.rmtree(directory, ignore_errors=True)
+        params = tree_map(lambda t: t.clone().to("cuda"), weights)
+        runner = ResilientRunner(Checkpointer(directory, keep=2),
+                                 FaultPolicy(max_restarts=2, checkpoint_every=2), save, load)
+        try:
+            final, end = runner.run((params, adamw_init(params), float("nan")), step_fn,
+                                    start_step=0, n_steps=TRAIN_RESTART_STEPS)
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+        return final[2], end, runner
+
+    clean_loss, _, clean = run(None)
+    loss, end, runner = run(TRAIN_RESTART_FAULT)
+    rel = abs(loss - clean_loss) / abs(clean_loss)
+    out = {"final_loss": loss, "uninterrupted_final_loss": clean_loss, "rel": rel,
+           "end_step": end, "restarts": runner.restarts, "events": runner.events,
+           "uninterrupted_restarts": clean.restarts}
+    emit({"phase": "train", "check": "checkpoint_restart", **out, "tol": TRAIN_RESTART_REL})
+    if not (rel <= TRAIN_RESTART_REL and runner.restarts == 1 and clean.restarts == 0
+            and end == TRAIN_RESTART_STEPS):
+        faults.append(f"checkpoint-restart: {out}")
+    return out
+
+
+def _train_guards(faults: list) -> dict:
+    """Each kernel wrapper refuses inputs that require grad, and a loss
+    through impl="kernel" raises at the first launch."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssd as sm
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.tree import tree_leaves
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+
+    q = rand(1, 4, 128, 64, dtype=torch.bfloat16).requires_grad_()
+    k, v = rand(1, 2, 128, 64, dtype=torch.bfloat16), rand(1, 2, 128, 64, dtype=torch.bfloat16)
+    cache = rand(1, 2, 128, 64)
+    vl = torch.full((1,), 100, dtype=torch.int32, device="cuda")
+    x = rand(1, 64, 2, 64).requires_grad_()
+    dt = torch.full((1, 64, 2), 0.01, device="cuda")
+    A = -torch.ones(2, device="cuda")
+    Bm, Cm = rand(1, 64, 1, 16), rand(1, 64, 1, 16)
+    cfg = get_arch(TRAIN_ARCH).reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    toks = torch.zeros((1, 16), dtype=torch.long, device="cuda")
+    calls = {
+        "flash_attention": lambda: fa.flash_attention(q, k, v, causal=True),
+        "flash_decode": lambda: fd.flash_decode(rand(1, 4, 64).requires_grad_(), cache,
+                                                cache, vl),
+        "ssd_chunked": lambda: sm.ssd_chunked(x, dt, A, Bm, Cm, chunk=32),
+        "lm_loss_impl_kernel": lambda: lm_loss(params, cfg, {"tokens": toks, "labels": toks},
+                                               compute_dtype=torch.float32, impl="kernel")}
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except RuntimeError as e:
+            out[name] = str(e)
+        if not (out[name] and "no backward" in out[name]):
+            faults.append(f"guard {name}: {out[name]!r}")
+    emit({"phase": "train", "check": "kernel_guards", "raised": out})
+    return out
+
+
+def phase_train(state):
+    """Training through the blocked references: full width, card against
+    the CPU, checkpoint-restart and the kernel guards; no kernel launches."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssd as sm
+
+    kernels = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
+               "ssd_chunked": sm.ssd_chunked}
+    faults: list = []
+    torch.cuda.synchronize()
+    reset_counts(*kernels.values())
+    parts = {}
+    for name, part in (("full_width", _train_full_width),
+                       ("card_vs_cpu", _train_card_vs_cpu),
+                       ("restart", _train_restart), ("guards", _train_guards)):
+        t0 = time.perf_counter()
+        parts[name] = part(faults)
+        parts[name + "_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    emit({"phase": "train", "summary": True, "launches": launches,
+          "seconds": {k: v for k, v in parts.items() if k.endswith("_s")}})
+    if any(launches.values()):
+        faults.append(f"kernel launches in the train phase: {launches}")
+    state["train"] = {"launches": launches, **parts}
+    if faults:
+        raise AssertionError("train: " + "; ".join(faults))
 
 
 def _card_vs_cpu_tokens(cfg, check: bool):
@@ -2717,6 +3090,7 @@ def phase_kernels(state):
     serve = state.get("serve", {})
     serve_launches = serve.get("launches", {})
     serve_err = state.get("serve_err", {})
+    train_launches = state.get("train", {}).get("launches", {})
     fa_serve = served.get("flash_attention", {})
     entries = [{
         "name": "flash_attention", "route": "cuda",
@@ -2738,7 +3112,8 @@ def phase_kernels(state):
                              "rank": state.get("rank_launches", 0),
                              "gqa": state.get("gqa_launches", 0),
                              "decode_suite": state.get("decode_suite_launches", 0),
-                             "serve": serve_launches.get("flash_attention", 0)},
+                             "serve": serve_launches.get("flash_attention", 0),
+                             "train": train_launches.get("flash_attention", 0)},
         "launches_by_body": {"evolve": state.get("evolve_by_body"),
                              "backends_workers": state.get("backends_by_body"),
                              "islands": state.get("islands_by_body"),
@@ -2769,7 +3144,8 @@ def phase_kernels(state):
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
             "launches": serve_launches.get(name, 0),
-            "launches_by_path": {"serve": serve_launches.get(name, 0)},
+            "launches_by_path": {"serve": serve_launches.get(name, 0),
+                                 "train": train_launches.get(name, 0)},
             "max_abs_err": err, "max_abs_err_served_bf16": serve_err.get(name),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
@@ -2815,7 +3191,7 @@ def main() -> int:
         device_check()
     runners = {"build": lambda st: phase_build(), "kernel": phase_kernel,
                "decode_kernel": phase_decode_kernel, "ssd_kernel": phase_ssd_kernel,
-               "serve": phase_serve, "noise": phase_noise, "rank": phase_rank,
+               "serve": phase_serve, "train": phase_train, "noise": phase_noise, "rank": phase_rank,
                "evolve": phase_evolve, "backends": phase_backends,
                "islands": phase_islands, "cascade": phase_cascade,
                "frontier": phase_frontier,

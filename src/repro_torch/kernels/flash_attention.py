@@ -55,6 +55,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.guard import refuse_autograd
+
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128              # the kernel's widest head_dim
 WGMMA_HEAD_DIMS = (64, 128)     # bf16 head dims of the wgmma body
@@ -458,6 +460,7 @@ def flash_attention(
     if impl not in (None, "kernel"):
         raise ValueError(f"impl={impl!r}; expected None or 'kernel'")
     if q.device.type == "cuda":
+        refuse_autograd("flash_attention", q, k, v)
         return _launch(q, k, v, causal=causal, window=window, softcap=softcap,
                        scale=scale, **genome)
     if impl == "kernel":

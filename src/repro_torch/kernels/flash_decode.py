@@ -50,6 +50,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels.flash_attention import NEG_INF, _apply_softcap
+from repro_torch.kernels.guard import refuse_autograd
 
 HEAD_DIMS = (16, 64, 128)  # head dims the kernel is compiled for
 MAX_REP = 8                # query heads per KV head the kernel takes
@@ -286,6 +287,7 @@ def flash_decode(
     if impl not in (None, "kernel"):
         raise ValueError(f"impl={impl!r}; expected None or 'kernel'")
     if q.device.type == "cuda":
+        refuse_autograd("flash_decode", q, k_cache, v_cache)
         return _launch(q, k_cache, v_cache, valid_len, softcap=softcap, scale=scale,
                        splits=splits)
     if impl == "kernel":

@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels.flash_attention import NEG_INF
+from repro_torch.kernels.guard import refuse_autograd
 
 SHAPES = ((64, 16), (64, 128), (16, 16))   # (head_dim P, d_state N) compiled
 MAX_CHUNK = 256
@@ -337,6 +338,7 @@ def ssd_chunked(
     if body not in (None, *BODIES):
         raise ValueError(f"body={body!r}; expected None or one of {BODIES}")
     if x.device.type == "cuda":
+        refuse_autograd("ssd_chunked", x, dt, A, Bm, Cm)
         return _launch(x, dt, A, Bm, Cm, chunk=chunk, body=body or ssd_body(x))
     if impl == "kernel":
         raise ValueError(f"the ssd_chunked kernel runs on CUDA tensors; got "

@@ -1,2 +1,2 @@
-"""Launch-level pieces of the port: the batched server and the meta-device
-trace analysis (rung 1's counts)."""
+"""Launch-level pieces of the port: the batched server, the train step and
+the meta-device trace analysis (rung 1's counts)."""

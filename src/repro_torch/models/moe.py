@@ -50,8 +50,11 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_apply(x, p, cfg: ArchConfig, compute_dtype):
-    """x: (B, S, D) -> x + MoE(norm(x)), global dispatch over all B x S tokens."""
+def moe_apply(x, p, cfg: ArchConfig, compute_dtype, return_aux: bool = False):
+    """x: (B, S, D) -> x + MoE(norm(x)), global dispatch over all B x S tokens.
+    With ``return_aux``, (result, aux): the Switch-style load-balancing loss
+    E * sum_e f_e p_e, f_e the share of tokens whose first choice is expert
+    e and p_e the mean router probability of e."""
     m = cfg.moe
     B, S, D = x.shape
     E, K = m.n_experts, m.top_k
@@ -86,5 +89,10 @@ def moe_apply(x, p, cfg: ArchConfig, compute_dtype):
     y = weighted.reshape(Nt, K, D).sum(dim=1).reshape(B, S, D)
     if cfg.post_norms:
         y = norm_apply(y.to(x.dtype), p["post_norm"], cfg).float()
-    return x + y.to(x.dtype)
+    result = x + y.to(x.dtype)
+    if return_aux:
+        frac_tokens = F.one_hot(gate_idx[:, 0], E).float().mean(dim=0)
+        aux = E * torch.sum(frac_tokens * probs.mean(dim=0))
+        return result, aux
+    return result
 

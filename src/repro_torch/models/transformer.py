@@ -4,23 +4,29 @@ of ``repro.models.transformer`` on one device.
 Parameters keep the JAX package's layout: ``params["dec"]["pos<i>"]`` holds
 the block at pattern position i, every tensor stacked over the periods
 (leading dim ``cfg.n_periods``).  Where the JAX package scans over periods,
-the port loops over them and indexes the stack (views, no copies).  The
+the port loops over them and unbinds the stack (views, no copies).  The
 decode cache is stacked the same way.
 
 Public API:
   init_params(cfg, generator, device, dtype)          -> params
   lm_logits(params, cfg, tokens, ...)                 -> (B, S, V)
+  lm_loss(params, cfg, batch, ...)                    -> scalar
   prefill(params, cfg, tokens, max_len, ...)          -> (last_logits, cache)
   decode_step(params, cfg, cache, token, ...)         -> (logits, cache)
 
-Not ported yet: the encoder-decoder path (``encode``, cross-attention) and
-``lm_loss``, which raise, and ``init_decode_cache`` (the decode-only dry-run
-cells, ROADMAP Queue 1 item 12).  ``remat`` is a training concern and is
-ignored.
+``cfg.remat`` checkpoints the stack as the JAX package does: per period,
+and per block inside the period when the pattern has more than two blocks
+(``torch.utils.checkpoint``, non-reentrant), whenever autograd records the
+forward.  Not ported yet: the encoder-decoder path (``encode``,
+cross-attention), which raises (ROADMAP Queue 1 item 9), and
+``init_decode_cache`` (the decode-only dry-run cells, item 12).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, Block
 from repro_torch.models import attention as attn_mod
@@ -31,7 +37,6 @@ from repro_torch.models.layers import (logit_softcap, mlp_apply, mlp_init,
 
 ENC_DEC_TODO = ("the encoder-decoder path (encode, cross-attention) is not "
                 "ported yet (ROADMAP Queue 1 item 9)")
-LM_LOSS_TODO = "lm_loss and training are not ported yet (ROADMAP Queue 1 item 11)"
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -79,13 +84,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None,
     return params
 
 
-def _period(tree, i: int):
-    """The slice of a period-stacked tree for period i (views)."""
-    if isinstance(tree, dict):
-        return {k: _period(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
@@ -113,18 +111,42 @@ def _apply_block(x, p, cfg: ArchConfig, blk: Block, *, compute_dtype, impl=None,
     return x, cache
 
 
+def _unstack(tree, n: int) -> list:
+    """The period-stacked tree as ``n`` per-period trees of views.  One
+    ``unbind`` per leaf: its backward stacks the periods' gradients once,
+    where indexing each period would add a full-size gradient per period."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _run_stack(params_stack, x, cfg: ArchConfig, *, compute_dtype, impl=None,
                genome=None, collect=False):
     """Every period in order; with ``collect``, a list (one per period) of
-    each position's cache pieces."""
-    caches = []
-    for per in range(cfg.n_periods):
-        pslice = _period(params_stack, per)
+    each position's cache pieces.  ``cfg.remat`` recomputes each period in
+    the backward, and each block too when the pattern is longer than two
+    blocks; the period functions take the parameters by closure, which the
+    non-reentrant checkpoint supports."""
+    remat = cfg.remat and not collect and torch.is_grad_enabled()
+    inner_ckpt = remat and len(cfg.pattern) > 2
+
+    def period(x, pslice):
         cs = {}
         for i, blk in enumerate(cfg.pattern):
-            x, cs[f"pos{i}"] = _apply_block(
-                x, pslice[f"pos{i}"], cfg, blk, compute_dtype=compute_dtype,
+            apply_i = functools.partial(
+                _apply_block, cfg=cfg, blk=blk, compute_dtype=compute_dtype,
                 impl=impl, genome=genome, collect=collect)
+            if inner_ckpt:
+                apply_i = functools.partial(checkpoint, apply_i, use_reentrant=False)
+            x, cs[f"pos{i}"] = apply_i(x, pslice[f"pos{i}"])
+        return x, cs
+
+    if remat:
+        period = functools.partial(checkpoint, period, use_reentrant=False)
+    caches = []
+    for pslice in _unstack(params_stack, cfg.n_periods):
+        x, cs = period(x, pslice)
         caches.append(cs)
     return x, caches
 
@@ -164,10 +186,6 @@ def encode(*args, **kwargs):
     raise NotImplementedError(ENC_DEC_TODO)
 
 
-def lm_loss(*args, **kwargs):
-    raise NotImplementedError(LM_LOSS_TODO)
-
-
 def lm_logits(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
               compute_dtype=torch.bfloat16, impl=None, genome=None):
     _check_supported(cfg)
@@ -175,6 +193,25 @@ def lm_logits(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
     x, _ = _run_stack(params["dec"], x, cfg, compute_dtype=compute_dtype,
                       impl=impl, genome=genome)
     return _head(params, cfg, x, compute_dtype)
+
+
+def lm_loss(params, cfg: ArchConfig, batch, *, compute_dtype=torch.bfloat16,
+            impl=None, genome=None):
+    """Next-token cross-entropy.  batch: {tokens, labels, [prefix_embeds]};
+    labels < 0 carry no loss, and the sum is divided by the number of the
+    others (at least 1).  The JAX package pads the vocab to a multiple of the
+    model axis here; that axis has size 1 on one device, so padding is a
+    no-op and the port has none.  Training takes ``impl="blocked"``: the
+    kernels have no backward and refuse inputs that require grad."""
+    logits = lm_logits(
+        params, cfg, batch["tokens"], prefix_embeds=batch.get("prefix_embeds"),
+        compute_dtype=compute_dtype, impl=impl, genome=genome)
+    labels = batch["labels"].long()
+    mask = (labels >= 0).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    del logits
+    ll = torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
+    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +262,7 @@ def decode_step(params, cfg: ArchConfig, cache, token, *,
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
     pos = cache["pos"]
-    for per in range(cfg.n_periods):
-        pslice = _period(params["dec"], per)
+    for per, pslice in enumerate(_unstack(params["dec"], cfg.n_periods)):
         for i, blk in enumerate(cfg.pattern):
             p, c = pslice[f"pos{i}"], cache["layers"][f"pos{i}"]
             if blk.kind == "attn":
