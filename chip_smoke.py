@@ -145,14 +145,34 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  must equal the CPU reference path's, and so must those of
                  reduced h2o-danube-3-4b and phi-3-vision-4.2b at their
                  published head dims (120, 96) with impl="auto"
+  serve_encdec   seamless-m4t-medium at full width and full depth (12
+                 encoder and 12 decoder layers), bf16, random weights from a
+                 seeded generator on the card: (a) 8 requests through
+                 BatchedServer (batch 4, 32 new tokens, zero frames of the
+                 prompt's length, as the JAX package feeds them): 36
+                 flash_attention launches per group (encoder, self- and
+                 cross-attention, all on the wgmma body), 24 flash_decode
+                 calls per decode step (the self and the cross cache), no
+                 ssd_chunked, every launch of the first group held against
+                 its plain version, and a torch.profiler reading of the
+                 second group (as serve's); (b) prefill and ENCDEC_STEPS
+                 decode steps with seeded random frames (ENCDEC_FRAMES
+                 frames, ENCDEC_PROMPT-token prompts), every launch held
+                 against its plain version, the cross shapes, the plain path
+                 fed the same tokens (logits RMS and greedy agreement per
+                 step) and a witness that other frames move the logits,
+                 which must exceed kernel against plain; (c) reduced
+                 seamless in fp32, card against CPU: BatchedServer's tokens
+                 equal, and random-frame logits within ENCDEC_CARD_CPU_REL
   train          training on the card, through the blocked references (the
                  kernels have no backward): qwen2-7b at full width, 8 of
                  its 28 layers, bf16 compute on fp32 state, remat, 8 steps
                  of 8 x 1024 tokens in 2 microbatches (every loss finite,
                  the last below the first, peak memory under 90 % of the
                  card's; seconds per step, tokens/s, model TFLOP/s);
-                 reduced qwen2-7b and moonshot-v1-16b-a3b in fp32 for 3
-                 steps on the card and on the CPU from the same weights
+                 reduced qwen2-7b, moonshot-v1-16b-a3b and
+                 seamless-m4t-medium in fp32 for 3 steps on the card and on
+                 the CPU from the same weights
                  (per-step loss within TRAIN_PARITY_REL); a ResilientRunner
                  with one fault against an uninterrupted run (final loss
                  within TRAIN_RESTART_REL, one restart); the three kernel
@@ -168,7 +188,10 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  kernel ms, bound ms, plain
                  ms, and a library yardstick where one PyTorch call computes
                  the same function; both attention kernels at head_dim 120
-                 and 96 beside 128
+                 and 96 beside 128; both attention kernels in
+                 seamless-m4t-medium's roles (the encoder's non-causal
+                 self-attention, cross-attention, decode over the cross
+                 cache) beside SDPA
   kernels        the summary line of every ported kernel
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
 nothing of the JAX package.
@@ -217,8 +240,8 @@ FRONTIER_STEPS = 6          # archipelago steps per job, migration every 2
 FRONTIER_SEED = 5           # both jobs' seed, and the direct run's
 FRONTIER_SUITE, FRONTIER_ISLANDS = "mha+gqa+decode", 4    # each job's archipelago
 PHASES = ("device", "build", "kernel", "decode_kernel", "ssd_kernel", "serve",
-          "train", "rank", "noise", "evolve", "backends", "islands", "cascade", "frontier",
-          "gqa", "decode_suite", "times", "kernels")
+          "serve_encdec", "train", "rank", "noise", "evolve", "backends", "islands",
+          "cascade", "frontier", "gqa", "decode_suite", "times", "kernels")
 SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd.cu")
 TOL_SSD_F32 = 2e-5          # SSD kernel vs plain, fp32: relative to max |y|
 SERVE_ARCH, SERVE_LAYERS = "jamba-v0.1-52b", 16
@@ -227,13 +250,18 @@ SERVE_PROMPT = (1000, 2049)         # prompt lengths drawn in [lo, hi)
 DECODE_SPLITS = (1, 2, 3, 5, 8, None)   # None: the wrapper's split count
 DECODE_SWEEP = (2, 3, 5, 8, 9, 10, 16)  # split counts timed at the served shape
 TEACHER_STEPS = 8                   # decode steps of the teacher-forced reading
+ENCDEC_ARCH = "seamless-m4t-medium"         # served at full width and full depth
+ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_STEPS = 1500, 16, 32   # direct part: Se, S, steps
+ENCDEC_CARD_CPU_STEPS = 8                   # reduced fp32 decode steps, card vs CPU
+ENCDEC_CARD_CPU_REL = 1e-4                  # their logits, relative (fp32, TF32 off)
 PROFILE_NEW = 4                     # new tokens of the profiled pass
 TRAIN_ARCH, TRAIN_LAYERS = "qwen2-7b", 8    # full width, depth cut 28 -> 8
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 1024, 2, 8
 TRAIN_LR = 1e-4             # peak lr (2 warmup steps); 1e-3 diverges at this width
 TRAIN_WITNESS_STEPS = 3     # full-width steps again in fp32 compute, beside bf16's
 TRAIN_WITNESS_REL = (1e-3, 1e-3)    # first step: loss, grad norm, bf16 vs fp32
-TRAIN_PARITY_ARCHS = ("qwen2-7b", "moonshot-v1-16b-a3b")   # reduced, card vs CPU
+TRAIN_PARITY_ARCHS = ("qwen2-7b", "moonshot-v1-16b-a3b",   # reduced, card vs CPU
+                      "seamless-m4t-medium")
 TRAIN_PARITY_STEPS = 3
 TRAIN_PARITY_REL = 1e-4     # per-step loss, card vs CPU (fp32; atomics on the card)
 TRAIN_RESTART_STEPS, TRAIN_RESTART_FAULT = 6, 3     # steps, and the step that faults
@@ -941,7 +969,7 @@ def _teacher_forced(params, cfg, group, max_len, impl, ref_impl, freeze=False):
     return steps, routing
 
 
-def _profile_group(server, group):
+def _profile_group(server, group, phase="serve"):
     """torch.profiler over two more passes of a group: the prefill alone (one
     new token) and the prefill with PROFILE_NEW - 1 decode steps.  Device
     time of the kernels (CUDA rows only), the ported kernels' share, the
@@ -972,7 +1000,7 @@ def _profile_group(server, group):
                                    ("ssd_chunked", ("ssd_kernel", "ssd_chunk_state",
                                                     "ssd_state_pass", "ssd_chunk_scan")))}
         t = server.timings[-1]
-        line = {"phase": "serve", "check": "profile", "gate": False, "new_tokens": new,
+        line = {"phase": phase, "check": "profile", "gate": False, "new_tokens": new,
                 "prompt_len": t["prompt_len"], "wall_ms": wall_ms,
                 "device_ms": device_ms[new] or "not measured",
                 "device_busy_share": (device_ms[new] / wall_ms if device_ms[new]
@@ -987,18 +1015,71 @@ def _profile_group(server, group):
         emit(line)
 
 
-def phase_serve(state):
-    import dataclasses
-
+def _serve_traffic(cfg, params, checked, faults: list, **tags) -> dict:
+    """SERVE_REQUESTS requests (prompts drawn in SERVE_PROMPT, SERVE_NEW
+    greedy tokens each) through BatchedServer in bf16, batch SERVE_BATCH,
+    max_len SERVE_MAX_LEN.  The three kernels' counts are set to 0 just
+    before; every launch of the first group is held against its plain
+    version (``checked``: the kernels that must have checked launches).
+    One line per group, tagged with ``tags``; a fault for a wrong number of
+    decode steps or a bad output.  Returns the server, requests, groups,
+    launch counts, decode steps, checks and wall seconds."""
     import numpy as np
     import torch
 
-    from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd as sm
     from repro_torch.launch.serve import BatchedServer, Request
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(*SERVE_PROMPT, size=SERVE_REQUESTS)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (int(n),)), SERVE_NEW)
+            for i, n in enumerate(lens)]
+    groups = [reqs[i:i + SERVE_BATCH] for i in range(0, len(reqs), SERVE_BATCH)]
+    server = BatchedServer(cfg, params, batch_size=SERVE_BATCH, max_len=SERVE_MAX_LEN,
+                           compute_dtype=torch.bfloat16)
+    kernels = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
+               "ssd_chunked": sm.ssd_chunked}
+    checks = {name: [] for name in checked}
+    torch.cuda.synchronize()
+    reset_counts(*kernels.values())
+    t0 = time.perf_counter()
+    with ops.checking(lambda name, st: checks.setdefault(name, []).append(st)):
+        server.run_group(groups[0])              # every launch held against plain
+    for grp in groups[1:]:
+        server.run_group(grp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    steps = sum(len(t["decode_ms"]) for t in server.timings)
+    for i, t in enumerate(server.timings):
+        dec = sorted(t["decode_ms"])
+        med = dec[len(dec) // 2]
+        emit({**tags, "group": i, "checked_against_plain": i == 0,
+              "batch": t["batch"], "prompt_len": t["prompt_len"],
+              "prompt_lens": [len(r.prompt) for r in groups[i]],
+              "prefill_ms": t["prefill_ms"], "decode_steps": len(dec),
+              "decode_ms_median": med, "decode_ms_mean": sum(dec) / len(dec),
+              "decode_tokens_per_s": t["batch"] / (med * 1e-3)})
+    if steps != len(groups) * (SERVE_NEW - 1):
+        faults.append(f"{steps} decode steps, expected {len(groups) * (SERVE_NEW - 1)}")
+    for r in reqs:
+        if len(r.output) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in r.output):
+            faults.append(f"request {r.rid} output {r.output}")
+    return dict(server=server, reqs=reqs, groups=groups, launches=launches, steps=steps,
+                checks=checks, wall=wall)
+
+
+def phase_serve(state):
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd as sm
     from repro_torch.models import init_params
 
     full = get_arch(SERVE_ARCH)
@@ -1021,47 +1102,19 @@ def phase_serve(state):
     init_s = time.perf_counter() - t0
     weights_gib = sum(t.numel() * t.element_size() for t in _leaves(params)) / 2 ** 30
 
-    rng = np.random.default_rng(0)
-    lens = rng.integers(*SERVE_PROMPT, size=SERVE_REQUESTS)
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (int(n),)), SERVE_NEW)
-            for i, n in enumerate(lens)]
-    groups = [reqs[i:i + SERVE_BATCH] for i in range(0, len(reqs), SERVE_BATCH)]
-    server = BatchedServer(cfg, params, batch_size=SERVE_BATCH, max_len=SERVE_MAX_LEN,
-                           compute_dtype=torch.bfloat16)
-    checks = {"flash_attention": [], "flash_decode": [], "ssd_chunked": []}
-    kernels = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
-               "ssd_chunked": sm.ssd_chunked}
-    torch.cuda.synchronize()
-    reset_counts(*kernels.values())
-    t0 = time.perf_counter()
-    with ops.checking(lambda name, st: checks[name].append(st)):
-        server.run_group(groups[0])              # every launch held against plain
-    for grp in groups[1:]:
-        server.run_group(grp)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    faults: list = []
+    run = _serve_traffic(cfg, params, ("flash_attention", "flash_decode", "ssd_chunked"),
+                         faults, phase="serve")
+    server, reqs, groups = run["server"], run["reqs"], run["groups"]
+    launches, steps, wall = run["launches"], run["steps"], run["wall"]
     by_body = dict(fa.flash_attention.launches_by_body)
     ssd_by_body = dict(sm.ssd_chunked.launches_by_body)
 
     n_attn = sum(b.kind == "attn" for b in cfg.pattern) * cfg.n_periods
     n_mamba = sum(b.kind == "mamba" for b in cfg.pattern) * cfg.n_periods
-    steps = sum(len(t["decode_ms"]) for t in server.timings)
     expected = {"flash_attention": n_attn * len(groups),
                 "ssd_chunked": n_mamba * len(groups),
                 "flash_decode": n_attn * steps}
-    for i, t in enumerate(server.timings):
-        dec = sorted(t["decode_ms"])
-        med = dec[len(dec) // 2]
-        emit({"phase": "serve", "group": i, "checked_against_plain": i == 0,
-              "batch": t["batch"], "prompt_len": t["prompt_len"],
-              "prompt_lens": [len(r.prompt) for r in groups[i]],
-              "prefill_ms": t["prefill_ms"], "decode_steps": len(dec),
-              "decode_ms_median": med, "decode_ms_mean": sum(dec) / len(dec),
-              "decode_tokens_per_s": t["batch"] / (med * 1e-3)})
-    faults = []
-    if steps != len(groups) * (SERVE_NEW - 1):
-        faults.append(f"{steps} decode steps, expected {len(groups) * (SERVE_NEW - 1)}")
     if launches != expected:
         faults.append(f"launches {launches}, the path implies {expected}")
     if by_body["wgmma"] != launches["flash_attention"]:
@@ -1070,19 +1123,7 @@ def phase_serve(state):
     if ssd_by_body["chunked"] != launches["ssd_chunked"]:
         faults.append(f"ssd_chunked launches by body {ssd_by_body}: the served bf16 "
                       f"prefill must take the chunked body")
-    for r in reqs:
-        if len(r.output) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in r.output):
-            faults.append(f"request {r.rid} output {r.output}")
-    agree = {"flash_attention": fa.bf16_agrees, "flash_decode": fd.bf16_agrees,
-             "ssd_chunked": sm.bf16_agrees}
-    for name, rows in checks.items():
-        bad = [st for st in rows if not agree[name](st)]
-        worst = {k: max(st[k] for st in rows) for k in rows[0] if k != "finite"} if rows else {}
-        emit({"phase": "serve", "check": "launches_vs_plain", "kernel": name,
-              "group": 0, "launches_checked": len(rows), "failed": len(bad), "worst": worst})
-        state.setdefault("serve_err", {})[name] = worst.get("max_abs_err")
-        if bad or not rows:
-            faults.append(f"{name}: {len(bad)} of {len(rows)} checked launches disagree")
+    state["serve_err"] = _checked(run["checks"], faults, phase="serve", group=0)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     total_new = sum(len(r.output) for r in reqs)
     emit({"phase": "serve", "summary": True, "requests": len(reqs),
@@ -1135,6 +1176,254 @@ def phase_serve(state):
             faults.append(f"reduced {arch}: checked launches {seen}")
     if faults:
         raise AssertionError("serve: " + "; ".join(faults))
+
+
+def _checked(checks: dict, faults: list, **tags) -> dict:
+    """One line per kernel of ``checks`` (its checked launches' stats by
+    name) with the worst of each reading; a fault for a kernel with no
+    checked launch or with one outside its bf16 bounds.  Returns the worst
+    max_abs_err by kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssd as sm
+    agree = {"flash_attention": fa.bf16_agrees, "flash_decode": fd.bf16_agrees,
+             "ssd_chunked": sm.bf16_agrees}
+    worst_err = {}
+    for name, rows in checks.items():
+        bad = [st for st in rows if not agree[name](st)]
+        worst = {k: max(st[k] for st in rows) for k in rows[0] if k != "finite"} if rows else {}
+        emit({**tags, "check": "launches_vs_plain", "kernel": name,
+              "launches_checked": len(rows), "failed": len(bad), "worst": worst})
+        worst_err[name] = worst.get("max_abs_err")
+        if bad or not rows:
+            faults.append(f"{' '.join(map(str, tags.values()))}: {name}: {len(bad)} "
+                          f"of {len(rows)} checked launches disagree")
+    return worst_err
+
+
+def _encdec_served(cfg, params, faults: list) -> dict:
+    """(a) The served traffic through BatchedServer as the JAX package
+    drives an encoder-decoder (zero frames of each group's prompt length):
+    launch counts, the first group's launches held to their plain versions,
+    timings and a profile of the second group."""
+    from repro_torch.kernels import flash_attention as fa
+
+    run = _serve_traffic(cfg, params, ("flash_attention", "flash_decode"), faults,
+                         phase="serve_encdec", part="served")
+    server, groups, launches, steps = run["server"], run["groups"], run["launches"], \
+        run["steps"]
+    by_body = dict(fa.flash_attention.launches_by_body)
+    n_attn = sum(b.kind == "attn" for b in cfg.pattern) * cfg.n_periods
+    n_cross = sum(b.cross_attn for b in cfg.pattern) * cfg.n_periods
+    per_group = cfg.n_enc_layers + n_attn + n_cross      # encoder, self, cross
+    expected = {"flash_attention": per_group * len(groups), "ssd_chunked": 0,
+                "flash_decode": (n_attn + n_cross) * steps}
+    if launches != expected:
+        faults.append(f"served: launches {launches}, the path implies {expected}")
+    if by_body["wgmma"] != launches["flash_attention"]:
+        faults.append(f"served: flash_attention launches by body {by_body}: the bf16 "
+                      "launches at head_dim 64 must take the wgmma body")
+    err = _checked(run["checks"], faults, phase="serve_encdec", part="served")
+    total_new = sum(len(r.output) for r in run["reqs"])
+    emit({"phase": "serve_encdec", "part": "served", "summary": True,
+          "requests": len(run["reqs"]), "new_tokens": total_new, "wall_s": run["wall"],
+          "tokens_per_s": total_new / run["wall"], "launches": launches,
+          "launches_expected": expected, "flash_attention_launches_by_body": by_body,
+          "flash_attention_per_group": launches["flash_attention"] / len(groups),
+          "flash_decode_per_step": launches["flash_decode"] / steps,
+          "outputs_first_request": run["reqs"][0].output})
+    out = {"launches": launches, "by_body": by_body, "err": err,
+           "prompt_lens": [t["prompt_len"] for t in server.timings],
+           "timings": list(server.timings)}
+    _profile_group(server, groups[1], "serve_encdec")
+    return out
+
+
+def _encdec_direct(cfg, params, faults: list) -> dict:
+    """(b) prefill and ENCDEC_STEPS greedy decode steps straight through the
+    model with seeded random frames (ENCDEC_FRAMES of them, not a multiple of
+    128) and ENCDEC_PROMPT-token prompts, impl="kernel", every launch held to
+    its plain version; then the plain path fed the same tokens (logits
+    relative RMS and greedy agreement per step), and a witness: other frames
+    move the logits."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, prefill
+
+    B, Se, S = SERVE_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT
+    max_len = S + ENCDEC_STEPS
+    g = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda")
+    frames = torch.randn((B, Se, cfg.d_model), generator=g, device="cuda").to(torch.bfloat16)
+    other = torch.randn((B, Se, cfg.d_model), generator=g, device="cuda").to(torch.bfloat16)
+    kw = dict(compute_dtype=torch.bfloat16)
+
+    def run(impl, frames, steps, feed=None):
+        """Logits of the prefill and of ``steps`` decode steps, each fed
+        ``feed``'s token or else its own greedy one; the tokens fed."""
+        logits, cache = prefill(params, cfg, toks, max_len, enc_frames=frames,
+                                cache_dtype=torch.bfloat16, impl=impl, **kw)
+        out, fed = [logits], []
+        for t in range(steps):
+            fed.append(feed[t] if feed is not None else logits.argmax(-1))
+            logits, cache = decode_step(params, cfg, cache, fed[-1], impl=impl, **kw)
+            out.append(logits)
+        return out, fed, cache
+
+    checks = {"flash_attention": [], "flash_decode": []}
+    shapes = []
+    own_attention = ops.attention
+
+    def attention(q, k, v, **a):                 # records the shapes it is given
+        shapes.append((tuple(q.shape), tuple(k.shape), a.get("causal")))
+        return own_attention(q, k, v, **a)
+    before = (fa.flash_attention.launches, fd.flash_decode.launches)
+    ops.attention = attention
+    try:
+        with ops.checking(lambda n, st: checks[n].append(st)):
+            kernel, fed, cache = run("kernel", frames, ENCDEC_STEPS)
+    finally:
+        ops.attention = own_attention
+    launched = (fa.flash_attention.launches - before[0], fd.flash_decode.launches - before[1])
+    cross = cache["layers"]["pos0"]["cross"]["k"]
+    n_attn = sum(b.kind == "attn" for b in cfg.pattern) * cfg.n_periods
+    want = (cfg.n_enc_layers + 2 * n_attn, 2 * n_attn * ENCDEC_STEPS)
+    cross_shapes = sorted({s for s in shapes if s[0][2] != s[1][2]})
+    emit({"phase": "serve_encdec", "part": "direct", "batch": B, "enc_frames": Se,
+          "prompt_len": S, "decode_steps": ENCDEC_STEPS,
+          "attention_shapes": [{"q": list(q), "k": list(k), "causal": c}
+                               for q, k, c in sorted(set(shapes))],
+          "cross_cache": {"shape": list(cross.shape), "dtype": str(cross.dtype),
+                          "enc_len": cache["enc_len"]},
+          "launches": {"flash_attention": launched[0], "flash_decode": launched[1]},
+          "launches_expected": {"flash_attention": want[0], "flash_decode": want[1]}})
+    if launched != want:
+        faults.append(f"direct: launches {launched}, the path implies {want}")
+    if cross_shapes != [((B, cfg.n_heads, S, cfg.head_dim),
+                         (B, cfg.n_kv_heads, Se, cfg.head_dim), False)]:
+        faults.append(f"direct: cross-attention shapes {cross_shapes}")
+    if cache["enc_len"] != Se or cross.dtype != torch.bfloat16:
+        faults.append(f"direct: enc_len {cache['enc_len']}, cross cache {cross.dtype}")
+    err = _checked(checks, faults, phase="serve_encdec", part="direct")
+
+    plain, _, _ = run("plain", frames, ENCDEC_STEPS, feed=fed)
+    steps = [{"logits_rel_rms": float((a - b).norm() / b.norm()),
+              "greedy_agree": float((a.argmax(-1) == b.argmax(-1)).float().mean())}
+             for a, b in zip(kernel, plain)]
+    witness, _, _ = run("kernel", other, 0)
+    moved = float((witness[0] - kernel[0]).norm() / kernel[0].norm())
+    emit({"phase": "serve_encdec", "part": "direct", "check": "teacher_forced_kernel_vs_plain",
+          "gate": False, "steps": steps})
+    emit({"phase": "serve_encdec", "part": "direct", "check": "other_frames_move_the_logits",
+          "prefill_logits_rel_change": moved,
+          "kernel_vs_plain_prefill_rel_rms": steps[0]["logits_rel_rms"]})
+    if not all(all(torch.isfinite(t).all() for t in run_) for run_ in (kernel, plain)):
+        faults.append("direct: logits not finite")
+    if not moved > steps[0]["logits_rel_rms"]:
+        faults.append(f"direct: other frames moved the logits by {moved}, less than "
+                      f"kernel and plain differ ({steps[0]['logits_rel_rms']})")
+    return {"err": err, "steps": steps, "moved": moved}
+
+
+def _encdec_card_vs_cpu(faults: list) -> dict:
+    """(c) reduced seamless in fp32: BatchedServer's tokens on the card (the
+    kernels, every launch checked) against the CPU's (the blocked
+    references); then seeded random frames, a prefill and ENCDEC_CARD_CPU_STEPS
+    greedy decode steps on the card, the CPU fed the card's tokens: logits
+    within ENCDEC_CARD_CPU_REL relative and the same greedy tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.tree import tree_map
+
+    small = get_arch(ENCDEC_ARCH).reduced()
+    outs, seen = _card_vs_cpu_tokens(small, True)
+    emit({"phase": "serve_encdec", "part": "reduced_fp32_card_vs_cpu", "check": "tokens",
+          "tokens_equal": outs["card"] == outs["cpu"], "card": outs["card"],
+          "cpu": outs["cpu"], "launches_checked": {k: len(v) for k, v in seen.items()},
+          "worst_rel_rms": {k: max(st["rel_rms"] for st in v) for k, v in seen.items()}})
+    if outs["card"] != outs["cpu"]:
+        faults.append("reduced: the card's tokens differ from the CPU reference's")
+    if set(seen) != {"flash_attention", "flash_decode"} or not all(
+            st["finite"] and st["rel_rms"] <= 1e-5 for v in seen.values() for st in v):
+        faults.append(f"reduced: checked launches {seen}")
+
+    cpu = init_params(small, torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.cuda(), cpu)
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, small.vocab_size, (2, 11)))
+    frames = torch.from_numpy(rng.standard_normal((2, 45, small.d_model)).astype(np.float32))
+    kw = dict(compute_dtype=torch.float32, cache_dtype=torch.float32)
+    lc, cc = prefill(card, small, toks.cuda(), 32, enc_frames=frames.cuda(), **kw)
+    lp, cp = prefill(cpu, small, toks, 32, enc_frames=frames, **kw)
+    logits = {"card": [lc.cpu()], "cpu": [lp]}
+    kw.pop("cache_dtype")
+    for _ in range(ENCDEC_CARD_CPU_STEPS):
+        tok = lc.argmax(-1)
+        lc, cc = decode_step(card, small, cc, tok, **kw)
+        lp, cp = decode_step(cpu, small, cp, tok.cpu(), **kw)
+        logits["card"].append(lc.cpu())
+        logits["cpu"].append(lp)
+    rel = [float((a - b).norm() / b.norm()) for a, b in zip(logits["card"], logits["cpu"])]
+    same = [bool((a.argmax(-1) == b.argmax(-1)).all())
+            for a, b in zip(logits["card"], logits["cpu"])]
+    emit({"phase": "serve_encdec", "part": "reduced_fp32_card_vs_cpu",
+          "check": "random_frames_logits", "enc_frames": 45, "prompt_len": 11,
+          "decode_steps": ENCDEC_CARD_CPU_STEPS, "rel_by_step": rel,
+          "greedy_equal_by_step": same, "tol": ENCDEC_CARD_CPU_REL})
+    if not (max(rel) <= ENCDEC_CARD_CPU_REL and all(same)):
+        faults.append(f"reduced: random-frame logits card vs CPU {rel}, greedy {same}")
+    return {"tokens_equal": outs["card"] == outs["cpu"], "max_rel": max(rel)}
+
+
+def phase_serve_encdec(state):
+    """seamless-m4t-medium at full width and full depth (12 encoder and 12
+    decoder layers, bf16, seeded random weights on the card): served as the
+    JAX package serves it, driven directly with random frames, and reduced in
+    fp32 against the CPU."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import init_params
+
+    cfg = get_arch(ENCDEC_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    weights_gib = sum(t.numel() * t.element_size() for t in _leaves(params)) / 2 ** 30
+    emit({"phase": "serve_encdec", "arch": cfg.name, "n_enc_layers": cfg.n_enc_layers,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "head_dim": cfg.head_dim, "vocab": cfg.vocab_size,
+          "params_b": cfg.param_count() / 1e9, "weights_gib": weights_gib,
+          "init_s": time.perf_counter() - t0,
+          "cut": "none: every width and both depths are the published ones"})
+    faults: list = []
+    parts = {}
+    for name, part in (("served", _encdec_served), ("direct", _encdec_direct)):
+        t1 = time.perf_counter()
+        parts[name] = part(cfg, params, faults)
+        parts[name + "_s"] = time.perf_counter() - t1
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    parts["reduced"] = _encdec_card_vs_cpu(faults)
+    parts["reduced_s"] = time.perf_counter() - t1
+    emit({"phase": "serve_encdec", "summary": True, "weights_gib": weights_gib,
+          "peak_gib": peak_gib,
+          "seconds": {k: v for k, v in parts.items() if k.endswith("_s")}})
+    state["serve_encdec"] = {**parts["served"], "peak_gib": peak_gib,
+                             "direct_err": parts["direct"]["err"]}
+    if faults:
+        raise AssertionError("serve_encdec: " + "; ".join(faults))
 
 
 def _train_flops(cfg, tokens: int, seq: int) -> float:
@@ -2920,6 +3209,68 @@ def phase_times(state):
     state["times"] = rows
     _served_times(state)
     _head_dim_times(state)
+    _encdec_times(state)
+
+
+def _encdec_times(state):
+    """Both attention kernels in seamless-m4t-medium's roles off the causal
+    path (bf16, 16 heads of 64, the direct part's shapes): flash_attention
+    at the encoder's self-attention (ENCDEC_FRAMES frames, non-causal) and at
+    the cross-attention (ENCDEC_PROMPT decoder rows against the frames),
+    flash_decode over the cross cache (valid_len = ENCDEC_FRAMES, L2
+    flushed): kernel ms, bound, plain ms (one reading) and SDPA's ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.evals.scorer import time_cuda_ms
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.ops import DEFAULT_ATTN_GENOME
+
+    B, H, D, Se = SERVE_BATCH, 16, 64, ENCDEC_FRAMES
+    g = torch.Generator(device="cuda").manual_seed(8)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    out = {"flash_attention": {}, "flash_decode": {}}
+    k, v = rand(B, H, Se, D), rand(B, H, Se, D)
+    kw = dict(DEFAULT_ATTN_GENOME, causal=False)
+    for role, Sq in (("encoder", Se), ("cross", ENCDEC_PROMPT)):
+        q = rand(B, H, Sq, D)
+        nbytes = 2 * 2 * B * H * Sq * D + 2 * 2 * B * H * Se * D    # q, o; k, v
+        b_ms, b_by = _bound(nbytes, 4.0 * B * H * Sq * Se * D)
+        before = fa.flash_attention.launches_by_body["wgmma"]
+        ms = time_cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=10)
+        out["flash_attention"][role] = {
+            "shape": f"q ({B}, {H}, {Sq}, {D}), k/v ({B}, {H}, {Se}, {D}) bf16, non-causal",
+            "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+            "wgmma": fa.flash_attention.launches_by_body["wgmma"] > before,
+            "plain_ms": time_cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                                     warmup=1, reps=1),
+            "library_ms": time_cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                                       reps=10), "library": "sdpa"}
+    q = rand(B, H, D)
+    valid = [Se] * B
+    vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    b_ms, b_by = decode_bound(B, H, H, D, valid)
+    out["flash_decode"]["cross_cache"] = {
+        "shape": f"q ({B}, {H}, {D}), cache ({B}, {H}, {Se}, {D}) bf16, valid_len {Se}",
+        "splits": fd.kernel_splits(q, k),
+        "ms": time_cold_ms(lambda: fd.flash_decode(q, k, v, vl, impl="kernel")),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "plain_ms": time_cuda_ms(lambda: fd.flash_decode_plain(
+            q, k, v, vl, splits=fd.kernel_splits(q, k)), warmup=1, reps=1),
+        "library_ms": time_cold_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v)),
+        "library": "sdpa over the whole cross cache, L2 flushed"}
+    del q, k, v
+    torch.cuda.empty_cache()
+    for name, rows in out.items():
+        for role, row in rows.items():
+            emit({"phase": "times", "check": "encdec", "gate": False, "kernel": name,
+                  "role": role, **row})
+    state["encdec_times"] = out
 
 
 def _head_dim_times(state):
@@ -3091,6 +3442,9 @@ def phase_kernels(state):
     serve_launches = serve.get("launches", {})
     serve_err = state.get("serve_err", {})
     train_launches = state.get("train", {}).get("launches", {})
+    encdec = state.get("serve_encdec", {})
+    encdec_launches = encdec.get("launches", {})
+    encdec_times = state.get("encdec_times", {})
     fa_serve = served.get("flash_attention", {})
     entries = [{
         "name": "flash_attention", "route": "cuda",
@@ -3101,7 +3455,8 @@ def phase_kernels(state):
         + state.get("decode_suite_launches", 0) + serve_launches.get("flash_attention", 0)
         + state.get("backends_launches", 0) + state.get("islands_launches", 0)
         + state.get("islands_worker_launches", 0) + state.get("cascade_launches", 0)
-        + state.get("frontier_worker_launches", 0),
+        + state.get("frontier_worker_launches", 0)
+        + encdec_launches.get("flash_attention", 0),
         "launches_by_path": {"evolve": state.get("launches", 0),
                              "backends_workers": state.get("backends_launches", 0),
                              "islands": state.get("islands_launches", 0),
@@ -3113,6 +3468,7 @@ def phase_kernels(state):
                              "gqa": state.get("gqa_launches", 0),
                              "decode_suite": state.get("decode_suite_launches", 0),
                              "serve": serve_launches.get("flash_attention", 0),
+                             "serve_encdec": encdec_launches.get("flash_attention", 0),
                              "train": train_launches.get("flash_attention", 0)},
         "launches_by_body": {"evolve": state.get("evolve_by_body"),
                              "backends_workers": state.get("backends_by_body"),
@@ -3121,7 +3477,8 @@ def phase_kernels(state):
                              "frontier_workers": state.get("frontier_by_body"),
                              "gqa": state.get("gqa_by_body"),
                              "decode_suite": state.get("decode_suite_by_body"),
-                             "serve": serve.get("by_body")},
+                             "serve": serve.get("by_body"),
+                             "serve_encdec": encdec.get("by_body")},
         "launches_by_rep": {"gqa": state.get("gqa_by_rep")},
         "launches_per_eval": state.get("per_eval"),
         "max_abs_err": state.get("max_abs_err"),
@@ -3134,7 +3491,9 @@ def phase_kernels(state):
         "shape": "mha_causal_s4096 (B=8, H=16, S=4096, D=128, bf16), the pipelined "
                  "genome (DEFAULT_ATTN_GENOME); wgmma body, mma_sync body beside it",
         "served": fa_serve,
-        "head_dims": state.get("head_dim_times", {}).get("flash_attention")}]
+        "head_dims": state.get("head_dim_times", {}).get("flash_attention"),
+        "encdec": encdec_times.get("flash_attention"),
+        "max_abs_err_serve_encdec_bf16": encdec.get("err", {}).get("flash_attention")}]
     for name, src, replaces, err in (
             ("flash_decode", "flash_decode.cu", "src/repro/kernels/flash_decode.py:67",
              state.get("decode_err")),
@@ -3143,8 +3502,9 @@ def phase_kernels(state):
         entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
-            "launches": serve_launches.get(name, 0),
+            "launches": serve_launches.get(name, 0) + encdec_launches.get(name, 0),
             "launches_by_path": {"serve": serve_launches.get(name, 0),
+                                 "serve_encdec": encdec_launches.get(name, 0),
                                  "train": train_launches.get(name, 0)},
             "max_abs_err": err, "max_abs_err_served_bf16": serve_err.get(name),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
@@ -3153,7 +3513,9 @@ def phase_kernels(state):
         if name == "flash_decode":
             entry.update(splits=t.get("splits", state.get("decode_splits")),
                          one_split_ms=t.get("one_split_ms"),
-                         head_dims=state.get("head_dim_times", {}).get("flash_decode"))
+                         head_dims=state.get("head_dim_times", {}).get("flash_decode"),
+                         encdec=encdec_times.get("flash_decode"),
+                         max_abs_err_serve_encdec_bf16=encdec.get("err", {}).get(name))
         else:
             entry.update(serial_ms=t.get("serial_ms"),
                          launches_by_body={"serve": serve.get("ssd_by_body")})
@@ -3191,7 +3553,8 @@ def main() -> int:
         device_check()
     runners = {"build": lambda st: phase_build(), "kernel": phase_kernel,
                "decode_kernel": phase_decode_kernel, "ssd_kernel": phase_ssd_kernel,
-               "serve": phase_serve, "train": phase_train, "noise": phase_noise, "rank": phase_rank,
+               "serve": phase_serve, "serve_encdec": phase_serve_encdec,
+               "train": phase_train, "noise": phase_noise, "rank": phase_rank,
                "evolve": phase_evolve, "backends": phase_backends,
                "islands": phase_islands, "cascade": phase_cascade,
                "frontier": phase_frontier,

@@ -50,7 +50,9 @@ class BatchedServer:
     """Static-batch server: groups pending requests to the batch size,
     prefills together (right-aligned, padded on the left with token 0, which
     the prompts attend to, as in the JAX package), then decodes greedily in
-    lockstep, on the device the parameters lie on.
+    lockstep, on the device the parameters lie on.  An encoder-decoder's
+    encoder reads zero frames of the group's prompt length, as in the JAX
+    package (the speech frontend is a stub).
 
     ``timings`` gets one entry per group: the prefill's milliseconds (prompt
     to first token) and each decode step's, read from CUDA events on the card
@@ -92,11 +94,16 @@ class BatchedServer:
         toks = np.zeros((B, plen), np.int64)
         for i, r in enumerate(group):
             toks[i, plen - len(r.prompt):] = r.prompt     # right-align
+        extras = {}
+        if self.cfg.enc_dec:            # the JAX package's zero frames
+            extras["enc_frames"] = torch.zeros(
+                (B, plen, self.cfg.d_model), dtype=self._compute_dtype,
+                device=self._device)
         marks = [self._mark()]
         logits, cache = prefill(
             self.params, self.cfg, torch.from_numpy(toks).to(self._device),
             self.max_len, compute_dtype=self._compute_dtype,
-            cache_dtype=self._compute_dtype, impl=self._impl)
+            cache_dtype=self._compute_dtype, impl=self._impl, **extras)
         token = torch.argmax(logits, -1)
         marks.append(self._mark())
         steps = max(r.max_new_tokens for r in group)

@@ -11,11 +11,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import _check_supported
 
 # leaves the JAX package uses in fp32: they stay fp32 whatever the dtype
-FP32_KEYS = frozenset({"norm", "post_norm", "final_norm", "A_log", "dt_bias",
-                       "D_skip", "gate_norm", "conv_b", "bq", "bk", "bv"})
+FP32_KEYS = frozenset({"norm", "post_norm", "final_norm", "c_norm", "enc_final_norm",
+                       "A_log", "dt_bias", "D_skip", "gate_norm", "conv_b",
+                       "bq", "bk", "bv"})
 
 
 def params_from_jax(cfg: ArchConfig, tree: dict, *, device=None,
@@ -23,7 +23,6 @@ def params_from_jax(cfg: ArchConfig, tree: dict, *, device=None,
     """The port's parameters from the JAX package's.  Matrices are stored in
     ``dtype`` (the JAX package casts them to the compute dtype at every
     use); the leaves of ``FP32_KEYS`` stay fp32."""
-    _check_supported(cfg)
 
     def convert(node, key=None):
         if isinstance(node, dict):

@@ -1,25 +1,28 @@
-"""Model assembly for the decoder-only LMs of the registry: the counterpart
-of ``repro.models.transformer`` on one device.
+"""Model assembly for the decoder-only and encoder-decoder LMs of the
+registry: the counterpart of ``repro.models.transformer`` on one device.
 
 Parameters keep the JAX package's layout: ``params["dec"]["pos<i>"]`` holds
 the block at pattern position i, every tensor stacked over the periods
-(leading dim ``cfg.n_periods``).  Where the JAX package scans over periods,
-the port loops over them and unbinds the stack (views, no copies).  The
-decode cache is stacked the same way.
+(leading dim ``cfg.n_periods``).  An encoder-decoder adds ``params["enc"]``
+(the pattern again, stacked over ``cfg.n_enc_layers`` periods, without
+cross-attention) and ``params["enc_final_norm"]``; its decoder blocks carry
+the cross-attention's ``c_`` parameters.  Where the JAX package scans over
+periods, the port loops over them and unbinds the stack (views, no copies).
+The decode cache is stacked the same way.
 
 Public API:
   init_params(cfg, generator, device, dtype)          -> params
+  encode(params, cfg, frames, ...)                    -> (B, Se, D)
   lm_logits(params, cfg, tokens, ...)                 -> (B, S, V)
   lm_loss(params, cfg, batch, ...)                    -> scalar
   prefill(params, cfg, tokens, max_len, ...)          -> (last_logits, cache)
+  init_decode_cache(cfg, batch, max_len, ...)         -> cache
   decode_step(params, cfg, cache, token, ...)         -> (logits, cache)
 
 ``cfg.remat`` checkpoints the stack as the JAX package does: per period,
 and per block inside the period when the pattern has more than two blocks
 (``torch.utils.checkpoint``, non-reentrant), whenever autograd records the
-forward.  Not ported yet: the encoder-decoder path (``encode``,
-cross-attention), which raises (ROADMAP Queue 1 item 9), and
-``init_decode_cache`` (the decode-only dry-run cells, item 12).
+forward.
 """
 from __future__ import annotations
 
@@ -35,24 +38,18 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (logit_softcap, mlp_apply, mlp_init,
                                        norm_apply, norm_init, normal_init)
 
-ENC_DEC_TODO = ("the encoder-decoder path (encode, cross-attention) is not "
-                "ported yet (ROADMAP Queue 1 item 9)")
-
-
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.enc_dec or any(b.cross_attn for b in cfg.pattern):
-        raise NotImplementedError(ENC_DEC_TODO)
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
 
-def _block_init(gen, cfg: ArchConfig, blk: Block, lead, kw):
+def _block_init(gen, cfg: ArchConfig, blk: Block, lead, kw, causal_stack: bool):
     p = {}
     if blk.kind == "attn":
         p["attn"] = attn_mod.attn_init(gen, cfg, blk, lead=lead, **kw)
+        if blk.cross_attn and causal_stack:
+            p["attn"].update(attn_mod.attn_init(gen, cfg, blk, lead=lead, cross=True,
+                                                **kw))
     elif blk.kind == "mamba":
         p["mamba"] = ssm_mod.mamba_init(gen, cfg, lead=lead, **kw)
     if blk.mlp == "moe":
@@ -70,17 +67,24 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None,
     weights, ``A_log``, ``dt_bias``, ``D_skip``, ``gate_norm``, ``conv_b`` and
     biases stay fp32.  The numbers differ from ``jax.random``'s: tests that
     compare the two packages convert JAX weights with ``params_from_jax``."""
-    _check_supported(cfg)
     kw = dict(device=device, dtype=dtype)
-    lead = (cfg.n_periods,)
+
+    def stack(n_periods, causal_stack):
+        return {f"pos{i}": _block_init(generator, cfg, blk, (n_periods,), kw, causal_stack)
+                for i, blk in enumerate(cfg.pattern)}
+
     params = {
         "embed": normal_init(generator, (cfg.vocab_size, cfg.d_model), **kw),
         "final_norm": norm_init(cfg, cfg.d_model, device),
-        "dec": {f"pos{i}": _block_init(generator, cfg, blk, lead, kw)
-                for i, blk in enumerate(cfg.pattern)},
+        "dec": stack(cfg.n_periods, True),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal_init(generator, (cfg.d_model, cfg.vocab_size), **kw)
+    if cfg.enc_dec:
+        # the encoder runs a uniform pattern (full attention and
+        # pattern[0]'s MLP) over these stacks, as the JAX package does
+        params["enc"] = stack(cfg.n_enc_layers, False)
+        params["enc_final_norm"] = norm_init(cfg, cfg.d_model, device)
     return params
 
 
@@ -89,17 +93,28 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None,
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(x, p, cfg: ArchConfig, blk: Block, *, compute_dtype, impl=None,
-                 genome=None, collect=False):
+def _apply_block(x, p, cfg: ArchConfig, blk: Block, *, causal, compute_dtype,
+                 enc_out=None, impl=None, genome=None, collect=False):
+    """One block; with ``collect``, its cache pieces: the self-attention's
+    K/V ("kv"), the cross-attention's K/V of the memory ("cross"), the Mamba
+    states ("mamba")."""
     cache = {}
     if blk.kind == "attn":
-        out = attn_mod.attn_apply(x, p["attn"], cfg, blk, causal=True,
+        out = attn_mod.attn_apply(x, p["attn"], cfg, blk, causal=causal,
                                   compute_dtype=compute_dtype, impl=impl,
                                   genome=genome, return_kv=collect)
         if collect:
             x, cache["kv"] = out
         else:
             x = out
+        if blk.cross_attn and enc_out is not None:
+            out = attn_mod.attn_apply(x, p["attn"], cfg, blk, causal=False,
+                                      compute_dtype=compute_dtype, kv_source=enc_out,
+                                      impl=impl, genome=genome, return_kv=collect)
+            if collect:
+                x, cache["cross"] = out
+            else:
+                x = out
     elif blk.kind == "mamba":
         x, mcache = ssm_mod.mamba_apply(x, p["mamba"], cfg, compute_dtype, impl=impl)
         if collect:
@@ -121,21 +136,30 @@ def _unstack(tree, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
-def _run_stack(params_stack, x, cfg: ArchConfig, *, compute_dtype, impl=None,
-               genome=None, collect=False):
-    """Every period in order; with ``collect``, a list (one per period) of
-    each position's cache pieces.  ``cfg.remat`` recomputes each period in
-    the backward, and each block too when the pattern is longer than two
-    blocks; the period functions take the parameters by closure, which the
-    non-reentrant checkpoint supports."""
+def _n_periods(params_stack) -> int:
+    """The stack's leading dimension: the decoder's ``cfg.n_periods`` or the
+    encoder's ``cfg.n_enc_layers``."""
+    while isinstance(params_stack, dict):
+        params_stack = next(iter(params_stack.values()))
+    return params_stack.shape[0]
+
+
+def _run_stack(params_stack, x, cfg: ArchConfig, pattern, *, causal, compute_dtype,
+               enc_out=None, impl=None, genome=None, collect=False):
+    """Every period of ``pattern`` in order; with ``collect``, a list (one
+    per period) of each position's cache pieces.  ``cfg.remat`` recomputes
+    each period in the backward, and each block too when the pattern is
+    longer than two blocks; the period functions take the parameters by
+    closure, which the non-reentrant checkpoint supports."""
     remat = cfg.remat and not collect and torch.is_grad_enabled()
-    inner_ckpt = remat and len(cfg.pattern) > 2
+    inner_ckpt = remat and len(pattern) > 2
 
     def period(x, pslice):
         cs = {}
-        for i, blk in enumerate(cfg.pattern):
+        for i, blk in enumerate(pattern):
             apply_i = functools.partial(
-                _apply_block, cfg=cfg, blk=blk, compute_dtype=compute_dtype,
+                _apply_block, cfg=cfg, blk=blk, causal=causal,
+                compute_dtype=compute_dtype, enc_out=enc_out,
                 impl=impl, genome=genome, collect=collect)
             if inner_ckpt:
                 apply_i = functools.partial(checkpoint, apply_i, use_reentrant=False)
@@ -145,7 +169,7 @@ def _run_stack(params_stack, x, cfg: ArchConfig, *, compute_dtype, impl=None,
     if remat:
         period = functools.partial(checkpoint, period, use_reentrant=False)
     caches = []
-    for pslice in _unstack(params_stack, cfg.n_periods):
+    for pslice in _unstack(params_stack, _n_periods(params_stack)):
         x, cs = period(x, pslice)
         caches.append(cs)
     return x, caches
@@ -182,22 +206,42 @@ def _head(params, cfg: ArchConfig, x, compute_dtype):
 # ---------------------------------------------------------------------------
 
 
-def encode(*args, **kwargs):
-    raise NotImplementedError(ENC_DEC_TODO)
+def encode(params, cfg: ArchConfig, frames, *, compute_dtype=torch.bfloat16,
+           impl=None, genome=None):
+    """The encoder stack over precomputed frame embeddings (B, Se, D) (the
+    speech frontend is a stub): non-causal, rotary-encoded self-attention at
+    positions 0..Se-1 and pattern[0]'s MLP, then ``enc_final_norm``."""
+    enc_pattern = (Block(kind="attn", mlp=cfg.pattern[0].mlp, cross_attn=False),)
+    x = frames.to(compute_dtype)
+    x, _ = _run_stack(params["enc"], x, cfg, enc_pattern, causal=False,
+                      compute_dtype=compute_dtype, impl=impl, genome=genome)
+    return norm_apply(x, params["enc_final_norm"], cfg)
+
+
+def _encoded(params, cfg: ArchConfig, enc_frames, **kw):
+    """The encoder's memory for an encoder-decoder arch, else None."""
+    if not cfg.enc_dec:
+        return None
+    if enc_frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: pass enc_frames")
+    return encode(params, cfg, enc_frames, **kw)
 
 
 def lm_logits(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
-              compute_dtype=torch.bfloat16, impl=None, genome=None):
-    _check_supported(cfg)
+              enc_frames=None, compute_dtype=torch.bfloat16, impl=None, genome=None):
     x = _embed(params, cfg, tokens, prefix_embeds, compute_dtype)
-    x, _ = _run_stack(params["dec"], x, cfg, compute_dtype=compute_dtype,
+    enc_out = _encoded(params, cfg, enc_frames, compute_dtype=compute_dtype,
+                       impl=impl, genome=genome)
+    x, _ = _run_stack(params["dec"], x, cfg, cfg.pattern, causal=True,
+                      compute_dtype=compute_dtype, enc_out=enc_out,
                       impl=impl, genome=genome)
     return _head(params, cfg, x, compute_dtype)
 
 
 def lm_loss(params, cfg: ArchConfig, batch, *, compute_dtype=torch.bfloat16,
             impl=None, genome=None):
-    """Next-token cross-entropy.  batch: {tokens, labels, [prefix_embeds]};
+    """Next-token cross-entropy.  batch: {tokens, labels, [prefix_embeds],
+    [enc_frames]};
     labels < 0 carry no loss, and the sum is divided by the number of the
     others (at least 1).  The JAX package pads the vocab to a multiple of the
     model axis here; that axis has size 1 on one device, so padding is a
@@ -205,7 +249,8 @@ def lm_loss(params, cfg: ArchConfig, batch, *, compute_dtype=torch.bfloat16,
     kernels have no backward and refuse inputs that require grad."""
     logits = lm_logits(
         params, cfg, batch["tokens"], prefix_embeds=batch.get("prefix_embeds"),
-        compute_dtype=compute_dtype, impl=impl, genome=genome)
+        enc_frames=batch.get("enc_frames"), compute_dtype=compute_dtype, impl=impl,
+        genome=genome)
     labels = batch["labels"].long()
     mask = (labels >= 0).float()
     logp = torch.log_softmax(logits, dim=-1)
@@ -220,17 +265,24 @@ def lm_loss(params, cfg: ArchConfig, batch, *, compute_dtype=torch.bfloat16,
 
 
 def prefill(params, cfg: ArchConfig, tokens, max_len: int, *, prefix_embeds=None,
-            cache_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, impl=None,
-            genome=None):
+            enc_frames=None, cache_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+            impl=None, genome=None):
     """The prompt through the stack; returns the last position's fp32 logits
     and the decode cache, stacked over periods: attention K/V (n_per, B,
     Hkv, Lc, Dh) in ``cache_dtype``, Mamba states (n_per, B, H, P, N) and
     conv tails (n_per, B, K-1, C) in fp32.  ``cache["pos"]`` is the prompt
-    length, a Python int."""
-    _check_supported(cfg)
+    length, a Python int.  An encoder-decoder encodes ``enc_frames`` first;
+    its cache adds the cross K/V of the memory (n_per, B, Hkv, Se, Dh) in the
+    compute dtype, as the JAX package keeps them, and ``cache["enc_len"]``
+    = Se.  The cross K/V are the ones the prefill's cross-attention computed
+    (the JAX package projects the memory a second time for the cache: the
+    same products on the same inputs)."""
     B, S = tokens.shape
     x = _embed(params, cfg, tokens, prefix_embeds, compute_dtype)
-    x, raw = _run_stack(params["dec"], x, cfg, compute_dtype=compute_dtype,
+    enc_out = _encoded(params, cfg, enc_frames, compute_dtype=compute_dtype,
+                       impl=impl, genome=genome)
+    x, raw = _run_stack(params["dec"], x, cfg, cfg.pattern, causal=True,
+                        compute_dtype=compute_dtype, enc_out=enc_out,
                         impl=impl, genome=genome, collect=True)
     logits = _head(params, cfg, x[:, -1:], compute_dtype)[:, 0]
 
@@ -244,11 +296,49 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *, prefix_embeds=None
                 for kt, vt in (c["kv"] for c in per)]
             entry["k"] = torch.stack([a["k"] for a in arranged])
             entry["v"] = torch.stack([a["v"] for a in arranged])
+            if "cross" in per[0]:
+                entry["cross"] = {name: torch.stack([c["cross"][j] for c in per])
+                                  for j, name in enumerate(("k", "v"))}
         elif blk.kind == "mamba":
             entry["mamba"] = {k: torch.stack([c["mamba"][k] for c in per])
                               for k in ("ssm", "conv")}
         layers[f"pos{i}"] = entry
-    return logits, {"pos": S, "layers": layers}
+    cache = {"pos": S, "layers": layers}
+    if cfg.enc_dec:
+        cache["enc_len"] = enc_out.shape[1]
+    return logits, cache
+
+
+def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+                      cache_dtype=torch.bfloat16, enc_len: int = 0, device=None):
+    """A zero cache for decode alone (the decode-only dry-run cells): the
+    layout ``prefill`` returns, with ``pos`` = max_len - 1.  The cross
+    caches (n_per, B, Hkv, enc_len, Dh) are in ``cache_dtype`` here, as the
+    JAX package makes them.  The JAX package broadcasts one zero block over
+    the periods; ``decode_step`` writes the port's cache in place, so every
+    period gets its own."""
+    n_per = cfg.n_periods
+
+    def stacked(one: dict) -> dict:
+        return {k: torch.zeros((n_per, *t.shape), dtype=t.dtype, device=t.device)
+                for k, t in one.items()}
+    layers = {}
+    for i, blk in enumerate(cfg.pattern):
+        entry = {}
+        if blk.kind == "attn":
+            entry.update(stacked(attn_mod.attn_cache_init(cfg, blk, batch, max_len,
+                                                          cache_dtype, device)))
+            if blk.cross_attn and cfg.enc_dec:
+                shape = (n_per, batch, cfg.n_kv_heads, enc_len, cfg.head_dim)
+                entry["cross"] = {k: torch.zeros(shape, dtype=cache_dtype, device=device)
+                                  for k in ("k", "v")}
+        elif blk.kind == "mamba":
+            entry["mamba"] = stacked(ssm_mod.mamba_cache_init(cfg, batch, device))
+        layers[f"pos{i}"] = entry
+    cache = {"pos": max_len - 1, "layers": layers}
+    if cfg.enc_dec:
+        cache["enc_len"] = enc_len
+    return cache
 
 
 def decode_step(params, cfg: ArchConfig, cache, token, *,
@@ -262,13 +352,17 @@ def decode_step(params, cfg: ArchConfig, cache, token, *,
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
     pos = cache["pos"]
+    enc_len = cache.get("enc_len", 0)
     for per, pslice in enumerate(_unstack(params["dec"], cfg.n_periods)):
         for i, blk in enumerate(cfg.pattern):
             p, c = pslice[f"pos{i}"], cache["layers"][f"pos{i}"]
             if blk.kind == "attn":
+                cross = ({"k": c["cross"]["k"][per], "v": c["cross"]["v"][per]}
+                         if "cross" in c else None)
                 x = attn_mod.attn_decode(
                     x, p["attn"], {"k": c["k"][per], "v": c["v"][per]}, cfg, blk,
-                    pos=pos, compute_dtype=compute_dtype, impl=impl)
+                    pos=pos, compute_dtype=compute_dtype, cross_cache=cross,
+                    enc_len=enc_len, impl=impl)
             elif blk.kind == "mamba":
                 mc = c["mamba"]
                 x, new = ssm_mod.mamba_decode(

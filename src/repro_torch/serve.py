@@ -5,10 +5,13 @@ The counterpart of ``examples/serve_batched.py``.
     python -m repro_torch.serve --device cpu --reduced          # CPU, tiny
     python -m repro_torch.serve --arch jamba-v0.1-52b --n-layers 16 \\
         --prompt-len 1000 2048 --new-tokens 32 --max-len 4096    # on the card
+    python -m repro_torch.serve --arch seamless-m4t-medium \\
+        --prompt-len 1000 2048 --new-tokens 32 --max-len 4096    # whole
 
 On the card the model runs in bf16 through the sm_90a kernels; with
 ``--device cpu`` it runs in fp32 through the plain PyTorch references.
-Weights are random, drawn from ``--seed`` on the device.
+Weights are random, drawn from ``--seed`` on the device.  An
+encoder-decoder's encoder reads zero frames, as in the JAX package.
 """
 from __future__ import annotations
 

@@ -67,11 +67,10 @@ def test_logits_prefill_and_decode_match_jax(name):
     assert ct["pos"] == S + T
 
 
-# the decoder-only archs of tests/test_decode_consistency.py (seamless-m4t is
-# encoder-decoder, not ported yet)
+# the archs of tests/test_decode_consistency.py
 CONSISTENCY_ARCHS = ["qwen2-7b", "gemma2-27b", "mamba2-780m", "jamba-v0.1-52b",
-                     "mixtral-8x22b", "h2o-danube-3-4b", "phi-3-vision-4.2b",
-                     "nemotron-4-15b", "moonshot-v1-16b-a3b"]
+                     "mixtral-8x22b", "h2o-danube-3-4b", "seamless-m4t-medium",
+                     "phi-3-vision-4.2b", "nemotron-4-15b", "moonshot-v1-16b-a3b"]
 
 
 @pytest.mark.parametrize("name", CONSISTENCY_ARCHS)
@@ -88,6 +87,9 @@ def test_prefill_then_decode_matches_full_forward(name):
     if cfg.modality == "vision" and cfg.n_prefix_embeds:
         extras["prefix_embeds"] = torch.from_numpy(
             rng.standard_normal((B, cfg.n_prefix_embeds, cfg.d_model)).astype(np.float32))
+    if cfg.enc_dec:
+        extras["enc_frames"] = torch.from_numpy(
+            rng.standard_normal((B, S, cfg.d_model)).astype(np.float32))
     f32 = dict(compute_dtype=torch.float32)
     full = lm_logits(params, cfg, toks, **f32, **extras)
     logits_p, cache = prefill(params, cfg, toks[:, :S], S + T,
@@ -142,10 +144,11 @@ def test_top_k_breaks_ties_toward_the_lower_index():
     np.testing.assert_array_equal(tv.numpy(), np.asarray(vals))
 
 
-def test_init_params_matches_the_jax_layout():
+@pytest.mark.parametrize("name", ["jamba-v0.1-52b", "seamless-m4t-medium"])
+def test_init_params_matches_the_jax_layout(name):
     """The port's own init draws the same tree as the JAX package's: the same
-    keys, shapes, and fp32 leaves where the JAX package keeps fp32."""
-    name = "jamba-v0.1-52b"
+    keys, shapes, and fp32 leaves where the JAX package keeps fp32 (Jamba's
+    Mamba leaves; seamless's encoder stack and cross-attention)."""
     jp = jax_init_params(JAX_ARCHS[name].reduced(), jax.random.PRNGKey(0))
     tp = init_params(ARCHS[name].reduced(), torch.Generator().manual_seed(0),
                      dtype=torch.bfloat16)
@@ -162,5 +165,15 @@ def test_init_params_matches_the_jax_layout():
                 dtypes[k] = v.dtype
     walk(tp, "")
     assert tshapes == jshapes
-    assert dtypes["A_log"] == dtypes["norm"] == dtypes["D_skip"] == torch.float32
-    assert dtypes["in_proj"] == dtypes["w_gate"] == torch.bfloat16
+    if name == "jamba-v0.1-52b":
+        assert dtypes["A_log"] == dtypes["norm"] == dtypes["D_skip"] == torch.float32
+        assert dtypes["in_proj"] == dtypes["w_gate"] == torch.bfloat16
+    else:
+        assert dtypes["c_norm"] == dtypes["enc_final_norm"] == torch.float32
+        assert dtypes["c_wq"] == dtypes["w_up"] == torch.bfloat16
+        # and params_from_jax keeps the same leaves in fp32
+        conv = params_from_jax(ARCHS[name].reduced(),
+                               jax.tree_util.tree_map(np.asarray, jp), dtype=torch.bfloat16)
+        assert conv["enc_final_norm"].dtype == torch.float32
+        assert conv["dec"]["pos0"]["attn"]["c_norm"].dtype == torch.float32
+        assert conv["enc"]["pos0"]["attn"]["wq"].dtype == torch.bfloat16

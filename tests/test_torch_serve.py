@@ -1,7 +1,8 @@
 """The port's BatchedServer against the JAX package's: reduced Jamba (an
-attention layer, Mamba layers, dense and MoE MLPs), the same weights
-(``params_from_jax``), the same requests, greedy decoding in fp32 on both
-sides.  The tokens must be the same."""
+attention layer, Mamba layers, dense and MoE MLPs), reduced gemma2-27b and
+reduced seamless-m4t-medium (encoder-decoder, fed zero frames by both
+servers), the same weights (``params_from_jax``), the same requests, greedy
+decoding in fp32 on both sides.  The tokens must be the same."""
 import jax
 import numpy as np
 import pytest
@@ -24,7 +25,7 @@ def _requests(cls, cfg, n=5, seed=0):
             for i in range(n)]
 
 
-@pytest.mark.parametrize("name", ["jamba-v0.1-52b", "gemma2-27b"])
+@pytest.mark.parametrize("name", ["jamba-v0.1-52b", "gemma2-27b", "seamless-m4t-medium"])
 def test_batched_server_gives_the_jax_tokens(name):
     jcfg, cfg = jax_get_arch(name).reduced(), get_arch(name).reduced()
     jp = jax_init_params(jcfg, jax.random.PRNGKey(0))
@@ -46,6 +47,14 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "serving jamba-v0.1-52b on cpu" in out
     assert out.count("req ") == 3 and "tok/s" in out
+
+
+def test_serve_cli_serves_the_encoder_decoder_on_the_cpu(capsys):
+    serve_cli.main(["--device", "cpu", "--reduced", "--arch", "seamless-m4t-medium",
+                    "--requests", "3", "--batch-size", "2", "--new-tokens", "3"])
+    out = capsys.readouterr().out
+    assert "serving seamless-m4t-medium on cpu" in out
+    assert out.count("req ") == 3 and "9 tokens in" in out
 
 
 def test_serve_cli_refuses_to_guess_a_device_without_a_card():

@@ -17,7 +17,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ssd as sm
 from repro_torch.kernels.ref import decode_reference, ssd_reference
 from repro_torch.launch.serve import BatchedServer, Request
-from repro_torch.models import init_params
+from repro_torch.models import decode_step, init_params, prefill
 
 ATOL = 1e-5          # fp32 decode: kernel vs plain version, outputs of scale ~1
 SSD_REL = 2e-5       # fp32 SSD: kernel vs plain version, relative to max |y|
@@ -249,3 +249,56 @@ def test_published_head_dims_serve_through_the_kernels(name, head_dim):
     assert all(f.launches > n for f, n in counts.items())
     for kernel, stats in seen:
         assert stats["finite"] and stats["rel_rms"] <= 1e-5, (kernel, stats)
+
+
+@pytest.mark.gpu
+def test_reduced_seamless_gives_the_cpu_logits_and_tokens_through_the_kernels():
+    """Reduced seamless-m4t-medium in fp32 on the card through both
+    attention kernels (every launch held to its plain version): with seeded
+    random frames (Se = 37 frames against 9-token prompts), prefill and 6
+    decode steps give the CPU reference's logits within 1e-4 relative and
+    its greedy tokens; served through BatchedServer (zero frames), the
+    CPU's tokens."""
+    _need_card()
+    cfg = get_arch("seamless-m4t-medium").reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(2))
+
+    def to_cuda(tree):
+        return {k: to_cuda(v) if isinstance(v, dict) else v.cuda() for k, v in tree.items()}
+    card = to_cuda(cpu)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 9)))
+    frames = torch.from_numpy(rng.standard_normal((2, 37, cfg.d_model)).astype(np.float32))
+    seen = []
+    counts = {f: f.launches for f in (fa.flash_attention, fd.flash_decode)}
+    logits, tokens = {}, {}
+    for device, params in (("cuda", card), ("cpu", cpu)):
+        kw = dict(compute_dtype=torch.float32, impl="auto")
+        with ops.checking(lambda kernel, stats: seen.append((kernel, stats))):
+            lg, cache = prefill(params, cfg, toks.to(device), 16, cache_dtype=torch.float32,
+                                enc_frames=frames.to(device), **kw)
+            rows, picks = [lg], [lg.argmax(-1)]
+            for _ in range(6):
+                lg, cache = decode_step(params, cfg, cache, picks[-1], **kw)
+                rows.append(lg)
+                picks.append(lg.argmax(-1))
+        logits[device] = torch.stack(rows).cpu()
+        tokens[device] = torch.stack(picks).cpu().tolist()
+    assert tokens["cuda"] == tokens["cpu"]
+    rel = float((logits["cuda"] - logits["cpu"]).norm() / logits["cpu"].norm())
+    assert rel <= 1e-4, rel
+    # the encoder (2 layers), self- and cross-attention (2 each) at prefill;
+    # the self and the cross cache at each decode step
+    assert fa.flash_attention.launches - counts[fa.flash_attention] == 6
+    assert fd.flash_decode.launches - counts[fd.flash_decode] == 6 * 4
+    assert {k for k, _ in seen} == {"flash_attention", "flash_decode"}
+    for kernel, stats in seen:
+        assert stats["finite"] and stats["rel_rms"] <= 1e-5, (kernel, stats)
+
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)) for n in (5, 19, 33, 40)]
+    served = {}
+    for device, params in (("card", card), ("cpu", cpu)):
+        srv = BatchedServer(cfg, params, batch_size=2, max_len=64)
+        served[device] = [r.output for r in srv.run(
+            [Request(i, p, 6) for i, p in enumerate(prompts)])]
+    assert served["card"] == served["cpu"]

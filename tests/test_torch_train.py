@@ -41,7 +41,7 @@ LOSS_REL = 1e-5
 GRAD_REL = 1e-4
 STEP_REL = 1e-4
 GRAD_ARCHS = ["qwen2-7b", "mamba2-780m", "jamba-v0.1-52b", "gemma2-27b",
-              "moonshot-v1-16b-a3b", "phi-3-vision-4.2b"]
+              "moonshot-v1-16b-a3b", "phi-3-vision-4.2b", "seamless-m4t-medium"]
 
 
 def _pair(name, seed=0, **changes):
@@ -95,17 +95,21 @@ def test_loss_and_every_gradient_match_jax(name):
     batch = _batch(cfg)
     if cfg.n_prefix_embeds:
         assert "prefix_embeds" in batch and (batch["labels"][:, :cfg.n_prefix_embeds] < 0).all()
+    if cfg.enc_dec:                     # the frames the encoder reads
+        assert batch["enc_frames"].shape == (2, 16, cfg.d_model)
     lt, gt = _torch_grads(tp, cfg, batch)
     lj, gj = _jax_grads(jp, jcfg, batch)
     assert abs(lt - lj) <= LOSS_REL * abs(lj), (lt, lj)
     _assert_grads_close(gt, gj, _leaf_names(tp), name)
 
 
-@pytest.mark.parametrize("name", ["qwen2-7b", "jamba-v0.1-52b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("name", ["qwen2-7b", "jamba-v0.1-52b", "moonshot-v1-16b-a3b",
+                                  "seamless-m4t-medium"])
 def test_remat_gives_the_same_gradients(name):
-    """cfg.remat on (per period; per block inside jamba's 8-block period)
-    against off: the same loss and gradients, and both against JAX's
-    remat'd gradients."""
+    """cfg.remat on (per period; per block inside jamba's 8-block period;
+    seamless's decoder periods close over the encoder's output) against
+    off: the same loss and gradients, and both against JAX's remat'd
+    gradients."""
     jcfg, cfg, jp, tp = _pair(name, remat=True)
     batch = _batch(cfg)
     l_on, g_on = _torch_grads(tp, cfg, batch)
