@@ -178,6 +178,21 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  within TRAIN_RESTART_REL, one restart); the three kernel
                  guards raising on inputs that require grad; no kernel
                  launch in the phase
+  mesh           the device mesh on the card: a one-rank NCCL process group
+                 (a file:// store under build/) and make_host_mesh() as
+                 (data=1, model=1); (a) qwen2-7b at full width (the train
+                 phase's depth, batch, sequence, microbatches and lr),
+                 MESH_TRAIN_STEPS steps through the mesh step (DTensor
+                 parameters and moments, gradients reduced to their
+                 placements) and as many unsharded from the same seed: the
+                 first-step losses within MESH_LOSS_REL, each step's loss,
+                 grad norm, seconds and the peak memory of both; (b)
+                 jamba-v0.1-52b at full width (serve's depth), one group of
+                 SERVE_BATCH requests of SERVE_PROMPT lengths, MESH_SERVE_NEW
+                 greedy tokens through BatchedServer on the mesh and off it,
+                 every launch held against its plain version: equal tokens,
+                 the serve phase's launches per group (every kernel on its
+                 rank's local shard), prefill and step ms of both paths
   times          flash_attention's wgmma body against its mma_sync body, in
                  turns (mma_sync, wgmma, wgmma, mma_sync), for the seed, a
                  fixed pipelined genome and the search's best at every
@@ -240,7 +255,7 @@ FRONTIER_STEPS = 6          # archipelago steps per job, migration every 2
 FRONTIER_SEED = 5           # both jobs' seed, and the direct run's
 FRONTIER_SUITE, FRONTIER_ISLANDS = "mha+gqa+decode", 4    # each job's archipelago
 PHASES = ("device", "build", "kernel", "decode_kernel", "ssd_kernel", "serve",
-          "serve_encdec", "train", "rank", "noise", "evolve", "backends", "islands",
+          "serve_encdec", "train", "mesh", "rank", "noise", "evolve", "backends", "islands",
           "cascade", "frontier", "gqa", "decode_suite", "times", "kernels")
 SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd.cu")
 TOL_SSD_F32 = 2e-5          # SSD kernel vs plain, fp32: relative to max |y|
@@ -267,6 +282,9 @@ TRAIN_PARITY_REL = 1e-4     # per-step loss, card vs CPU (fp32; atomics on the c
 TRAIN_RESTART_STEPS, TRAIN_RESTART_FAULT = 6, 3     # steps, and the step that faults
 TRAIN_RESTART_REL = 1e-5    # final loss, restarted run vs uninterrupted
 TRAIN_PEAK_SHARE = 0.9      # peak memory, share of the card's
+MESH_TRAIN_STEPS = 2        # full-width train steps on each path of the mesh phase
+MESH_LOSS_REL = 1e-3        # first-step loss, mesh vs unsharded (relative)
+MESH_SERVE_NEW = 8          # greedy tokens of the mesh phase's one group
 
 # bf16 kernel vs plain at full width.  Large logical blocks keep the plain
 # version's walk short at every shape; both kernel paths and both div modes
@@ -1773,6 +1791,177 @@ def phase_train(state):
     state["train"] = {"launches": launches, **parts}
     if faults:
         raise AssertionError("train: " + "; ".join(faults))
+
+
+def _mesh_train(faults: list, mesh) -> dict:
+    """TRAIN_ARCH at full width, MESH_TRAIN_STEPS steps through the mesh and
+    off it, from the same seed and batches (the mesh state is freed first)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed import context as ctx
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    rows, peak = {}, {}
+    for path in ("mesh", "unsharded"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ctx.set_mesh(mesh if path == "mesh" else None)
+        try:
+            rows[path] = _full_width_steps(
+                cfg, torch.bfloat16, MESH_TRAIN_STEPS,
+                after=lambda run, path=path: peak.__setitem__(
+                    path, torch.cuda.max_memory_allocated() / 2 ** 30))
+        finally:
+            ctx.set_mesh(None)
+        for i, r in enumerate(rows[path]):
+            emit({"phase": "mesh", "part": "train", "path": path, "step": i, **r})
+    first = [rows[p][0]["loss"] for p in ("mesh", "unsharded")]
+    rel = abs(first[0] - first[1]) / abs(first[1])
+    steady = {p: sorted(r["s"] for r in rows[p][1:]) or [rows[p][0]["s"]] for p in rows}
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "steps": MESH_TRAIN_STEPS,
+           "losses": {p: [r["loss"] for r in rows[p]] for p in rows},
+           "grad_norms": {p: [r["grad_norm"] for r in rows[p]] for p in rows},
+           "loss_diff": [a["loss"] - b["loss"] for a, b in zip(rows["mesh"], rows["unsharded"])],
+           "grad_norm_diff": [a["grad_norm"] - b["grad_norm"]
+                              for a, b in zip(rows["mesh"], rows["unsharded"])],
+           "first_step_loss_rel": rel, "tol": MESH_LOSS_REL,
+           "s_per_step": {p: v[len(v) // 2] for p, v in steady.items()},
+           "first_step_s": {p: rows[p][0]["s"] for p in rows},
+           "peak_gib": peak}
+    emit({"phase": "mesh", "summary": "train", **out})
+    if not rel <= MESH_LOSS_REL:
+        faults.append(f"train: first-step losses {first} differ by {rel:.3g} relative")
+    return out
+
+
+def _mesh_serve(faults: list, mesh) -> dict:
+    """SERVE_ARCH at full width, one group through BatchedServer on the mesh
+    and off it, every launch held against its plain version."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed import context as ctx
+    from repro_torch.distributed.sharding import distribute_params
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd as sm
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=SERVE_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                         dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(*SERVE_PROMPT, size=SERVE_BATCH)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)) for n in lens]
+    kernels = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
+               "ssd_chunked": sm.ssd_chunked}
+    n_attn = sum(b.kind == "attn" for b in cfg.pattern) * cfg.n_periods
+    n_mamba = sum(b.kind == "mamba" for b in cfg.pattern) * cfg.n_periods
+    expected = {"flash_attention": n_attn, "ssd_chunked": n_mamba,
+                "flash_decode": n_attn * (MESH_SERVE_NEW - 1)}
+    runs = {}
+    for path in ("mesh", "unsharded"):
+        ctx.set_mesh(mesh if path == "mesh" else None)
+        try:
+            placed = distribute_params(params, mesh, cfg) if path == "mesh" else params
+            server = BatchedServer(cfg, placed, batch_size=SERVE_BATCH, max_len=SERVE_MAX_LEN,
+                                   compute_dtype=torch.bfloat16)
+            group = [Request(i, p, MESH_SERVE_NEW) for i, p in enumerate(prompts)]
+            checks: dict = {}
+            torch.cuda.synchronize()
+            reset_counts(*kernels.values())
+            with ops.checking(lambda name, st: checks.setdefault(name, []).append(st)):
+                server.run_group(group)
+            torch.cuda.synchronize()
+        finally:
+            ctx.set_mesh(None)
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        t = server.timings[0]
+        dec = sorted(t["decode_ms"])
+        runs[path] = {"tokens": [r.output for r in group], "launches": launches,
+                      "by_body": dict(fa.flash_attention.launches_by_body),
+                      "ssd_by_body": dict(sm.ssd_chunked.launches_by_body),
+                      "prefill_ms": t["prefill_ms"], "decode_ms_median": dec[len(dec) // 2],
+                      "decode_steps": len(dec), "prompt_len": t["prompt_len"]}
+        runs[path]["err"] = _checked(checks, faults, phase="mesh", part="serve", path=path)
+        emit({"phase": "mesh", "part": "serve", "path": path,
+              **{k: v for k, v in runs[path].items() if k != "tokens"},
+              "tokens_first_request": runs[path]["tokens"][0]})
+        if launches != expected:
+            faults.append(f"serve {path}: launches {launches}, the path implies {expected}")
+        if runs[path]["by_body"]["wgmma"] != launches["flash_attention"] or \
+                runs[path]["ssd_by_body"]["chunked"] != launches["ssd_chunked"]:
+            faults.append(f"serve {path}: bodies {runs[path]['by_body']} "
+                          f"{runs[path]['ssd_by_body']}")
+    equal = runs["mesh"]["tokens"] == runs["unsharded"]["tokens"]
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": SERVE_BATCH,
+           "prompt_lens": [int(n) for n in lens], "new_tokens": MESH_SERVE_NEW,
+           "tokens_equal": equal, "launches_expected": expected,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           **{f"{k}_{p}": runs[p][k] for p in runs
+              for k in ("launches", "prefill_ms", "decode_ms_median", "err")}}
+    emit({"phase": "mesh", "summary": "serve", **out})
+    if not equal:
+        faults.append(f"serve: tokens differ: mesh {runs['mesh']['tokens']} unsharded "
+                      f"{runs['unsharded']['tokens']}")
+    del params, placed, server
+    torch.cuda.empty_cache()
+    return {**out, "launches": runs["mesh"]["launches"]}
+
+
+def phase_mesh(state):
+    """The train step and the served path under a one-rank NCCL mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+
+    store = os.path.join(HERE, "build", f"mesh-store-{os.getpid()}")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    backend = init_process_group(store, 0, 1)
+    faults: list = []
+    try:
+        mesh = make_host_mesh()
+        emit({"phase": "mesh", "backend": backend, "world_size": dist.get_world_size(),
+              "mesh": {n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)},
+              "device_type": mesh.device_type, "nvidia_smi": nvidia_smi()})
+        if backend != "nccl" or mesh.device_type != "cuda":
+            faults.append(f"the card mesh is {backend} on {mesh.device_type}")
+        parts = {}
+        for name, part in (("train", _mesh_train), ("serve", _mesh_serve)):
+            t0 = time.perf_counter()
+            parts[name] = part(faults, mesh)
+            parts[name + "_s"] = time.perf_counter() - t0
+        train_s = state.get("train", {}).get("full_width", {}).get("s_per_step_median")
+        emit({"phase": "mesh", "summary": True,
+              "train_s_per_step": parts["train"]["s_per_step"],
+              "train_phase_s_per_step": train_s,
+              "serve_prefill_ms": {p: parts["serve"][f"prefill_ms_{p}"]
+                                   for p in ("mesh", "unsharded")},
+              "serve_step_ms": {p: parts["serve"][f"decode_ms_median_{p}"]
+                                for p in ("mesh", "unsharded")},
+              "launches": parts["serve"]["launches"],
+              "seconds": {k: v for k, v in parts.items() if k.endswith("_s")}})
+        state["mesh"] = {"launches": parts["serve"]["launches"], **parts}
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+        torch.cuda.empty_cache()
+    if faults:
+        raise AssertionError("mesh: " + "; ".join(faults))
 
 
 def _card_vs_cpu_tokens(cfg, check: bool):
@@ -3442,6 +3631,7 @@ def phase_kernels(state):
     serve_launches = serve.get("launches", {})
     serve_err = state.get("serve_err", {})
     train_launches = state.get("train", {}).get("launches", {})
+    mesh_launches = state.get("mesh", {}).get("launches", {})
     encdec = state.get("serve_encdec", {})
     encdec_launches = encdec.get("launches", {})
     encdec_times = state.get("encdec_times", {})
@@ -3456,7 +3646,7 @@ def phase_kernels(state):
         + state.get("backends_launches", 0) + state.get("islands_launches", 0)
         + state.get("islands_worker_launches", 0) + state.get("cascade_launches", 0)
         + state.get("frontier_worker_launches", 0)
-        + encdec_launches.get("flash_attention", 0),
+        + encdec_launches.get("flash_attention", 0) + mesh_launches.get("flash_attention", 0),
         "launches_by_path": {"evolve": state.get("launches", 0),
                              "backends_workers": state.get("backends_launches", 0),
                              "islands": state.get("islands_launches", 0),
@@ -3469,7 +3659,8 @@ def phase_kernels(state):
                              "decode_suite": state.get("decode_suite_launches", 0),
                              "serve": serve_launches.get("flash_attention", 0),
                              "serve_encdec": encdec_launches.get("flash_attention", 0),
-                             "train": train_launches.get("flash_attention", 0)},
+                             "train": train_launches.get("flash_attention", 0),
+                             "mesh": mesh_launches.get("flash_attention", 0)},
         "launches_by_body": {"evolve": state.get("evolve_by_body"),
                              "backends_workers": state.get("backends_by_body"),
                              "islands": state.get("islands_by_body"),
@@ -3502,10 +3693,12 @@ def phase_kernels(state):
         entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
-            "launches": serve_launches.get(name, 0) + encdec_launches.get(name, 0),
+            "launches": serve_launches.get(name, 0) + encdec_launches.get(name, 0)
+            + mesh_launches.get(name, 0),
             "launches_by_path": {"serve": serve_launches.get(name, 0),
                                  "serve_encdec": encdec_launches.get(name, 0),
-                                 "train": train_launches.get(name, 0)},
+                                 "train": train_launches.get(name, 0),
+                                 "mesh": mesh_launches.get(name, 0)},
             "max_abs_err": err, "max_abs_err_served_bf16": serve_err.get(name),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
@@ -3554,7 +3747,8 @@ def main() -> int:
     runners = {"build": lambda st: phase_build(), "kernel": phase_kernel,
                "decode_kernel": phase_decode_kernel, "ssd_kernel": phase_ssd_kernel,
                "serve": phase_serve, "serve_encdec": phase_serve_encdec,
-               "train": phase_train, "noise": phase_noise, "rank": phase_rank,
+               "train": phase_train, "mesh": phase_mesh, "noise": phase_noise,
+               "rank": phase_rank,
                "evolve": phase_evolve, "backends": phase_backends,
                "islands": phase_islands, "cascade": phase_cascade,
                "frontier": phase_frontier,

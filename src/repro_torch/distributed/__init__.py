@@ -1,11 +1,15 @@
-"""What the port has of ``repro.distributed``: the gradient compression the
-train step applies (``collectives``) and checkpoint-restart
-(``fault_tolerance``).  Meshes, sharding and communication hooks wait for
-the multi-device item (ROADMAP Queue 1 item 12)."""
+"""The port's ``repro.distributed``: the active device mesh (``context``),
+the name-based sharding rules as DTensor placements (``sharding``), the
+models' collectives on local shards (``spmd``), the gradient compression
+and its reduction over the "pod" axis (``collectives``), and
+checkpoint-restart (``fault_tolerance``)."""
 from repro_torch.distributed.collectives import (apply_grad_compression,
                                                  compress_bf16, compress_init,
                                                  compress_int8_ef, decompress_bf16,
-                                                 decompress_int8)
+                                                 decompress_int8, reduce_gradients)
+from repro_torch.distributed.context import get_mesh, set_mesh
+from repro_torch.distributed.sharding import distribute_params, param_shardings, placements
 
-__all__ = ["apply_grad_compression", "compress_bf16", "compress_init",
-           "compress_int8_ef", "decompress_bf16", "decompress_int8"]
+__all__ = ["apply_grad_compression", "compress_bf16", "compress_init", "compress_int8_ef",
+           "decompress_bf16", "decompress_int8", "distribute_params", "get_mesh",
+           "param_shardings", "placements", "reduce_gradients", "set_mesh"]

@@ -1,0 +1,64 @@
+"""The active device mesh: the counterpart of ``repro.distributed.context``.
+
+The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` whose dimensions
+are named from ``("pod", "data", "model")``, in that order.  With no mesh
+set (one device, the CPU tests) every function here answers as for a mesh
+of size 1.  The JAX package's ``shard`` constraints have no counterpart:
+the models run on each rank's local shards (``spmd``), where the batch and
+activation layouts hold by construction.
+"""
+from __future__ import annotations
+
+import torch
+from torch.distributed.tensor import DTensor
+
+_MESH = None
+
+
+def set_mesh(mesh) -> None:
+    """Make ``mesh`` (a ``DeviceMesh``, or None) the active mesh."""
+    global _MESH
+    _MESH = mesh
+
+
+def get_mesh():
+    return _MESH
+
+
+def axis_names() -> tuple:
+    return tuple(_MESH.mesh_dim_names or ()) if _MESH is not None else ()
+
+
+def batch_axes() -> tuple:
+    """Mesh axes that jointly shard the global batch (pod DP x FSDP data)."""
+    names = axis_names()
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def axis_size(name: str) -> int:
+    if name not in axis_names():
+        return 1
+    return _MESH.size(axis_names().index(name))
+
+
+def div_axis(n: int, axis: str = "model"):
+    """Return ``axis`` if the active mesh can evenly shard a dim of size n."""
+    if axis not in axis_names():
+        return None
+    return axis if n % axis_size(axis) == 0 else None
+
+
+def batch_spec(n: int):
+    """The batch axes if they evenly shard a batch of ``n`` rows, else None
+    (the batch stays replicated, as ``batch_shardings`` leaves it)."""
+    ba = batch_axes()
+    dp = 1
+    for a in ba:
+        dp *= axis_size(a)
+    return ba if ba and n % dp == 0 else None
+
+
+def local(x) -> torch.Tensor:
+    """This rank's shard of a DTensor as it is placed; a plain tensor as it
+    is."""
+    return x.to_local() if isinstance(x, DTensor) else x

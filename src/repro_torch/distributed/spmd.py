@@ -1,0 +1,273 @@
+"""Collectives on each rank's local shards, with the backward each needs:
+how the models run under a mesh.  With no mesh every function here is the
+identity (``use`` returns the parameter, ``local_rows`` the batch), so a
+model block has one body for one device and for a mesh.
+
+Under a mesh (``context.set_mesh``) the activations are plain tensors, each
+rank's batch shard (the rows of its data-parallel index, pod-major; the
+whole batch where the data-parallel size does not divide it), whole over
+the "model" axis.  Parameters are DTensors placed by ``sharding``; a block
+takes each as a local tensor in the layout it computes with (``use``),
+gathering the dims the rules shard and the block does not.  Where a block
+splits its work over "model" (heads, experts, the expert or MLP hidden dim,
+the vocab), its input enters through ``enter_model`` (identity; the
+backward sums the ranks' partial gradients) and its output leaves through
+``sum_model`` (the sum of the ranks' parts; the backward is the identity):
+Megatron's f and g.  The collectives are ``torch.distributed``'s on the
+mesh's process groups; nothing here runs DTensor's sharding propagation.
+
+Gradients: a gathered weight's gradient is summed over the ranks that use
+different data (the data-parallel ranks, and model ranks whose parts are
+partial) and sliced back to this rank's shard, so a parameter's ``.grad``
+is placed as the parameter is, but for "pod" (``grad_placements``).  The
+"pod" axis is pure data parallelism: the backward leaves each pod its own
+gradient, labelled ``Partial`` over "pod", and
+``collectives.reduce_gradients`` sums them over "pod" in the compressed
+dtype; a ``full_tensor()`` before that sums them in fp32.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Shard
+
+from repro_torch.distributed import context as ctx
+
+
+class Local(NamedTuple):
+    """A parameter's local shard and the DTensor placements it came with
+    (one per mesh dim): a period's slice of a stacked parameter."""
+    t: torch.Tensor
+    placements: tuple
+
+
+def _group(axis: str):
+    return ctx.get_mesh().get_group(axis)
+
+
+def rank(axis: str) -> int:
+    """This rank's index along ``axis`` (0 without it)."""
+    if axis not in ctx.axis_names():
+        return 0
+    return ctx.get_mesh().get_local_rank(axis)
+
+
+class _SumFwd(torch.autograd.Function):
+    """The sum over a group; the backward passes the gradient through."""
+
+    @staticmethod
+    def forward(fctx, t, group):
+        t = t.contiguous().clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(fctx, grad):
+        return grad, None
+
+
+class _SumBwd(torch.autograd.Function):
+    """The identity; the backward sums the gradient over a group."""
+
+    @staticmethod
+    def forward(fctx, t, group):
+        fctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(fctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=fctx.group)
+        return grad, None
+
+
+class _Gather(torch.autograd.Function):
+    """Every rank's ``t`` of a group concatenated along ``dim`` in the
+    group's order.  The backward gives each rank its slice of the gradient,
+    summed over the group first when the ranks' gradients are partial."""
+
+    @staticmethod
+    def forward(fctx, t, dim, group, partial):
+        n = dist.get_world_size(group)
+        fctx.dim, fctx.group, fctx.partial = dim, group, partial
+        fctx.n, fctx.rank = n, dist.get_rank(group)
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(fctx, grad):
+        if fctx.partial:
+            grad = grad.contiguous().clone()
+            dist.all_reduce(grad, group=fctx.group)
+        return grad.chunk(fctx.n, fctx.dim)[fctx.rank].contiguous(), None, None, None
+
+
+def sum_model(t: torch.Tensor) -> torch.Tensor:
+    """The sum of the model ranks' parts (g); the identity without a split."""
+    if ctx.axis_size("model") == 1:
+        return t
+    return _SumFwd.apply(t, _group("model"))
+
+
+def enter_model(t: torch.Tensor) -> torch.Tensor:
+    """``t`` into work split over "model" (f): the backward sums the model
+    ranks' partial gradients."""
+    if ctx.axis_size("model") == 1:
+        return t
+    return _SumBwd.apply(t, _group("model"))
+
+
+def gather(t: torch.Tensor, dim: int, axis: str, partial: bool) -> torch.Tensor:
+    """All of ``axis``'s shards of ``t`` along ``dim`` (see ``_Gather``)."""
+    if ctx.axis_size(axis) == 1:
+        return t
+    return _Gather.apply(t, dim, _group(axis), partial)
+
+
+def dp_size() -> int:
+    n = 1
+    for a in ctx.batch_axes():
+        n *= ctx.axis_size(a)
+    return n
+
+
+def dp_rank() -> int:
+    """This rank's index among the data-parallel shards, pod-major."""
+    r = 0
+    for a in ctx.batch_axes():
+        r = r * ctx.axis_size(a) + rank(a)
+    return r
+
+
+def batch_sharded(n: int) -> bool:
+    """Whether a batch of ``n`` rows is split over the data-parallel ranks."""
+    return ctx.batch_spec(n) is not None
+
+
+_ROWS_SHARDED = False
+
+
+@contextlib.contextmanager
+def rows(sharded: bool):
+    """The scope in which the blocks run: whether this rank's rows are its
+    data-parallel shard (else every rank holds the whole batch)."""
+    global _ROWS_SHARDED
+    prev, _ROWS_SHARDED = _ROWS_SHARDED, sharded
+    try:
+        yield
+    finally:
+        _ROWS_SHARDED = prev
+
+
+def rows_sharded() -> bool:
+    return _ROWS_SHARDED
+
+
+def local_rows(t):
+    """This rank's rows of a global batch tensor (the same on every rank):
+    its data-parallel shard, or all rows where the shards do not divide
+    them.  None stays None."""
+    if t is None or not batch_sharded(t.shape[0]):
+        return t
+    return t.chunk(dp_size(), 0)[dp_rank()]
+
+
+def gather_rows(t: torch.Tensor, partial: bool) -> torch.Tensor:
+    """Every data-parallel rank's rows of ``t`` (pod-major), whose
+    gradient is summed over those ranks first when ``partial``."""
+    for a in reversed(ctx.batch_axes()):          # minor first: data, then pod
+        t = gather(t, 0, a, partial)
+    return t
+
+
+def batch_axes_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum over the data-parallel ranks, with no gradient (counts)."""
+    t = t.detach().clone()
+    for a in ctx.batch_axes():
+        if ctx.axis_size(a) > 1:
+            dist.all_reduce(t, group=_group(a))
+    return t
+
+
+def grad_placements(leaf: DTensor) -> tuple:
+    """The placements of a parameter's gradient from the backward: the
+    parameter's, but ``Partial`` over "pod" (each pod's own gradient)."""
+    return tuple(Partial() if n == "pod" else p
+                 for n, p in zip(leaf.device_mesh.mesh_dim_names, leaf.placements))
+
+
+def _local(leaf: DTensor) -> torch.Tensor:
+    return leaf.to_local(grad_placements=grad_placements(leaf))
+
+
+def zero_grad(leaf):
+    """The zero gradient of a parameter the loss did not reach, placed as
+    the backward places a gradient."""
+    if not isinstance(leaf, DTensor):
+        return torch.zeros_like(leaf)
+    return DTensor.from_local(torch.zeros_like(leaf.to_local()), leaf.device_mesh,
+                              grad_placements(leaf), run_check=False)
+
+
+def unstack(leaf) -> list:
+    """A stacked parameter (DTensor) as one ``Local`` per period: its local
+    shard unbound along the leading dim (never sharded), each slice with
+    the placements shifted down one dim."""
+    pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p for p in leaf.placements)
+    return [Local(t, pl) for t in torch.unbind(_local(leaf), 0)]
+
+
+def _sharded_dims(placements: tuple) -> dict:
+    """{mesh axis: tensor dim} of the sharded placements."""
+    names = ctx.axis_names()
+    return {names[i]: p.dim for i, p in enumerate(placements) if isinstance(p, Shard)}
+
+
+def sum_grad(t: torch.Tensor, axis: str) -> torch.Tensor:
+    """``t``, whose gradient is summed over ``axis`` in the backward."""
+    if ctx.axis_size(axis) == 1:
+        return t
+    return _SumBwd.apply(t, _group(axis))
+
+
+def use(leaf, *spec, model_partial: bool = False, rows_partial: bool = True):
+    """A parameter (``Local`` or DTensor) as the local tensor a block
+    computes with: each dim its placements shard over an axis the block's
+    ``spec`` does not name is gathered.  The gradient is summed over "data"
+    when ``rows_partial`` (each data-parallel rank holds other tokens) and
+    over "model" when ``model_partial`` (the block's model ranks each use
+    part of the weight), then sliced back to this rank's shard; a weight
+    whole over such an axis gets the sum alone.  A dim the spec shards and
+    the placements do not is sliced to this rank's part (its gradient
+    summed over the axis).  With no mesh, the parameter as it is."""
+    if ctx.get_mesh() is None:
+        return leaf
+    if isinstance(leaf, DTensor):
+        leaf = Local(_local(leaf), tuple(leaf.placements))
+    t = leaf.t
+    spec = tuple(spec) + (None,) * (t.ndim - len(spec))
+    sharded = _sharded_dims(leaf.placements)
+    for axis, partial in (("data", rows_partial), ("model", model_partial)):
+        if axis not in ctx.axis_names():
+            continue
+        if axis in sharded and spec[sharded[axis]] != axis:
+            t = gather(t, sharded[axis], axis, partial)
+        elif axis not in sharded and (partial or axis in spec):
+            t = sum_grad(t, axis)
+        if axis in spec and axis not in sharded:         # this rank's slice of the whole
+            t = t.chunk(ctx.axis_size(axis), spec.index(axis))[rank(axis)]
+    return t
+
+
+def wrap(t: torch.Tensor, *spec):
+    """A local result of every rank as one DTensor placed by ``spec`` (no
+    communication); for what an entry point returns.  With no mesh, ``t``."""
+    if ctx.get_mesh() is None:
+        return t
+    from repro_torch.distributed.sharding import placements
+    return DTensor.from_local(t, ctx.get_mesh(), placements(spec, ctx.get_mesh()),
+                              run_check=False)

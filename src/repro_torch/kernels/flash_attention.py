@@ -55,7 +55,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.guard import refuse_autograd
+from repro_torch.kernels.guard import refuse_autograd, refuse_dtensor
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128              # the kernel's widest head_dim
@@ -456,6 +456,7 @@ def flash_attention(
     genome = dict(block_q=block_q, block_k=block_k, rescale_mode=rescale_mode,
                   mask_mode=mask_mode, div_mode=div_mode, kv_in_grid=kv_in_grid,
                   gqa_pack=gqa_pack, acc_dtype=acc_dtype)
+    refuse_dtensor("flash_attention", q, k, v)
     _check_inputs(q, k, v, genome)
     if impl not in (None, "kernel"):
         raise ValueError(f"impl={impl!r}; expected None or 'kernel'")

@@ -50,7 +50,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels.flash_attention import NEG_INF, _apply_softcap
-from repro_torch.kernels.guard import refuse_autograd
+from repro_torch.kernels.guard import refuse_autograd, refuse_dtensor
 
 HEAD_DIMS = (16, 64, 128)  # head dims the kernel is compiled for
 MAX_REP = 8                # query heads per KV head the kernel takes
@@ -283,6 +283,7 @@ def flash_decode(
     the sm_90a kernels with ``splits`` splits (None: :func:`kernel_splits`);
     CPU tensors take :func:`flash_decode_plain` (None: one split).
     ``impl="kernel"`` demands the kernels and raises on CPU tensors."""
+    refuse_dtensor("flash_decode", q, k_cache, v_cache, valid_len)
     _check_inputs(q, k_cache, v_cache, valid_len)
     if impl not in (None, "kernel"):
         raise ValueError(f"impl={impl!r}; expected None or 'kernel'")

@@ -43,7 +43,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels.flash_attention import NEG_INF
-from repro_torch.kernels.guard import refuse_autograd
+from repro_torch.kernels.guard import refuse_autograd, refuse_dtensor
 
 SHAPES = ((64, 16), (64, 128), (16, 16))   # (head_dim P, d_state N) compiled
 MAX_CHUNK = 256
@@ -331,6 +331,7 @@ def ssd_chunked(
     "serial" forces the serial body on bf16, for A/B timing); CPU tensors
     take :func:`ssd_chunked_plain`.  ``impl="kernel"`` demands a kernel and
     raises on CPU tensors.  Any L: the last chunk may be short."""
+    refuse_dtensor("ssd_chunked", x, dt, A, Bm, Cm)
     _check_inputs(x, dt, A, Bm, Cm, chunk)
     _check_groups(Bm)
     if impl not in (None, "kernel"):

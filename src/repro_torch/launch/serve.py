@@ -1,8 +1,13 @@
 """Serving: prefill and batched decode-step factories, and a static-batch
-request server.  The counterpart of ``repro.launch.serve`` on one device.
+request server.  The counterpart of ``repro.launch.serve``.
 
 PyTorch runs eagerly, so the factories return plain closures where the JAX
 package jits; the decode cache is updated in place instead of donated.
+
+Under a mesh (``distributed.context.set_mesh``, parameters placed by
+``distributed.sharding.distribute_params``) the server runs the same loop:
+every rank passes the whole group's tokens, and the logits, a DTensor, are
+gathered before the greedy choice.
 """
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import decode_step, prefill
@@ -35,6 +41,11 @@ def make_prefill(cfg: ArchConfig, max_len: int, compute_dtype=torch.bfloat16,
                        impl=impl, genome=genome, **extras)
 
     return prefill_step
+
+
+def _whole(t):
+    """The full tensor of a DTensor (every rank gets it); a tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 @dataclass
@@ -104,7 +115,7 @@ class BatchedServer:
             self.params, self.cfg, torch.from_numpy(toks).to(self._device),
             self.max_len, compute_dtype=self._compute_dtype,
             cache_dtype=self._compute_dtype, impl=self._impl, **extras)
-        token = torch.argmax(logits, -1)
+        token = torch.argmax(_whole(logits), -1)
         marks.append(self._mark())
         steps = max(r.max_new_tokens for r in group)
         for _ in range(steps):
@@ -116,7 +127,7 @@ class BatchedServer:
             if all(r.done for r in group):
                 break
             logits, cache = self._serve(self.params, cache, token)
-            token = torch.argmax(logits, -1)
+            token = torch.argmax(_whole(logits), -1)
             marks.append(self._mark())
         if isinstance(marks[-1], torch.cuda.Event):
             marks[-1].synchronize()

@@ -1,5 +1,4 @@
-"""Training step factory: the counterpart of ``repro.launch.train`` on one
-device.
+"""Training step factory: the counterpart of ``repro.launch.train``.
 
 train_step = microbatched gradient accumulation -> optional gradient
 compression (bf16 / int8 + error feedback) -> global-norm clip -> AdamW.
@@ -12,6 +11,16 @@ compute runs in ``compute_dtype``, cast at each use as in the forward path.
 ``impl=None`` means ``"blocked"`` on every device: the hand-written kernels
 have no backward (they refuse inputs that require grad), and the JAX
 package's training path takes its blocked references too.
+
+Under a mesh (``distributed.context.set_mesh``) the parameters and AdamW
+moments are DTensors placed by ``sharding.param_shardings``
+(``init_train_state`` places them when a mesh is active).  The batch is the global batch, the same on
+every rank; microbatch i is its rows i*mb..(i+1)*mb-1, split over the
+data-parallel ranks (which must divide it), as the JAX package splits it.
+The backward leaves each parameter's gradient placed as the parameter,
+each pod's own (``Partial`` over "pod"); ``collectives.reduce_gradients``
+sums them over "pod" in the compressed dtype before clipping and AdamW
+(with no mesh it is ``apply_grad_compression``).
 """
 from __future__ import annotations
 
@@ -23,6 +32,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives
+from repro_torch.distributed import context as ctx
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import distribute_params
 from repro_torch.models import init_params, lm_loss
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
@@ -30,7 +42,8 @@ from repro_torch.tree import tree_leaves, tree_map
 
 def default_microbatches(cfg: ArchConfig, global_batch: int,
                          seq_len: Optional[int] = None,
-                         dp_shards: int = 1, model_shards: int = 1,
+                         dp_shards: Optional[int] = None,
+                         model_shards: Optional[int] = None,
                          act_budget_bytes: float = 6e9) -> int:
     """Pick the microbatch count so the per-device live temp fits memory:
     the JAX package's arithmetic, unchanged.
@@ -42,7 +55,17 @@ def default_microbatches(cfg: ArchConfig, global_batch: int,
     6 GB, is the JAX package's budget for a TPU v5e's 16 GB; it makes no
     claim for the card, whose callers pass a budget or an explicit count.
     Without ``seq_len`` falls back to the legacy logits-only bound.
+    ``dp_shards`` and ``model_shards`` None are read from the active mesh,
+    as the JAX package's dry run reads them (1 without a mesh; the model
+    axis counts only where it divides the vocab).
     """
+    if dp_shards is None:
+        dp_shards = 1
+        for a in ctx.batch_axes():
+            dp_shards *= ctx.axis_size(a)
+    if model_shards is None:
+        mdl = ctx.axis_size("model")
+        model_shards = mdl if cfg.vocab_size % mdl == 0 else 1
     if seq_len is None:
         for nm in (1, 2, 4, 8, 16, 32):
             if global_batch % nm == 0 and \
@@ -99,14 +122,14 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
                            impl=impl, genome=genome)
             loss.backward()
             lsum = loss.detach() if lsum is None else lsum + loss.detach()
-        grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
+        grads = tree_map(lambda p: spmd.zero_grad(p) if p.grad is None else p.grad,
                          params)
         for p in leaves:
             p.grad = None
         if nm > 1:
             for g in tree_leaves(grads):
-                g.div_(nm)
-        grads, residual = collectives.apply_grad_compression(grads, compression, residual)
+                ctx.local(g).div_(nm)       # every rank's part of a partial sum too
+        grads, residual = collectives.reduce_gradients(grads, params, compression, residual)
         params, opt_state, metrics = adamw_update(grads, opt_state, params, opt_cfg)
         metrics["loss"] = lsum / nm
         return params, opt_state, residual, metrics
@@ -118,11 +141,14 @@ def init_train_state(cfg: ArchConfig, generator: Optional[torch.Generator] = Non
                      device=None, compression: str = "none"):
     """Random fp32 parameters (``init_params``; ``generator`` None: seed 0 on
     ``device``), zero AdamW moments and, for ``int8_ef``, zero residuals.
-    ``device`` None is the card."""
+    ``device`` None is the card.  Under an active mesh every rank draws the
+    same full weights and keeps its shards."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, generator, device=device, dtype=torch.float32)
+    if ctx.get_mesh() is not None:
+        params = distribute_params(params, ctx.get_mesh(), cfg)
     for p in tree_leaves(params):
         p.requires_grad_(True)
     opt_state = adamw_init(params)

@@ -1,10 +1,8 @@
 """Attention block: projections, kernel dispatch and KV-cache management.
 
-The counterpart of ``repro.models.attention`` on one device (its sharding
-constraints are no-ops there and are dropped; multi-device is ROADMAP Queue 1
-item 12).  Cache layout per block position: (B, Hkv, Lc, Dh) with
-Lc = min(window, max_len): sliding-window layers keep a ring buffer of
-exactly the window.  Keys are rotary-encoded at write time (absolute
+The counterpart of ``repro.models.attention``.  Cache layout per block
+position: (B, Hkv, Lc, Dh) with Lc = min(window, max_len): sliding-window
+layers keep a ring buffer of exactly the window.  Keys are rotary-encoded at write time (absolute
 positions), so ring order is free.
 
 Cross-attention (the encoder-decoder's decoder blocks) has parameters of its
@@ -15,6 +13,17 @@ decode it reads a cross cache of the memory's K/V that is never written.
 Unlike the JAX package, whose arrays are immutable, ``attn_decode`` writes
 the new token's K/V into the cache in place (one slot of the preallocated
 buffer), so a decode step allocates no new cache.
+
+Under a mesh (``distributed.spmd``) each rank runs the block on its rows
+and launches the kernels on its local shard: Q heads over "model" when
+``n_heads`` divides it, KV heads when ``n_kv_heads`` does
+(``_head_layout``), the output projection's parts summed over "model".
+Where Q heads divide and KV heads do not, each rank keeps all KV heads and
+reads the ones its Q heads share.  Where the Q heads do not divide, every
+model rank computes all heads: the JAX package shards the query rows over
+"model" there, which the port's kernels, with no row offset, cannot do
+(ROADMAP Queue 3).  The decode cache is held in the same layout, its length
+and head dim whole.
 """
 from __future__ import annotations
 
@@ -23,6 +32,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig, Block
+from repro_torch.distributed import context as ctx
+from repro_torch.distributed import spmd
 from repro_torch.kernels import ops
 from repro_torch.models.layers import norm_apply, norm_init, normal_init, rope_apply
 
@@ -49,17 +60,55 @@ def attn_init(gen, cfg: ArchConfig, blk: Block, *, device=None,
     return p
 
 
-def _project_qkv(h, p, cfg, compute_dtype):
-    B, S, D = h.shape
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = h @ p["wq"].to(compute_dtype)
-    k = h @ p["wk"].to(compute_dtype)
-    v = h @ p["wv"].to(compute_dtype)
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(compute_dtype)
-        k = k + p["bk"].to(compute_dtype)
-        v = v + p["bv"].to(compute_dtype)
-    return (q.reshape(B, S, Hq, Dh), k.reshape(B, S, Hkv, Dh), v.reshape(B, S, Hkv, Dh))
+def _head_layout(cfg: ArchConfig):
+    """The kernels' layout: (Q-head axis, KV-head axis, the
+    KV heads this model rank reads or None).  Q heads go over "model" when
+    ``n_heads`` divides it, KV heads when ``n_kv_heads`` does.  Where the Q
+    heads divide and the KV heads do not, each model rank holds every KV
+    head and reads the contiguous range its Q heads share; where that range
+    is uneven across the Q heads, or the Q heads do not divide, every model
+    rank computes all heads (the head fallback, ROADMAP Queue 3).  With no
+    mesh: (None, None, None), every head."""
+    q_ax, kv_ax = ctx.div_axis(cfg.n_heads), ctx.div_axis(cfg.n_kv_heads)
+    kv_range = None
+    if q_ax is not None and kv_ax is None:
+        hq = cfg.n_heads // ctx.axis_size("model")      # local Q heads
+        rep = cfg.n_heads // cfg.n_kv_heads
+        if hq % rep == 0 or rep % hq == 0:
+            r = spmd.rank("model")
+            kv_range = ((r * hq) // rep, ((r + 1) * hq - 1) // rep + 1)
+        else:
+            q_ax = None
+    return q_ax, kv_ax, kv_range
+
+
+def _local_heads(cfg: ArchConfig, q_ax, kv_ax) -> tuple:
+    m = ctx.axis_size("model")
+    return (cfg.n_heads // m if q_ax else cfg.n_heads,
+            cfg.n_kv_heads // m if kv_ax else cfg.n_kv_heads)
+
+
+def _projections(p, cfg: ArchConfig, prefix: str, q_ax, kv_ax, compute_dtype):
+    """The block's projection weights as this rank uses them: Q (and the
+    output projection's rows) over its heads, K and V over its KV heads or
+    whole, their gradients partial over "model" where the work splits."""
+    split = q_ax is not None
+    kv_part = split and kv_ax is None           # whole K/V, read in part
+    cd = compute_dtype
+    w = {"wq": spmd.use(p[prefix + "wq"], None, q_ax).to(cd),
+         "wk": spmd.use(p[prefix + "wk"], None, kv_ax, model_partial=kv_part).to(cd),
+         "wv": spmd.use(p[prefix + "wv"], None, kv_ax, model_partial=kv_part).to(cd),
+         "wo": spmd.use(p[prefix + "wo"], q_ax, None).to(cd)}
+    if cfg.qkv_bias and not prefix:
+        w["bq"] = spmd.use(p["bq"], q_ax).to(cd)
+        w["bk"] = spmd.use(p["bk"], kv_ax, model_partial=kv_part).to(cd)
+        w["bv"] = spmd.use(p["bv"], kv_ax, model_partial=kv_part).to(cd)
+    return w
+
+
+def _kv_read(t, kv_range):
+    """The KV heads (dim 1) this model rank reads: all, or its range."""
+    return t if kv_range is None else t[:, kv_range[0]:kv_range[1]]
 
 
 def attn_apply(x, p, cfg: ArchConfig, blk: Block, *, causal: bool, compute_dtype,
@@ -69,36 +118,44 @@ def attn_apply(x, p, cfg: ArchConfig, blk: Block, *, causal: bool, compute_dtype
     """Full-sequence attention (train / prefill).  x: (B, S, D).  With
     ``kv_source`` (the encoder's memory, (B, Se, D)) it is cross-attention:
     the ``c_`` parameters, keys and values from the memory, no rotary
-    encoding, no mask whatever ``causal`` and the block's window say."""
+    encoding, no mask whatever ``causal`` and the block's window say.
+    Under a mesh it runs on this rank's rows: the kernel on its local heads
+    (``_head_layout``), the output projection's parts summed over "model"."""
     cross = kv_source is not None
     prefix = "c_" if cross else ""
-    h = norm_apply(x, p[prefix + "norm"], cfg).to(compute_dtype)
+    B, S, _ = x.shape
+    Dh = cfg.head_dim
+    q_ax, kv_ax, kv_range = _head_layout(cfg)
+    hq, hkv = _local_heads(cfg, q_ax, kv_ax)
+    split = q_ax is not None
+    w = _projections(p, cfg, prefix, q_ax, kv_ax, compute_dtype)
+    h = norm_apply(x, spmd.use(p[prefix + "norm"]), cfg).to(compute_dtype)
+    src = kv_source.to(compute_dtype) if cross else h
+    if split:                     # each model rank's part: the backward sums them
+        h = spmd.enter_model(h)
+        src = spmd.enter_model(src) if cross else h
+    Sk = src.shape[1]
+    q, k, v = h @ w["wq"], src @ w["wk"], src @ w["wv"]
+    if "bq" in w:
+        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+    q, k, v = (q.reshape(B, S, hq, Dh), k.reshape(B, Sk, hkv, Dh), v.reshape(B, Sk, hkv, Dh))
     if not cross:
-        q, k, v = _project_qkv(h, p, cfg, compute_dtype)
-        qpos = torch.arange(x.shape[1], device=x.device)
+        qpos = torch.arange(S, device=x.device)
         q = rope_apply(q, qpos, cfg.rope_theta)
         k = rope_apply(k, qpos, cfg.rope_theta)
-    else:
-        B, S, _ = h.shape
-        Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = (h @ p["c_wq"].to(compute_dtype)).reshape(B, S, Hq, Dh)
-        mem = kv_source.to(compute_dtype)
-        Se = mem.shape[1]
-        k = (mem @ p["c_wk"].to(compute_dtype)).reshape(B, Se, Hkv, Dh)
-        v = (mem @ p["c_wv"].to(compute_dtype)).reshape(B, Se, Hkv, Dh)
-    # (B, H, S, D) layout for the kernels
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    o = ops.attention(qt, kt, vt, causal=causal and not cross,
-                      window=None if cross else blk.window,
-                      softcap=cfg.attn_softcap, impl=impl, genome=genome)
-    B, S = x.shape[0], x.shape[1]
-    o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
-    out = o @ p[prefix + "wo"].to(compute_dtype)
+    o = ops.attention(qt, _kv_read(kt, kv_range), _kv_read(vt, kv_range),
+                      causal=causal and not cross,
+                      window=None if cross else blk.window, softcap=cfg.attn_softcap,
+                      impl=impl, genome=genome)
+    out = o.transpose(1, 2).reshape(B, S, hq * Dh) @ w["wo"]
+    if split:
+        out = spmd.sum_model(out)
     if cfg.post_norms and not cross:
-        out = norm_apply(out.to(x.dtype), p["post_norm"], cfg)
+        out = norm_apply(out.to(x.dtype), spmd.use(p["post_norm"]), cfg)
     result = x + out.to(x.dtype)
     if return_kv:
-        return result, (kt, vt)      # (B, Hkv, S or Se, Dh): pre-cache layout
+        return result, (kt, vt)      # (B, Hkv, S or Se, Dh): the cache layout
     return result
 
 
@@ -143,41 +200,44 @@ def attn_decode(x, p, cache, cfg: ArchConfig, blk: Block, *, pos: int, compute_d
     for the whole batch: decode runs in lockstep).  Writes the token's K/V
     into ``cache`` in place and returns the new x.  With ``cross_cache``
     ({"k", "v"}: (B, Hkv, Se, Dh)), cross-attention follows over its first
-    ``enc_len`` keys; the cross cache is only read."""
-    B, D = x.shape
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = norm_apply(x, p["norm"], cfg).to(compute_dtype)
-    q = h @ p["wq"].to(compute_dtype)
-    k = h @ p["wk"].to(compute_dtype)
-    v = h @ p["wv"].to(compute_dtype)
-    if cfg.qkv_bias:
-        q, k, v = (q + p["bq"].to(compute_dtype), k + p["bk"].to(compute_dtype),
-                   v + p["bv"].to(compute_dtype))
-    q = q.reshape(B, Hq, Dh)
-    k = k.reshape(B, Hkv, Dh)
-    v = v.reshape(B, Hkv, Dh)
-    q = rope_apply(q[:, None], pos, cfg.rope_theta)[:, 0]
-    k = rope_apply(k[:, None], pos, cfg.rope_theta)[:, 0]
-
+    ``enc_len`` keys; the cross cache is only read.  Under a mesh it runs on
+    this rank's rows, and the caches hold this rank's shard
+    (``_head_layout``)."""
+    B = x.shape[0]
+    Dh = cfg.head_dim
+    q_ax, kv_ax, kv_range = _head_layout(cfg)
+    hq, hkv = _local_heads(cfg, q_ax, kv_ax)
+    split = q_ax is not None
+    kw = dict(softcap=cfg.attn_softcap, impl=impl)
+    w = _projections(p, cfg, "", q_ax, kv_ax, compute_dtype)
+    h = norm_apply(x, spmd.use(p["norm"]), cfg).to(compute_dtype)
+    q, k, v = h @ w["wq"], h @ w["wk"], h @ w["wv"]
+    if "bq" in w:
+        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+    q = rope_apply(q.reshape(B, 1, hq, Dh), pos, cfg.rope_theta)[:, 0]
+    k = rope_apply(k.reshape(B, 1, hkv, Dh), pos, cfg.rope_theta)[:, 0]
     kc, vc = cache["k"], cache["v"]
     Lc = kc.shape[2]
     # the JAX package's dynamic_update_slice clamps an index past the end
     slot = pos % Lc if blk.window else min(pos, Lc - 1)
     kc[:, :, slot] = k.to(kc.dtype)
-    vc[:, :, slot] = v.to(vc.dtype)
+    vc[:, :, slot] = v.reshape(B, hkv, Dh).to(vc.dtype)
     valid_len = torch.full((B,), min(pos + 1, Lc), dtype=torch.int32, device=x.device)
-    o = ops.decode_attention(q, kc, vc, valid_len, softcap=cfg.attn_softcap, impl=impl)
-    out = o.reshape(B, Hq * Dh) @ p["wo"].to(compute_dtype)
+    o = ops.decode_attention(q, _kv_read(kc, kv_range), _kv_read(vc, kv_range),
+                              valid_len, **kw)
+    out = o.reshape(B, hq * Dh) @ w["wo"]
+    if split:
+        out = spmd.sum_model(out)
     if cfg.post_norms:
-        out = norm_apply(out.to(x.dtype), p["post_norm"], cfg)
+        out = norm_apply(out.to(x.dtype), spmd.use(p["post_norm"]), cfg)
     x = x + out.to(x.dtype)
 
     if cross_cache is not None:
-        hc = norm_apply(x, p["c_norm"], cfg).to(compute_dtype)
-        qc = (hc @ p["c_wq"].to(compute_dtype)).reshape(B, Hq, Dh)
+        hc = norm_apply(x, spmd.use(p["c_norm"]), cfg).to(compute_dtype)
+        qc = (hc @ spmd.use(p["c_wq"], None, q_ax).to(compute_dtype)).reshape(B, hq, Dh)
         vl = torch.full((B,), enc_len, dtype=torch.int32, device=x.device)
-        oc = ops.decode_attention(qc, cross_cache["k"].to(compute_dtype),
-                                  cross_cache["v"].to(compute_dtype), vl,
-                                  softcap=cfg.attn_softcap, impl=impl)
-        x = x + (oc.reshape(B, Hq * Dh) @ p["c_wo"].to(compute_dtype)).to(x.dtype)
+        ck, cv = (_kv_read(cross_cache[n], kv_range).to(compute_dtype) for n in ("k", "v"))
+        oc = ops.decode_attention(qc, ck, cv, vl, **kw)
+        out = oc.reshape(B, hq * Dh) @ spmd.use(p["c_wo"], q_ax, None).to(compute_dtype)
+        x = x + (spmd.sum_model(out) if split else out).to(x.dtype)
     return x

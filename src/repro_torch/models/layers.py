@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, Block
+from repro_torch.distributed import context as ctx
+from repro_torch.distributed import spmd
 
 
 def normal_init(gen: torch.Generator, shape, *, scale: float = 0.02,
@@ -92,22 +94,29 @@ def mlp_init(gen, cfg: ArchConfig, blk: Block, *, device=None,
 
 
 def mlp_apply(x, p, cfg: ArchConfig, blk: Block, compute_dtype):
-    h = norm_apply(x, p["norm"], cfg).to(compute_dtype)
+    """x + MLP(norm(x)).  Under a mesh (this rank's rows) the hidden dim is
+    split over "model" where it divides it, and the parts of the down
+    projection summed over "model"."""
+    f_ax = ctx.div_axis(cfg.d_ff)
     cd = compute_dtype
-    if blk.mlp == "gated_silu":
-        a = F.silu(h @ p["w_gate"].to(cd))
-        h = (a * (h @ p["w_up"].to(cd))) @ p["w_down"].to(cd)
-    elif blk.mlp == "gated_gelu":
-        a = F.gelu(h @ p["w_gate"].to(cd), approximate="tanh")
-        h = (a * (h @ p["w_up"].to(cd))) @ p["w_down"].to(cd)
+    h = norm_apply(x, spmd.use(p["norm"]), cfg).to(cd)
+    if f_ax:
+        h = spmd.enter_model(h)
+    up = spmd.use(p["w_up"], None, f_ax).to(cd)
+    down = spmd.use(p["w_down"], f_ax, None).to(cd)
+    if blk.mlp in ("gated_silu", "gated_gelu"):
+        g = h @ spmd.use(p["w_gate"], None, f_ax).to(cd)
+        a = F.silu(g) if blk.mlp == "gated_silu" else F.gelu(g, approximate="tanh")
+        h = (a * (h @ up)) @ down
     elif blk.mlp == "squared_relu":
-        a = F.relu(h @ p["w_up"].to(cd))
-        h = (a * a) @ p["w_down"].to(cd)
+        a = F.relu(h @ up)
+        h = (a * a) @ down
     elif blk.mlp == "relu":
-        a = F.relu(h @ p["w_up"].to(cd))
-        h = a @ p["w_down"].to(cd)
+        h = F.relu(h @ up) @ down
+    if f_ax:
+        h = spmd.sum_model(h)
     if cfg.post_norms:
-        h = norm_apply(h, p["post_norm"], cfg)
+        h = norm_apply(h, spmd.use(p["post_norm"]), cfg)
     return x + h.to(x.dtype)
 
 

@@ -4,6 +4,14 @@ through the O(1) recurrent update.  The counterpart of ``repro.models.ssm``.
 Layout follows the Mamba-2 reference: in_proj -> [z | x | B | C | dt],
 depthwise causal conv over [x|B|C], SiLU, SSD, skip (D term), gated RMSNorm,
 out_proj.
+
+Under a mesh (``distributed.spmd``: this rank's rows) the heads are split
+over "model" where they divide it (one group).  ``in_proj``'s output dim is
+sharded over "model" by the rules at points that are not the split's, so
+the projection and the conv are computed whole on every model rank; each
+rank scans its heads, applies the gated norm to its channels (the squares
+summed over "model") and its rows of ``out_proj``, and the parts are summed
+over "model".  The recurrent state is held per rank: its rows and heads.
 """
 from __future__ import annotations
 
@@ -11,6 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import context as ctx
+from repro_torch.distributed import spmd
 from repro_torch.kernels import ops
 from repro_torch.models.layers import norm_apply, norm_init, normal_init
 
@@ -48,48 +58,95 @@ def _split_proj(proj, cfg):
     return torch.split(proj, [d_in, d_in, gn, gn, H], dim=-1)   # z, x, B, C, dt
 
 
-def _gated_norm(y, z, w, eps):
+def head_axis(cfg: ArchConfig):
+    """The axis the heads split over under the mesh, or None (always None
+    with no mesh)."""
+    return ctx.div_axis(_dims(cfg)[2]) if cfg.ssm.n_groups == 1 else None
+
+
+def _project(x, p, cfg: ArchConfig, compute_dtype):
+    """The whole projection of norm(x) on every model rank, and this rank's
+    heads: (split, z, x|B|C, dt, heads (start, count), channels (start,
+    end)).  Where the heads split, what follows is this rank's part: the
+    weights' gradients are partial over "model"."""
+    s, d_in, H, _ = _dims(cfg)
+    split = head_axis(cfg) is not None
+    h = norm_apply(x, spmd.use(p["norm"]), cfg).to(compute_dtype)
+    if split:
+        h = spmd.enter_model(h)
+    proj = h @ spmd.use(p["in_proj"], model_partial=split).to(compute_dtype)
+    z, xv, Bv, Cv, dt = _split_proj(proj, cfg)
+    n = H // ctx.axis_size("model") if split else H
+    h0 = spmd.rank("model") * n if split else 0
+    return split, z, torch.cat([xv, Bv, Cv], dim=-1), dt, (h0, n), \
+        (h0 * s.head_dim, (h0 + n) * s.head_dim)
+
+
+def _conv_params(p, split, compute_dtype):
+    w = spmd.use(p["conv_w"], model_partial=split).to(compute_dtype)
+    return w, spmd.use(p["conv_b"], model_partial=split).to(compute_dtype)
+
+
+def _heads(p, cfg, conv, dt, heads, chans, split):
+    """This rank's heads of the conv output and dt, its A, and B and C."""
+    s, d_in = cfg.ssm, _dims(cfg)[1]
+    (h0, n), (c0, c1) = heads, chans
+    gn = s.n_groups * s.d_state
+    xv, Bv, Cv = torch.split(conv, [d_in, gn, gn], dim=-1)
+    dt = F.softplus(dt.float() + spmd.use(p["dt_bias"], model_partial=split))   # (..., H)
+    A = -torch.exp(spmd.use(p["A_log"], "model" if split else None))
+    if split:
+        xv, dt = xv[..., c0:c1], dt[..., h0:h0 + n]
+    return xv, Bv, Cv, dt, A
+
+
+def _out(x, y, xh, z, p, cfg: ArchConfig, split, chans, compute_dtype):
+    """The skip (D term), the gated RMSNorm (the squares summed over every
+    channel) and this rank's rows of ``out_proj``, its part summed over
+    "model"."""
+    d_in = _dims(cfg)[1]
+    ax = "model" if split else None
+    y = y + spmd.use(p["D_skip"], ax).to(y.dtype)[..., :, None] * xh
+    y = y.reshape(*y.shape[:-2], -1)
+    if split:
+        z = z[..., chans[0]:chans[1]]
     g = y.float() * F.silu(z.float())
-    g = g * torch.rsqrt((g * g).mean(dim=-1, keepdim=True) + eps)
-    return g * w.float()
+    if split:                     # the squares of every channel; the gradient's
+        ms = spmd.enter_model(spmd.sum_model((g * g).sum(-1, keepdim=True))) / d_in
+    else:                         # parts summed back in the backward
+        ms = (g * g).mean(dim=-1, keepdim=True)
+    g = g * torch.rsqrt(ms + cfg.norm_eps)
+    y = (g * spmd.use(p["gate_norm"], ax).float()).to(compute_dtype)
+    out = y @ spmd.use(p["out_proj"], ax, None).to(compute_dtype)
+    return x + (spmd.sum_model(out) if split else out).to(x.dtype)
 
 
 def mamba_apply(x, p, cfg: ArchConfig, compute_dtype, impl=None):
     """Full-sequence path (prefill).  x: (B, S, D).  Returns the new x and
-    the decode-resumable cache pieces: the final SSM state and the conv tail."""
-    s, d_in, H, conv_dim = _dims(cfg)
-    B, S, D = x.shape
-    h = norm_apply(x, p["norm"], cfg).to(compute_dtype)
-    proj = h @ p["in_proj"].to(compute_dtype)
-    z, xv, Bv, Cv, dt = _split_proj(proj, cfg)
-
+    the decode-resumable cache pieces: the final SSM state and the conv tail
+    (under a mesh, this rank's rows and heads)."""
+    s = cfg.ssm
+    B, S, _ = x.shape
+    split, z, xbc, dt, heads, chans = _project(x, p, cfg, compute_dtype)
     # depthwise causal conv over [x|B|C]
-    xbc = torch.cat([xv, Bv, Cv], dim=-1)                              # (B,S,conv_dim)
     K = s.conv_kernel
     pad = F.pad(xbc, (0, 0, K - 1, 0))
-    w = p["conv_w"].to(compute_dtype)
+    w, b = _conv_params(p, split, compute_dtype)
     conv = pad[:, 0:S] * w[0]
     for i in range(1, K):
         conv = conv + pad[:, i:i + S] * w[i]
-    conv = F.silu(conv + p["conv_b"].to(compute_dtype))
-    gn = s.n_groups * s.d_state
-    xv, Bv, Cv = torch.split(conv, [d_in, gn, gn], dim=-1)
-
-    dt = F.softplus(dt.float() + p["dt_bias"])                         # (B,S,H)
-    A = -torch.exp(p["A_log"])                                         # (H,)
-    xh = xv.reshape(B, S, H, s.head_dim)
+    conv = F.silu(conv + b)
+    xv, Bv, Cv, dt, A = _heads(p, cfg, conv, dt, heads, chans, split)
+    xh = xv.reshape(B, S, heads[1], s.head_dim)
     Bm = Bv.reshape(B, S, s.n_groups, s.d_state)
     Cm = Cv.reshape(B, S, s.n_groups, s.d_state)
     y, state = ops.ssd(xh, dt, A, Bm, Cm, chunk=s.chunk, impl=impl)
-    y = y + p["D_skip"].to(y.dtype)[None, None, :, None] * xh
-    y = y.reshape(B, S, d_in)
-    y = _gated_norm(y, z, p["gate_norm"], cfg.norm_eps).to(compute_dtype)
-    out = y @ p["out_proj"].to(compute_dtype)
+    out = _out(x, y, xh, z, p, cfg, split, chans, compute_dtype)
     if S >= K - 1:
         conv_tail = xbc[:, S - (K - 1):]
     else:
         conv_tail = F.pad(xbc, (0, 0, K - 1 - S, 0))
-    return x + out.to(x.dtype), {"ssm": state, "conv": conv_tail.float()}
+    return out, {"ssm": state, "conv": conv_tail.float()}
 
 
 def mamba_cache_init(cfg: ArchConfig, batch: int, device=None):
@@ -102,27 +159,16 @@ def mamba_cache_init(cfg: ArchConfig, batch: int, device=None):
 def mamba_decode(x, p, cache, cfg: ArchConfig, compute_dtype):
     """Single-token path.  x: (B, D); cache: {"ssm": (B,H,P,N), "conv":
     (B,K-1,C)}.  Returns the new x and the new cache pieces."""
-    s, d_in, H, conv_dim = _dims(cfg)
-    B, D = x.shape
-    h = norm_apply(x, p["norm"], cfg).to(compute_dtype)
-    proj = h @ p["in_proj"].to(compute_dtype)
-    z, xv, Bv, Cv, dt = _split_proj(proj, cfg)
-
-    xbc = torch.cat([xv, Bv, Cv], dim=-1)                              # (B, conv_dim)
+    s = cfg.ssm
+    B = x.shape[0]
+    split, z, xbc, dt, heads, chans = _project(x, p, cfg, compute_dtype)
+    w, b = _conv_params(p, split, compute_dtype)
     hist = torch.cat([cache["conv"].to(compute_dtype), xbc[:, None]], dim=1)
-    conv = torch.einsum("bkc,kc->bc", hist, p["conv_w"].to(compute_dtype))
-    conv = F.silu(conv + p["conv_b"].to(compute_dtype))
-    gn = s.n_groups * s.d_state
-    xv, Bv, Cv = torch.split(conv, [d_in, gn, gn], dim=-1)
-
-    dt = F.softplus(dt.float() + p["dt_bias"])                         # (B,H)
-    A = -torch.exp(p["A_log"])
-    xh = xv.reshape(B, H, s.head_dim)
+    conv = F.silu(torch.einsum("bkc,kc->bc", hist, w) + b)
+    xv, Bv, Cv, dt, A = _heads(p, cfg, conv, dt, heads, chans, split)
+    xh = xv.reshape(B, heads[1], s.head_dim)
     Bm = Bv.reshape(B, s.n_groups, s.d_state)
     Cm = Cv.reshape(B, s.n_groups, s.d_state)
     y, new_state = ops.ssd_decode(xh, dt, A, Bm, Cm, cache["ssm"])
-    y = y + p["D_skip"].to(y.dtype)[None, :, None] * xh
-    y = y.reshape(B, d_in)
-    y = _gated_norm(y, z, p["gate_norm"], cfg.norm_eps).to(compute_dtype)
-    out = y @ p["out_proj"].to(compute_dtype)
-    return x + out.to(x.dtype), {"ssm": new_state, "conv": hist[:, 1:].float()}
+    out = _out(x, y, xh, z, p, cfg, split, chans, compute_dtype)
+    return out, {"ssm": new_state, "conv": hist[:, 1:].float()}

@@ -1,5 +1,5 @@
 """Model assembly for the decoder-only and encoder-decoder LMs of the
-registry: the counterpart of ``repro.models.transformer`` on one device.
+registry: the counterpart of ``repro.models.transformer``.
 
 Parameters keep the JAX package's layout: ``params["dec"]["pos<i>"]`` holds
 the block at pattern position i, every tensor stacked over the periods
@@ -23,15 +23,30 @@ Public API:
 and per block inside the period when the pattern has more than two blocks
 (``torch.utils.checkpoint``, non-reentrant), whenever autograd records the
 forward.
+
+Under a mesh (``distributed.context.set_mesh``) the entry points take the
+parameters as DTensors placed by ``distributed.sharding`` and the global
+batch (tokens, labels, frames: the same on every rank).  Each rank runs
+the stack on its rows (``distributed.spmd``): its data-parallel shard of
+the batch at every block, as the JAX package constrains the stack, or the
+whole batch where the shards do not divide it.  The logits come back as a
+DTensor sharded over "model" on the vocab where it divides (``pad_vocab``
+pads it to divide), the decode cache as DTensors in the kernels' layout
+(rows over the data axes, KV or Mamba heads over "model"), and
+``lm_loss`` as this rank's value of the global loss whose gradient is this
+rank's share.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, Block
+from repro_torch.distributed import context as ctx
+from repro_torch.distributed import spmd
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -133,6 +148,8 @@ def _unstack(tree, n: int) -> list:
     if isinstance(tree, dict):
         per = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    if isinstance(tree, DTensor):                    # under a mesh: local shards
+        return spmd.unstack(tree)
     return list(torch.unbind(tree, 0))
 
 
@@ -153,6 +170,7 @@ def _run_stack(params_stack, x, cfg: ArchConfig, pattern, *, causal, compute_dty
     closure, which the non-reentrant checkpoint supports."""
     remat = cfg.remat and not collect and torch.is_grad_enabled()
     inner_ckpt = remat and len(pattern) > 2
+    sharded = spmd.rows_sharded()         # read again where remat recomputes
 
     def period(x, pslice):
         cs = {}
@@ -163,7 +181,8 @@ def _run_stack(params_stack, x, cfg: ArchConfig, pattern, *, causal, compute_dty
                 impl=impl, genome=genome, collect=collect)
             if inner_ckpt:
                 apply_i = functools.partial(checkpoint, apply_i, use_reentrant=False)
-            x, cs[f"pos{i}"] = apply_i(x, pslice[f"pos{i}"])
+            with spmd.rows(sharded):
+                x, cs[f"pos{i}"] = apply_i(x, pslice[f"pos{i}"])
         return x, cs
 
     if remat:
@@ -184,7 +203,7 @@ def _embed(params, cfg: ArchConfig, tokens, prefix_embeds=None,
            compute_dtype=torch.bfloat16):
     # gather, then cast: the same values as the JAX package's cast-then-
     # gather, without a copy of the whole table
-    x = params["embed"][tokens].to(compute_dtype)
+    x = _table(params)[tokens].to(compute_dtype)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
     if prefix_embeds is not None and cfg.n_prefix_embeds:
@@ -193,12 +212,38 @@ def _embed(params, cfg: ArchConfig, tokens, prefix_embeds=None,
     return x
 
 
-def _head(params, cfg: ArchConfig, x, compute_dtype):
-    """LM head: logits in fp32 with the final softcap."""
-    x = norm_apply(x, params["final_norm"], cfg).to(compute_dtype)
-    w = (params["embed"].to(compute_dtype).T if cfg.tie_embeddings
-         else params["lm_head"].to(compute_dtype))
-    return logit_softcap((x @ w).float(), cfg.logit_softcap)
+def _table(params):
+    """The embedding table (under a mesh: whole, gathered)."""
+    return spmd.use(params["embed"])
+
+
+def _head(params, cfg: ArchConfig, x, compute_dtype, pad_vocab: bool = False):
+    """The LM head with the final softcap on this rank's rows: (fp32 logits
+    of its vocab shard, the vocab's axis or None; with no mesh, all of the
+    vocab and None).  ``pad_vocab`` (the loss path) pads the vocab to a
+    multiple of the model axis, so the logits shard over it even where the
+    vocab does not divide it; the pad columns carry logits of -1e30, which
+    softmax does not see, and the padded shape is kept through the loss."""
+    V, m = cfg.vocab_size, ctx.axis_size("model")
+    pad = (-V) % m if pad_vocab and m > 1 else 0
+    v_ax = ctx.div_axis(V + pad)
+    h = norm_apply(x, spmd.use(params["final_norm"]), cfg).to(compute_dtype)
+    if v_ax:
+        h = spmd.enter_model(h)
+    kw = dict(model_partial=bool(pad and v_ax))   # a slice of the whole, padded
+    if cfg.tie_embeddings:
+        w = spmd.use(params["embed"], None if pad else v_ax, None, **kw).to(compute_dtype).T
+    else:
+        w = spmd.use(params["lm_head"], None, None if pad else v_ax, **kw).to(compute_dtype)
+    n = (V + pad) // m if v_ax else V + pad
+    v0 = spmd.rank("model") * n if v_ax else 0
+    if pad:
+        w = torch.cat([w, w.new_zeros((w.shape[0], pad))], dim=1)[:, v0:v0 + n]
+    logits = logit_softcap((h @ w).float(), cfg.logit_softcap)
+    if pad:
+        cols = torch.arange(v0, v0 + n, device=logits.device)
+        logits = logits + torch.where(cols >= V, -1e30, 0.0)
+    return logits, v_ax
 
 
 # ---------------------------------------------------------------------------
@@ -211,11 +256,19 @@ def encode(params, cfg: ArchConfig, frames, *, compute_dtype=torch.bfloat16,
     """The encoder stack over precomputed frame embeddings (B, Se, D) (the
     speech frontend is a stub): non-causal, rotary-encoded self-attention at
     positions 0..Se-1 and pattern[0]'s MLP, then ``enc_final_norm``."""
+    B = frames.shape[0]
+    with spmd.rows(spmd.batch_sharded(B)):
+        out = _encode(params, cfg, spmd.local_rows(frames), compute_dtype=compute_dtype,
+                      impl=impl, genome=genome)
+    return spmd.wrap(out, ctx.batch_spec(B), None, None)
+
+
+def _encode(params, cfg: ArchConfig, frames, *, compute_dtype, impl, genome):
     enc_pattern = (Block(kind="attn", mlp=cfg.pattern[0].mlp, cross_attn=False),)
     x = frames.to(compute_dtype)
     x, _ = _run_stack(params["enc"], x, cfg, enc_pattern, causal=False,
                       compute_dtype=compute_dtype, impl=impl, genome=genome)
-    return norm_apply(x, params["enc_final_norm"], cfg)
+    return norm_apply(x, spmd.use(params["enc_final_norm"]), cfg)
 
 
 def _encoded(params, cfg: ArchConfig, enc_frames, **kw):
@@ -224,18 +277,32 @@ def _encoded(params, cfg: ArchConfig, enc_frames, **kw):
         return None
     if enc_frames is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: pass enc_frames")
-    return encode(params, cfg, enc_frames, **kw)
+    return _encode(params, cfg, enc_frames, **kw)
 
 
 def lm_logits(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
               enc_frames=None, compute_dtype=torch.bfloat16, impl=None, genome=None):
+    """fp32 logits (B, S, V) of every position; under a mesh a DTensor, its
+    rows over the data axes and its vocab over "model" where they divide."""
+    B = tokens.shape[0]
+    with spmd.rows(spmd.batch_sharded(B)):
+        logits, v_ax = _logits(params, cfg, tokens, prefix_embeds, enc_frames, compute_dtype,
+                               impl, genome)
+    return spmd.wrap(logits, ctx.batch_spec(B), None, v_ax)
+
+
+def _logits(params, cfg: ArchConfig, tokens, prefix_embeds, enc_frames, compute_dtype,
+            impl, genome, pad_vocab: bool = False):
+    """This rank's logits (its rows, its vocab shard) and the vocab's axis."""
+    tokens, prefix_embeds, enc_frames = (spmd.local_rows(t)
+                                         for t in (tokens, prefix_embeds, enc_frames))
     x = _embed(params, cfg, tokens, prefix_embeds, compute_dtype)
     enc_out = _encoded(params, cfg, enc_frames, compute_dtype=compute_dtype,
                        impl=impl, genome=genome)
     x, _ = _run_stack(params["dec"], x, cfg, cfg.pattern, causal=True,
                       compute_dtype=compute_dtype, enc_out=enc_out,
                       impl=impl, genome=genome)
-    return _head(params, cfg, x, compute_dtype)
+    return _head(params, cfg, x, compute_dtype, pad_vocab)
 
 
 def lm_loss(params, cfg: ArchConfig, batch, *, compute_dtype=torch.bfloat16,
@@ -243,20 +310,27 @@ def lm_loss(params, cfg: ArchConfig, batch, *, compute_dtype=torch.bfloat16,
     """Next-token cross-entropy.  batch: {tokens, labels, [prefix_embeds],
     [enc_frames]};
     labels < 0 carry no loss, and the sum is divided by the number of the
-    others (at least 1).  The JAX package pads the vocab to a multiple of the
-    model axis here; that axis has size 1 on one device, so padding is a
-    no-op and the port has none.  Training takes ``impl="blocked"``: the
-    kernels have no backward and refuse inputs that require grad."""
-    logits = lm_logits(
-        params, cfg, batch["tokens"], prefix_embeds=batch.get("prefix_embeds"),
-        enc_frames=batch.get("enc_frames"), compute_dtype=compute_dtype, impl=impl,
-        genome=genome)
-    labels = batch["labels"].long()
+    others (at least 1).  Training takes ``impl="blocked"``: the kernels
+    have no backward and refuse inputs that require grad.  Under a mesh the
+    batch must divide the data-parallel ranks, and the vocab is padded to a
+    multiple of the model axis (``_head``)."""
+    B = batch["tokens"].shape[0]
+    if B % spmd.dp_size():
+        raise ValueError(f"a batch of {B} does not split over the "
+                         f"{spmd.dp_size()} data-parallel ranks")
+    with spmd.rows(spmd.batch_sharded(B)):
+        logits, v_ax = _logits(params, cfg, batch["tokens"], batch.get("prefix_embeds"),
+                               batch.get("enc_frames"), compute_dtype, impl, genome,
+                               pad_vocab=True)
+    if v_ax:
+        logits = spmd.gather(logits, -1, "model", partial=False)
+    labels = spmd.local_rows(batch["labels"]).long()
     mask = (labels >= 0).float()
     logp = torch.log_softmax(logits, dim=-1)
     del logits
     ll = torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
-    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    part = -(ll * mask).sum() / torch.clamp_min(spmd.batch_axes_sum(mask.sum()), 1.0)
+    return part + (spmd.batch_axes_sum(part) - part).detach()
 
 
 # ---------------------------------------------------------------------------
@@ -278,13 +352,17 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *, prefix_embeds=None
     (the JAX package projects the memory a second time for the cache: the
     same products on the same inputs)."""
     B, S = tokens.shape
-    x = _embed(params, cfg, tokens, prefix_embeds, compute_dtype)
-    enc_out = _encoded(params, cfg, enc_frames, compute_dtype=compute_dtype,
-                       impl=impl, genome=genome)
-    x, raw = _run_stack(params["dec"], x, cfg, cfg.pattern, causal=True,
-                        compute_dtype=compute_dtype, enc_out=enc_out,
-                        impl=impl, genome=genome, collect=True)
-    logits = _head(params, cfg, x[:, -1:], compute_dtype)[:, 0]
+    with spmd.rows(spmd.batch_sharded(B)):
+        tokens, prefix_embeds, enc_frames = (
+            spmd.local_rows(t) for t in (tokens, prefix_embeds, enc_frames))
+        x = _embed(params, cfg, tokens, prefix_embeds, compute_dtype)
+        enc_out = _encoded(params, cfg, enc_frames, compute_dtype=compute_dtype,
+                           impl=impl, genome=genome)
+        x, raw = _run_stack(params["dec"], x, cfg, cfg.pattern, causal=True,
+                            compute_dtype=compute_dtype, enc_out=enc_out,
+                            impl=impl, genome=genome, collect=True)
+        logits, v_ax = _head(params, cfg, x[:, -1:], compute_dtype)
+        logits = spmd.wrap(logits[:, 0], ctx.batch_spec(B), v_ax)
 
     layers = {}
     for i, blk in enumerate(cfg.pattern):
@@ -303,10 +381,40 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *, prefix_embeds=None
             entry["mamba"] = {k: torch.stack([c["mamba"][k] for c in per])
                               for k in ("ssm", "conv")}
         layers[f"pos{i}"] = entry
-    cache = {"pos": S, "layers": layers}
+    cache = {"pos": S, "layers": _wrap_cache(layers, cfg, B)}
     if cfg.enc_dec:
         cache["enc_len"] = enc_out.shape[1]
     return logits, cache
+
+
+def _cache_specs(cfg: ArchConfig, batch: int) -> dict:
+    """The specs of the cache's leaves, by name, in the kernels' layout:
+    rows over the data axes where they divide them, KV heads (Mamba heads)
+    over "model" where they divide it, the cache length and head dim
+    whole."""
+    bs = ctx.batch_spec(batch)
+    kv = (None, bs, attn_mod._head_layout(cfg)[1], None, None)
+    specs = {"k": kv, "v": kv, "conv": (None, bs, None, None)}
+    if cfg.ssm is not None:
+        specs["ssm"] = (None, bs, ssm_mod.head_axis(cfg), None, None)
+    return specs
+
+
+def _wrap_cache(layers: dict, cfg: ArchConfig, batch: int) -> dict:
+    """Every rank's local cache as DTensors (``_cache_specs``); with no mesh,
+    as it is."""
+    specs = _cache_specs(cfg, batch)
+
+    def wrap(tree):
+        return {k: wrap(v) if isinstance(v, dict) else spmd.wrap(v, *specs[k])
+                for k, v in tree.items()}
+    return wrap(layers)
+
+
+def _local_cache(layers: dict) -> dict:
+    """Each rank's shards of a cache of DTensors (views: written in place)."""
+    return {k: _local_cache(v) if isinstance(v, dict) else ctx.local(v)
+            for k, v in layers.items()}
 
 
 def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int, *,
@@ -335,10 +443,25 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int, *,
         elif blk.kind == "mamba":
             entry["mamba"] = stacked(ssm_mod.mamba_cache_init(cfg, batch, device))
         layers[f"pos{i}"] = entry
-    cache = {"pos": max_len - 1, "layers": layers}
+    specs = _cache_specs(cfg, batch)
+
+    def local(tree):                      # this rank's shards of the zero cache
+        return {k: local(v) if isinstance(v, dict) else _shard_of(v, specs[k])
+                for k, v in tree.items()}
+    cache = {"pos": max_len - 1, "layers": _wrap_cache(local(layers), cfg, batch)}
     if cfg.enc_dec:
         cache["enc_len"] = enc_len
     return cache
+
+
+def _shard_of(t: torch.Tensor, spec) -> torch.Tensor:
+    """This rank's shard of the full tensor ``t`` placed by ``spec``."""
+    for dim, entry in enumerate(spec):
+        if entry == "model":
+            t = t.chunk(ctx.axis_size("model"), dim)[spmd.rank("model")]
+        elif entry is not None:                          # the data axes
+            t = t.chunk(spmd.dp_size(), dim)[spmd.dp_rank()]
+    return t.contiguous()
 
 
 def decode_step(params, cfg: ArchConfig, cache, token, *,
@@ -348,31 +471,35 @@ def decode_step(params, cfg: ArchConfig, cache, token, *,
     The cache's tensors are updated in place (the JAX package returns new
     arrays); the returned cache is a new dict over the same tensors with
     ``pos`` advanced by one."""
-    x = params["embed"][token].to(compute_dtype)
-    if cfg.scale_embeddings:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
-    pos = cache["pos"]
-    enc_len = cache.get("enc_len", 0)
-    for per, pslice in enumerate(_unstack(params["dec"], cfg.n_periods)):
-        for i, blk in enumerate(cfg.pattern):
-            p, c = pslice[f"pos{i}"], cache["layers"][f"pos{i}"]
-            if blk.kind == "attn":
-                cross = ({"k": c["cross"]["k"][per], "v": c["cross"]["v"][per]}
-                         if "cross" in c else None)
-                x = attn_mod.attn_decode(
-                    x, p["attn"], {"k": c["k"][per], "v": c["v"][per]}, cfg, blk,
-                    pos=pos, compute_dtype=compute_dtype, cross_cache=cross,
-                    enc_len=enc_len, impl=impl)
-            elif blk.kind == "mamba":
-                mc = c["mamba"]
-                x, new = ssm_mod.mamba_decode(
-                    x, p["mamba"], {"ssm": mc["ssm"][per], "conv": mc["conv"][per]},
-                    cfg, compute_dtype)
-                mc["ssm"][per].copy_(new["ssm"])
-                mc["conv"][per].copy_(new["conv"])
-            if blk.mlp == "moe":
-                x = moe_mod.moe_apply(x[:, None], p["moe"], cfg, compute_dtype)[:, 0]
-            elif blk.mlp != "none":
-                x = mlp_apply(x[:, None], p["mlp"], cfg, blk, compute_dtype)[:, 0]
-    logits = _head(params, cfg, x, compute_dtype)
+    B = token.shape[0]
+    token, layers = spmd.local_rows(token), _local_cache(cache["layers"])
+    with spmd.rows(spmd.batch_sharded(B)):
+        x = _table(params)[token].to(compute_dtype)
+        if cfg.scale_embeddings:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
+        pos = cache["pos"]
+        enc_len = cache.get("enc_len", 0)
+        for per, pslice in enumerate(_unstack(params["dec"], cfg.n_periods)):
+            for i, blk in enumerate(cfg.pattern):
+                p, c = pslice[f"pos{i}"], layers[f"pos{i}"]
+                if blk.kind == "attn":
+                    cross = ({"k": c["cross"]["k"][per], "v": c["cross"]["v"][per]}
+                             if "cross" in c else None)
+                    x = attn_mod.attn_decode(
+                        x, p["attn"], {"k": c["k"][per], "v": c["v"][per]}, cfg, blk,
+                        pos=pos, compute_dtype=compute_dtype, cross_cache=cross,
+                        enc_len=enc_len, impl=impl)
+                elif blk.kind == "mamba":
+                    mc = c["mamba"]
+                    x, new = ssm_mod.mamba_decode(
+                        x, p["mamba"], {"ssm": mc["ssm"][per], "conv": mc["conv"][per]},
+                        cfg, compute_dtype)
+                    mc["ssm"][per].copy_(new["ssm"])
+                    mc["conv"][per].copy_(new["conv"])
+                if blk.mlp == "moe":
+                    x = moe_mod.moe_apply(x[:, None], p["moe"], cfg, compute_dtype)[:, 0]
+                elif blk.mlp != "none":
+                    x = mlp_apply(x[:, None], p["mlp"], cfg, blk, compute_dtype)[:, 0]
+        logits, v_ax = _head(params, cfg, x, compute_dtype)
+        logits = spmd.wrap(logits, ctx.batch_spec(B), v_ax)
     return logits, dict(cache, pos=pos + 1)

@@ -16,6 +16,11 @@ with m_hat = m / (1 - b1^t) and v_hat = v / (1 - b2^t), evaluated as
 p (1 - lr wd) - (lr / (1 - b1^t)) m / (sqrt(v_hat) + eps), which rounds
 differently in the last bits.  The schedule and the bias corrections are
 Python floats (the JAX package computes them in float32).
+
+The leaves may be DTensors (a training state under a mesh), each gradient
+placed as its parameter and moments are.  The global norm is then a full
+reduction over every shard, and the update runs on each rank's local
+shards.
 """
 from __future__ import annotations
 
@@ -24,8 +29,14 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, zeros_like
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 class AdamWState(NamedTuple):
@@ -50,7 +61,7 @@ class AdamWConfig:
 def adamw_init(params) -> AdamWState:
     device = tree_leaves(params)[0].device
     return AdamWState(torch.zeros((), dtype=torch.int32, device=device),
-                      tree_map(torch.zeros_like, params), tree_map(torch.zeros_like, params))
+                      tree_map(zeros_like, params), tree_map(zeros_like, params))
 
 
 def schedule(cfg: AdamWConfig, step) -> float:
@@ -64,9 +75,21 @@ def schedule(cfg: AdamWConfig, step) -> float:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32 (0-d tensor)."""
-    sq = [torch.linalg.vector_norm(x, dtype=torch.float32).square()
-          for x in tree_leaves(tree)]
+    sq = [_square_norm(x) for x in tree_leaves(tree)]
     return torch.sqrt(torch.stack(sq).sum())
+
+
+def _square_norm(x) -> torch.Tensor:
+    """The squared norm of a leaf; of a DTensor, over all its shards."""
+    if not isinstance(x, DTensor):
+        return torch.linalg.vector_norm(x, dtype=torch.float32).square()
+    sq = torch.linalg.vector_norm(x.to_local(), dtype=torch.float32).square()
+    for i, pl in enumerate(x.placements):
+        if isinstance(pl, Shard):
+            dist.all_reduce(sq, group=x.device_mesh.get_group(i))
+        elif not isinstance(pl, Replicate):
+            raise ValueError(f"a leaf placed {x.placements}: reduce it first")
+    return sq
 
 
 @torch.no_grad()
@@ -76,7 +99,7 @@ def clip_by_global_norm(grads, max_norm: float):
     gn = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp_min(gn, 1e-9), max=1.0)
     for g in tree_leaves(grads):
-        g.mul_(scale)
+        _local(g).mul_(scale)
     return grads, gn
 
 
@@ -92,8 +115,9 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
     lr = schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step
     b2c = 1 - cfg.b2 ** step
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(state.mu), tree_leaves(state.nu)):
+    for leaf in zip(tree_leaves(params), tree_leaves(grads),
+                    tree_leaves(state.mu), tree_leaves(state.nu)):
+        p, g, m, v = (_local(t) for t in leaf)
         m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
         v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
         denom = torch.div(v, b2c).sqrt_().add_(cfg.eps)

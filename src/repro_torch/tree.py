@@ -5,6 +5,9 @@ from __future__ import annotations
 
 from typing import Callable
 
+import torch
+from torch.distributed.tensor import DTensor
+
 
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of ``tree`` and of the trees of ``rest``, which
@@ -19,3 +22,20 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_map_with_path(fn: Callable, tree, path: tuple = ()):
+    """``fn(path, leaf)`` over the leaves of ``tree``, ``path`` the tuple of
+    keys from the root; returns a tree of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], path + (k,)) for k in sorted(tree)}
+    return fn(path, tree)
+
+
+def zeros_like(t, dtype=None):
+    """``torch.zeros_like``; a DTensor's zeros are built from its local
+    shard, placed alike (no sharding propagation)."""
+    if isinstance(t, DTensor):
+        return DTensor.from_local(torch.zeros_like(t.to_local(), dtype=dtype), t.device_mesh,
+                                  t.placements, run_check=False)
+    return torch.zeros_like(t, dtype=dtype)
