@@ -193,6 +193,18 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  every launch held against its plain version: equal tokens,
                  the serve phase's launches per group (every kernel on its
                  rank's local shard), prefill and step ms of both paths
+  dryrun         the dry run (repro_torch.launch.dryrun) in one subprocess,
+                 which must never initialise CUDA: mamba2-780m decode_32k on
+                 the 256- and 512-rank fake meshes, qwen2-7b prefill_32k and
+                 train_4k on the 256-rank one (meta tensors, fake process
+                 group); the pinned pod1 record of mamba2-780m equal to the
+                 CPU test's (DRYRUN_PINNED); one line per record (terms,
+                 dominant, useful fraction, collective bytes by axis, wall
+                 seconds).  Calibration: one-device records of the train
+                 phase's step and of the serve phase's decode step; the
+                 largest term of each no more than the time the phase
+                 measured, and the train record's argument + temp bytes
+                 within DRYRUN_MEM_REL of the train phase's peak
   times          flash_attention's wgmma body against its mma_sync body, in
                  turns (mma_sync, wgmma, wgmma, mma_sync), for the seed, a
                  fixed pipelined genome and the search's best at every
@@ -255,7 +267,7 @@ FRONTIER_STEPS = 6          # archipelago steps per job, migration every 2
 FRONTIER_SEED = 5           # both jobs' seed, and the direct run's
 FRONTIER_SUITE, FRONTIER_ISLANDS = "mha+gqa+decode", 4    # each job's archipelago
 PHASES = ("device", "build", "kernel", "decode_kernel", "ssd_kernel", "serve",
-          "serve_encdec", "train", "mesh", "rank", "noise", "evolve", "backends", "islands",
+          "serve_encdec", "train", "mesh", "dryrun", "rank", "noise", "evolve", "backends", "islands",
           "cascade", "frontier", "gqa", "decode_suite", "times", "kernels")
 SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd.cu")
 TOL_SSD_F32 = 2e-5          # SSD kernel vs plain, fp32: relative to max |y|
@@ -285,6 +297,13 @@ TRAIN_PEAK_SHARE = 0.9      # peak memory, share of the card's
 MESH_TRAIN_STEPS = 2        # full-width train steps on each path of the mesh phase
 MESH_LOSS_REL = 1e-3        # first-step loss, mesh vs unsharded (relative)
 MESH_SERVE_NEW = 8          # greedy tokens of the mesh phase's one group
+DRYRUN_CELLS = (("mamba2-780m", "decode_32k", (False, True)),   # (arch, cell, multi_pod)
+                ("qwen2-7b", "prefill_32k", (False,)), ("qwen2-7b", "train_4k", (False,)))
+# mamba2-780m decode_32k on the 256-rank mesh: tests/test_torch_dryrun.py's PINNED_POD1
+DRYRUN_PINNED = {"hlo_dot_flops": 9097641984.0,
+                 "collective_bytes": {"all-gather": 2698985472, "all-reduce": 1181184}}
+DRYRUN_MEM_REL = 0.2        # train record's argument + temp bytes against the measured peak
+DRYRUN_TIMEOUT_S = 300      # the dry-run subprocess (about 60-100 s on the chip host)
 
 # bf16 kernel vs plain at full width.  Large logical blocks keep the plain
 # version's walk short at every shape; both kernel paths and both div modes
@@ -1962,6 +1981,121 @@ def phase_mesh(state):
         torch.cuda.empty_cache()
     if faults:
         raise AssertionError("mesh: " + "; ".join(faults))
+
+
+def dryrun_child(out_dir: str) -> None:
+    """The dryrun phase's subprocess (``python -c``, PYTHONPATH=src): the
+    DRYRUN_CELLS records through ``run_cell`` on fake process groups, and
+    the one-device calibration records of the train and serve phases'
+    steps; prints one JSON line, with whether CUDA was ever initialised."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun
+
+    records = []
+    for arch, cell, meshes in DRYRUN_CELLS:
+        for multi_pod in meshes:
+            records.append(dryrun.run_cell(arch, cell, multi_pod=multi_pod, force=True,
+                                           out_dir=out_dir))
+    calib = {}
+    for name, arch, layers, cell, knobs in (
+            ("train", TRAIN_ARCH, TRAIN_LAYERS,
+             ShapeCell("train_phase", TRAIN_SEQ, TRAIN_BATCH, "train"),
+             {"n_microbatches": TRAIN_MICRO}),
+            ("serve_decode", SERVE_ARCH, SERVE_LAYERS,
+             ShapeCell("serve_phase_decode", SERVE_MAX_LEN, SERVE_BATCH, "decode"),
+             {"param_dtype": torch.bfloat16})):
+        cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+        t0 = time.perf_counter()
+        traced = dryrun.trace_cell(cfg, cell, None, **knobs)
+        rec = dryrun.analyze(cfg, cell, traced, None)
+        rec["wall_s"] = {"trace": time.perf_counter() - t0}
+        calib[name] = rec
+    print(json.dumps({"records": records, "calibration": calib,
+                      "cuda_initialized": torch.cuda.is_initialized()}), flush=True)
+
+
+def phase_dryrun(state):
+    """The dry run in a subprocess (this process has a CUDA context and,
+    after the mesh phase, had a default process group), then the pinned
+    record and the calibration against the train and serve phases."""
+    out_dir = os.path.join(HERE, "build", "dryrun")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.dryrun_child({out_dir!r})"],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun: the subprocess exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    faults: list = []
+    if out["cuda_initialized"]:
+        faults.append("the dry run initialised CUDA")
+    for rec in out["records"]:
+        emit({"phase": "dryrun", "arch": rec["arch"], "cell": rec["cell"],
+              "mesh": rec["mesh"], "n_chips": rec["n_chips"], "terms_s": rec["terms_s"],
+              "dominant": rec["dominant"], "useful_flops_frac": rec["useful_flops_frac"],
+              "hlo_dot_flops": rec["hlo_dot_flops"],
+              "collective_bytes": rec["collectives"]["bytes"],
+              "collective_bytes_by_axis": rec["collectives"]["by_axis"],
+              "memory": rec["memory"], "n_microbatches": rec.get("n_microbatches"),
+              "wall_s": rec["wall_s"]})
+        if not (rec["hlo_flops"] > 0 and rec["terms_s"]["memory"] > 0
+                and 0 < rec["useful_flops_frac"] < 5.0):
+            faults.append(f"{rec['arch']} {rec['cell']} {rec['mesh']}: record {rec}")
+    pinned = next(r for r in out["records"] if r["arch"] == "mamba2-780m"
+                  and r["n_chips"] == 256)
+    got = {"hlo_dot_flops": pinned["hlo_dot_flops"],
+           "collective_bytes": pinned["collectives"]["bytes"]}
+    emit({"phase": "dryrun", "check": "pinned_pod1", "got": got, "want": DRYRUN_PINNED})
+    if got != DRYRUN_PINNED:
+        faults.append(f"the pinned record {got} differs from the CPU's {DRYRUN_PINNED}")
+    _dryrun_calibration(state, out["calibration"], faults)
+    emit({"phase": "dryrun", "summary": True, "records": len(out["records"]),
+          "subprocess_s": wall, "cuda_initialized": out["cuda_initialized"]})
+    if faults:
+        raise AssertionError("dryrun: " + "; ".join(faults))
+
+
+def _dryrun_calibration(state, calib: dict, faults: list) -> None:
+    """Each one-device record's largest term against the step time its
+    phase measured (a roofline is a lower bound), and the train record's
+    argument + temp bytes against the train phase's peak memory."""
+    measured = {}
+    train = state.get("train", {}).get("full_width")
+    if train is not None:
+        measured["train"] = train["s_per_step_median"]
+    timings = state.get("serve", {}).get("timings")
+    if timings is not None:
+        dec = sorted(timings[1]["decode_ms"])   # the traffic's second group: none checked
+        measured["serve_decode"] = dec[len(dec) // 2] * 1e-3
+    for name, rec in calib.items():
+        bound = max(rec["terms_s"].values())
+        row = {"phase": "dryrun", "check": "calibration", "record": name,
+               "arch": rec["arch"], "terms_s": rec["terms_s"], "dominant": rec["dominant"],
+               "memory": rec["memory"], "bound_s": bound, "measured_s": measured.get(name)}
+        if name in measured:
+            row["bound_over_measured"] = bound / measured[name]
+            if bound > measured[name]:
+                faults.append(f"calibration {name}: bound {bound:.4f} s above the "
+                              f"measured {measured[name]:.4f} s")
+        if name == "train" and train is not None:
+            est = rec["memory"]["argument_bytes"] + rec["memory"]["temp_bytes"]
+            peak = train["peak_gib"] * 2 ** 30
+            row.update(estimate_gib=est / 2 ** 30, peak_gib=train["peak_gib"],
+                       estimate_over_peak=est / peak)
+            if abs(est / peak - 1) > DRYRUN_MEM_REL:
+                faults.append(f"calibration train: argument + temp {est / 2 ** 30:.2f} GiB "
+                              f"against the measured peak {train['peak_gib']:.2f} GiB")
+        if name not in measured:
+            row["measured_s"] = "not measured: its phase did not run"
+        emit(row)
 
 
 def _card_vs_cpu_tokens(cfg, check: bool):
@@ -3747,7 +3881,8 @@ def main() -> int:
     runners = {"build": lambda st: phase_build(), "kernel": phase_kernel,
                "decode_kernel": phase_decode_kernel, "ssd_kernel": phase_ssd_kernel,
                "serve": phase_serve, "serve_encdec": phase_serve_encdec,
-               "train": phase_train, "mesh": phase_mesh, "noise": phase_noise,
+               "train": phase_train, "mesh": phase_mesh, "dryrun": phase_dryrun,
+               "noise": phase_noise,
                "rank": phase_rank,
                "evolve": phase_evolve, "backends": phase_backends,
                "islands": phase_islands, "cascade": phase_cascade,

@@ -50,7 +50,7 @@ def div_axis(n: int, axis: str = "model"):
 
 def batch_spec(n: int):
     """The batch axes if they evenly shard a batch of ``n`` rows, else None
-    (the batch stays replicated, as ``batch_shardings`` leaves it)."""
+    (the batch stays replicated, as the JAX package's batch rule leaves it)."""
     ba = batch_axes()
     dp = 1
     for a in ba:

@@ -18,10 +18,10 @@ rule degrades gracefully: a dim that does not divide its axis stays
 replicated.
 
 The program places parameters through these rules (``distribute_params``).
-``batch_shardings``, ``cache_shardings`` and ``replicated`` are the JAX
-package's rules as specs only, kept for the dry run (ROADMAP item 12b): the
+The JAX package's batch and cache rules have no counterpart here: the
 executed batch takes ``spmd.local_rows`` (the batch rule's layout), and the
-executed cache the kernels' layout (``models.transformer._cache_specs``).
+executed cache the kernels' layout (``models.transformer._cache_specs``),
+which the dry run traces too (``launch.specs``).
 """
 from __future__ import annotations
 
@@ -135,76 +135,6 @@ def param_shardings(params, mesh, cfg: ArchConfig):
     view = MeshView(mesh)
     return tree_map_with_path(
         lambda path, leaf: _spec_for(_path_str(path), tuple(leaf.shape), view, cfg), params)
-
-
-def _prod(mesh: MeshView, axes) -> int:
-    n = 1
-    for a in axes:
-        n *= mesh.shape[a]
-    return max(n, 1)
-
-
-def _dp(view: MeshView):
-    """The data-parallel axes as a spec entry: a tuple, or a lone name as
-    ``PartitionSpec`` writes a tuple of one."""
-    dp = tuple(a for a in ("pod", "data") if a in view.axis_names)
-    return dp[0] if len(dp) == 1 else dp
-
-
-def _dp_size(view: MeshView, dp) -> int:
-    return _prod(view, (dp,) if isinstance(dp, str) else dp)
-
-
-def batch_shardings(batch, mesh):
-    """Batch dim over (pod, data); everything else replicated."""
-    view = MeshView(mesh)
-    dp = _dp(view)
-
-    def assign(leaf):
-        spec = [None] * leaf.ndim
-        if leaf.ndim and leaf.shape[0] % _dp_size(view, dp) == 0:
-            spec[0] = dp
-        return tuple(spec)
-
-    return tree_map_with_path(lambda _, leaf: assign(leaf), batch)
-
-
-def cache_shardings(cache, mesh, cfg: ArchConfig):
-    """The JAX package's KV-cache rule: shard the largest dim over (pod,data)
-    (the batch dim for batched decode, the cache-length dim for long_500k
-    at batch 1) and the largest remaining divisible dim over "model".
-
-    Layout: (n_periods, B, Hkv, L, Dh) for k/v; mamba state (n_per, B, H, P, N).
-    Dim 0 (the stack of periods) is never sharded.  The cache the models
-    execute with is placed otherwise (``models.transformer``: batch over the
-    data axes, KV heads over model): the decode kernel takes whole cache
-    lengths and head dims (ROADMAP Queue 3)."""
-    view = MeshView(mesh)
-    dp = _dp(view)
-    dpn = _dp_size(view, dp)
-    mdl = view.shape.get("model", 1) if "model" in view.axis_names else 1
-
-    def assign(leaf):
-        if leaf.ndim <= 1:
-            return ()
-        spec = [None] * leaf.ndim
-        cand = sorted(range(1, leaf.ndim), key=lambda i: -leaf.shape[i])
-        for i in cand:
-            if dp and leaf.shape[i] % dpn == 0:
-                spec[i] = dp
-                break
-        for i in cand:
-            if spec[i] is None and mdl > 1 and leaf.shape[i] % mdl == 0:
-                spec[i] = "model"
-                break
-        return tuple(spec)
-
-    return tree_map_with_path(
-        lambda _, leaf: assign(leaf) if hasattr(leaf, "ndim") else (), cache)
-
-
-def replicated(tree, mesh):
-    return tree_map_with_path(lambda _, leaf: (), tree)
 
 
 def distribute_params(params, mesh, cfg: ArchConfig, requires_grad=None):

@@ -31,11 +31,34 @@ as its out-of-place name):
   factories move bytes and count no FLOPs, as ``convert``, ``copy``, ``pad``,
   ``broadcast`` and ``iota`` do.
 
-One card runs no collective: ``collective_*`` are 0 and ``{}``.
+- **collectives**: the ``c10d`` ops of ``torch.distributed`` (a real or a
+  fake process group), named as HLO names them (:data:`COLLECTIVES`).  A
+  collective's bytes are those it logically moves, by ``HloAnalysis``'s
+  rule: the gathered result of an all-gather, the unscattered input of a
+  reduce-scatter, the operand of every other kind.  They are summed by
+  kind, by mesh axis (the
+  name of the group's mesh dimension) and by site, the innermost frame of
+  ``repro_torch.models`` or ``repro_torch.launch`` at the call.  As HLO's
+  collective instructions do in ``HloAnalysis``, a collective adds no FLOPs
+  and adds its operand and result bytes to ``bytes_accessed``.
+
+With no mesh nothing calls a collective: ``collective_*`` are 0 and ``{}``.
+
+:func:`trace_step` is the dry run's trace: it keeps autograd on (a train
+step's backward is traced too), returns the function's result and its
+counter, and follows the peak of the live bytes of every storage the
+function creates (the counterpart of XLA's
+``temp_size_in_bytes``; a weak reference per storage sees it freed).
 """
 from __future__ import annotations
 
+import os
+import sys
+import weakref
+
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -55,8 +78,27 @@ UNREAD_TEMPLATE = frozenset({"empty_like", "zeros_like", "ones_like",
                              "full_like", "rand_like", "randn_like"})
 UNWRITTEN = frozenset({"empty", "empty_like", "empty_strided"})
 
+# c10d op (overload packet name) -> the collective's HLO name
+COLLECTIVES = {
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_coalesced_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+    "broadcast_": "collective-broadcast",
+    "send": "collective-permute", "recv_": "collective-permute"}
+# schema arguments that hold a collective's operands, and its results (an
+# op with no result argument writes its operands in place)
+_OPERAND_ARGS = ("tensors", "input_tensors", "input_tensor", "inputs", "input",
+                 "input_list")
+_RESULT_ARGS = ("output_tensors", "output_tensor", "outputs", "output",
+                "output_lists")
+_SITE_DIRS = tuple(os.path.join("repro_torch", d) + os.sep for d in ("models", "launch"))
+
 # H100 SXM5 NVLink 4: 900 GB/s per card (data sheet); one card moves nothing
-# over it, so the term is 0 for every summary this module makes
+# over it, so the term is 0 for every summary of one card
 NVLINK_BW = 900e9
 
 
@@ -65,33 +107,55 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 def _tensors(tree) -> list:
-    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+    """The tensors of ``tree``; of a DTensor, this rank's local shard."""
+    return [x._local_tensor if isinstance(x, DTensor) else x
+            for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
 
 
 class _Counter(TorchDispatchMode):
-    """Accumulates the counts of every aten op dispatched under it."""
+    """Accumulates the counts of every aten and c10d op dispatched under it.
+    ``axes`` maps a process group's name to its mesh axis; ``memory``
+    follows the live bytes of the storages the traced ops create."""
 
-    def __init__(self):
+    def __init__(self, axes=None, memory: bool = False):
         super().__init__()
         self.dot_flops = 0.0
         self.ew_flops = 0.0
         self.bytes_accessed = 0.0
+        self.coll_bytes: dict = {}
+        self.coll_count: dict = {}
+        self.coll_axis_bytes: dict = {}
+        self.coll_sites: dict = {}
+        self._axes = axes or {}
+        self._memory = memory
+        self._live: dict = {}           # storage key -> bytes
+        self.live_bytes = 0
+        self.peak_bytes = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         name = func.overloadpacket.__name__
+        if func.namespace in ("c10d", "_c10d_functional"):
+            if name not in COLLECTIVES:         # a functional collective, a barrier
+                raise NotImplementedError(f"the trace has no count for {func}")
+            self._collective(func, COLLECTIVES[name], args, kwargs)
+            return out
         inplace = name.endswith("_") and not name.startswith("_")
         base = name[:-1] if inplace else name
         operands = _tensors((args, kwargs))
         results = _tensors(out)
         if base in DOTS:
-            self.dot_flops += 2.0 * results[0].numel() * args[0].shape[-1]
+            self.dot_flops += 2.0 * results[0].numel() * operands[0].shape[-1]
         elif base in ELEMENTWISE:
             self.ew_flops += sum(r.numel() for r in results)
         elif base in REDUCTIONS:
             self.ew_flops += operands[0].numel()
         self.bytes_accessed += self._bytes(func, base, inplace, operands, results)
+        if self._memory and not (func.is_view or inplace):
+            held = {t.untyped_storage()._cdata for t in operands}
+            for r in results:
+                self._track(r, held)
         return out
 
     @staticmethod
@@ -104,21 +168,103 @@ class _Counter(TorchDispatchMode):
         written = [] if (inplace or base in UNWRITTEN) else results
         return sum(_nbytes(t) for t in read) + sum(_nbytes(t) for t in written)
 
+    def _collective(self, func, kind: str, args, kwargs) -> None:
+        bound = dict(zip((a.name for a in func._schema.arguments), args), **kwargs)
+        operand = sum(_nbytes(t) for n in _OPERAND_ARGS for t in _tensors(bound.get(n)))
+        result = sum(_nbytes(t) for n in _RESULT_ARGS for t in _tensors(bound.get(n)))
+        group = dist.ProcessGroup.unbox(bound["process_group"]).group_name
+        self.bytes_accessed += operand + (result or operand)
+        moved = result if kind == "all-gather" else operand
+        self.coll_bytes[kind] = self.coll_bytes.get(kind, 0) + moved
+        self.coll_count[kind] = self.coll_count.get(kind, 0) + 1
+        axis = self._axes.get(group, f"group {group}")
+        self.coll_axis_bytes[axis] = self.coll_axis_bytes.get(axis, 0) + moved
+        site = _site()
+        self.coll_sites[site] = self.coll_sites.get(site, 0) + moved
+
+    def _track(self, t: torch.Tensor, held) -> None:
+        storage = t.untyped_storage()
+        key = storage._cdata
+        if key in self._live or key in held:
+            return
+        self._live[key] = n = storage.nbytes()
+        self.live_bytes += n
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        weakref.finalize(storage, self._free, key)
+
+    def _free(self, key) -> None:
+        self.live_bytes -= self._live.pop(key)
+
+    def summary(self) -> dict:
+        """The keys of ``HloAnalysis.summary()``."""
+        return {"flops": self.dot_flops + self.ew_flops,
+                "dot_flops": self.dot_flops, "ew_flops": self.ew_flops,
+                "bytes_accessed": self.bytes_accessed,
+                "collective_bytes": dict(self.coll_bytes),
+                "collective_count": dict(self.coll_count),
+                "collective_total_bytes": sum(self.coll_bytes.values())}
+
+    def top_collective_sites(self, n: int = 8) -> list:
+        return sorted(self.coll_sites.items(), key=lambda kv: -kv[1])[:n]
+
+
+def _site() -> str:
+    """``file:line function`` of the innermost frame of the models or the
+    launch code on the stack (this module's own frames excluded)."""
+    f = sys._getframe(2)
+    while f is not None:
+        path = f.f_code.co_filename
+        for d in _SITE_DIRS:
+            i = path.rfind(d)
+            if i >= 0 and not path.endswith("trace_analysis.py"):
+                return f"{path[i:]}:{f.f_lineno} {f.f_code.co_name}"
+        f = f.f_back
+    return "?"
+
+
+def _mesh_axes() -> dict:
+    """{process group name: mesh axis} of the active mesh, and "world" for
+    the default group (int8 compression's shared scale)."""
+    from repro_torch.distributed import context as ctx
+    mesh = ctx.get_mesh()
+    if mesh is None:
+        return {}
+    axes = {mesh.get_group(a).group_name: a for a in mesh.mesh_dim_names}
+    axes.setdefault(dist.group.WORLD.group_name, "world")
+    return axes
+
+
+def _check_meta(args, kwargs, host_scalars: bool = False) -> None:
+    """Every tensor argument on ``meta`` (with ``host_scalars``, 0-d CPU
+    tensors too, as AdamW's step counter)."""
+    for t in _tensors((args, kwargs)):
+        if t.device.type != "meta" and not (host_scalars and t.device.type == "cpu"
+                                            and t.dim() == 0):
+            raise ValueError(f"the trace runs on meta tensors; got one on {t.device}")
+
 
 def trace_summary(fn, *args, **kwargs) -> dict:
-    """``fn(*args, **kwargs)`` traced on the meta device: the keys of
-    ``HloAnalysis.summary()``.  Tensor arguments must be on ``meta``."""
-    for t in _tensors((args, kwargs)):
-        if t.device.type != "meta":
-            raise ValueError(f"trace_summary runs on meta tensors; got one on {t.device}")
-    counter = _Counter()
+    """``fn(*args, **kwargs)`` traced on the meta device without autograd:
+    the keys of ``HloAnalysis.summary()``.  Tensor arguments must be on
+    ``meta``."""
+    _check_meta(args, kwargs)
+    counter = _Counter(_mesh_axes())
     with torch.no_grad(), counter:
         fn(*args, **kwargs)
-    return {"flops": counter.dot_flops + counter.ew_flops,
-            "dot_flops": counter.dot_flops, "ew_flops": counter.ew_flops,
-            "bytes_accessed": counter.bytes_accessed,
-            "collective_bytes": {}, "collective_count": {},
-            "collective_total_bytes": 0}
+    return counter.summary()
+
+
+def trace_step(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` traced on the meta device with autograd as
+    the caller left it, under the active mesh; returns ``(result,
+    counter)``.  The counter's ``peak_bytes`` is the peak of the live bytes
+    of the storages ``fn`` created.  Tensor arguments must be on ``meta``,
+    but for 0-d CPU tensors."""
+    _check_meta(args, kwargs, host_scalars=True)
+    counter = _Counter(_mesh_axes(), memory=True)
+    with counter:
+        out = fn(*args, **kwargs)
+    return out, counter
 
 
 def roofline_terms(summary: dict) -> dict:

@@ -1,26 +1,21 @@
 """The port's sharding rules against the JAX package's: ``_spec_for`` on the
 seeded cases of ``tests/test_distributed.py`` (the same generator, seed and
 duck-typed meshes), its invariants, ``placements`` on hand-worked cases, and
-the parameter, batch and cache rules over the reduced architectures."""
+the parameter rules over the reduced architectures."""
 import dataclasses
 import random
 
 import jax
-import numpy as np
 import pytest
 import torch
 from torch.distributed.tensor import Replicate, Shard
 
 from repro.configs.registry import ARCHS as JAX_ARCHS
 from repro.distributed.sharding import _spec_for as jax_spec_for
-from repro.distributed.sharding import batch_shardings as jax_batch_shardings
-from repro.distributed.sharding import cache_shardings as jax_cache_shardings
-from repro.models import init_decode_cache as jax_init_decode_cache
 from repro.models import init_params as jax_init_params
 from repro_torch.configs.registry import ARCHS, get_arch
-from repro_torch.distributed.sharding import (_spec_for, batch_shardings, cache_shardings,
-                                              param_shardings, placements, replicated)
-from repro_torch.models import init_decode_cache, init_params
+from repro_torch.distributed.sharding import _spec_for, param_shardings, placements
+from repro_torch.models import init_params
 from repro_torch.tree import tree_leaves, tree_map_with_path
 
 
@@ -108,45 +103,6 @@ def test_param_shardings_cover_the_tree_as_jax_assigns(arch):
     tree_map_with_path(lambda p, s: got.__setitem__("/".join(p), s), specs)
     assert got == want
     assert any(any(a is not None for a in s) for s in got.values())
-
-
-def test_batch_and_cache_shardings_equal_jax_on_a_mesh_of_one():
-    """On JAX's one-device (data=1, model=1) mesh, the batch and cache specs
-    are the JAX package's (the cache's "pos" is a Python int in the port)."""
-    jmesh = jax.make_mesh((1, 1), ("data", "model"))
-    mesh = FakeMesh(data=1, model=1)
-    batch = {"tokens": np.zeros((4, 16), np.int32), "labels": np.zeros((4, 16), np.int32),
-             "enc_frames": np.zeros((4, 16, 8), np.float32)}
-    jb = jax_batch_shardings(batch, jmesh)
-    tb = batch_shardings({k: torch.from_numpy(v) for k, v in batch.items()}, mesh)
-    assert {k: tuple(v.spec) for k, v in jb.items()} == tb
-    for arch in ("jamba-v0.1-52b", "seamless-m4t-medium", "gemma2-27b"):
-        cfg, jcfg = ARCHS[arch].reduced(), JAX_ARCHS[arch].reduced()
-        tc = init_decode_cache(cfg, 4, 32, enc_len=8 if cfg.enc_dec else 0)
-        jc = jax_init_decode_cache(jcfg, 4, 32, enc_len=8 if cfg.enc_dec else 0)
-        got = cache_shardings(tc["layers"], mesh, cfg)
-        want = jax.tree_util.tree_map(lambda s: tuple(s.spec),
-                                      jax_cache_shardings(jc["layers"], jmesh, jcfg))
-        assert got == want, arch
-
-
-def test_cache_and_batch_shardings_hand_worked():
-    """The rule on a larger mesh: the largest divisible dim over the data
-    axes (the batch for batched decode, the cache length at batch 1), then
-    the largest remaining divisible dim over model; dim 0 never."""
-    mesh = FakeMesh(pod=2, data=2, model=2)
-    cfg = ARCHS["jamba-v0.1-52b"].reduced()
-    cache = {"k": torch.zeros(2, 8, 1, 64, 16), "one": torch.zeros(2, 1, 1, 64, 16),
-             "ssm": torch.zeros(2, 32, 8, 16, 16), "scalar": torch.zeros(3)}
-    assert cache_shardings(cache, mesh, cfg) == {
-        "k": (None, None, None, ("pod", "data"), "model"),
-        "one": (None, None, None, ("pod", "data"), "model"),
-        "ssm": (None, ("pod", "data"), None, "model", None),
-        "scalar": ()}
-    assert batch_shardings({"t": torch.zeros(8, 3), "odd": torch.zeros(6, 3)}, mesh) == {
-        "odd": (None, None), "t": (("pod", "data"), None)}
-    assert tree_leaves(replicated({"a": torch.zeros(2), "b": {"c": torch.zeros(1)}},
-                                  mesh)) == [(), ()]
 
 
 def test_distribute_params_on_one_rank_wraps_without_a_copy(tmp_path):
