@@ -192,7 +192,23 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  greedy tokens through BatchedServer on the mesh and off it,
                  every launch held against its plain version: equal tokens,
                  the serve phase's launches per group (every kernel on its
-                 rank's local shard), prefill and step ms of both paths
+                 rank's local shard), prefill and step ms of both paths;
+                 (c) checkpoint_restart: the train phase's ResilientRunner
+                 (reduced TRAIN_ARCH, a checkpoint every 2 steps, one fault
+                 at TRAIN_RESTART_FAULT) on the mesh, its state DTensors,
+                 each save gathering them, the restore placing them with
+                 train_state_shardings: the final loss equal to the
+                 uninterrupted mesh run's exactly, the restored parameters
+                 and moments DTensors on cuda, no kernel launch; the
+                 seconds of every save and restore (both runs) and the
+                 checkpoint's bytes beside nvidia-smi's name and power limit;
+                 (d) checkpoint_full_width: one save and one restore of
+                 TRAIN_ARCH's fp32 train state at full width, cut to
+                 CKPT_LAYERS layers (every leaf at its published shape;
+                 parameters, mu and nu drawn from the seed), on the mesh:
+                 every restored shard equal to the saved one on the card,
+                 DTensors on cuda, the seconds and GB/s of each, the
+                 checkpoint's bytes and the peak device memory
   dryrun         the dry run (repro_torch.launch.dryrun) in one subprocess,
                  which must never initialise CUDA: mamba2-780m decode_32k on
                  the 256- and 512-rank fake meshes, qwen2-7b prefill_32k and
@@ -297,6 +313,7 @@ TRAIN_PEAK_SHARE = 0.9      # peak memory, share of the card's
 MESH_TRAIN_STEPS = 2        # full-width train steps on each path of the mesh phase
 MESH_LOSS_REL = 1e-3        # first-step loss, mesh vs unsharded (relative)
 MESH_SERVE_NEW = 8          # greedy tokens of the mesh phase's one group
+CKPT_LAYERS = 1             # the full-width checkpoint: depth cut 28 -> 1 (~16 GB of fp32)
 DRYRUN_CELLS = (("mamba2-780m", "decode_32k", (False, True)),   # (arch, cell, multi_pod)
                 ("qwen2-7b", "prefill_32k", (False,)), ("qwen2-7b", "train_4k", (False,)))
 # mamba2-780m decode_32k on the 256-rank mesh: tests/test_torch_dryrun.py's PINNED_POD1
@@ -1659,26 +1676,54 @@ def _train_card_vs_cpu(faults: list) -> dict:
     return out
 
 
-def _train_restart(faults: list) -> dict:
+def _train_restart(faults: list, mesh=None) -> dict:
     """A ResilientRunner over reduced TRAIN_ARCH on the card, checkpointing
     every 2 steps, with one fault raised at TRAIN_RESTART_FAULT, against
-    the same run uninterrupted."""
+    the same run uninterrupted.  Under ``mesh`` (the mesh phase) the state
+    is DTensors, each save gathers it, ``load`` places the restored tensors
+    with ``train_state_shardings``, and the final loss must equal the
+    uninterrupted mesh run's exactly; the seconds of every save and
+    restore and the checkpoint's bytes are printed, and no kernel may
+    launch."""
     import shutil
 
     import torch
+    from torch.distributed.tensor import DTensor
 
-    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint import Checkpointer, place
     from repro_torch.configs.registry import get_arch
     from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import context as ctx
     from repro_torch.distributed.fault_tolerance import FaultPolicy, ResilientRunner
+    from repro_torch.distributed.sharding import distribute_params, train_state_shardings
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssd as sm
     from repro_torch.launch.train import batch_to_device, make_train_step
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig, AdamWState, adamw_init
-    from repro_torch.tree import tree_map
+    from repro_torch.tree import tree_leaves, tree_map
 
     cfg = get_arch(TRAIN_ARCH).reduced()
     weights = init_params(cfg, torch.Generator().manual_seed(1))
     directory = os.path.join(HERE, "build", "train_restart")
+    timed = {"save_s": [], "restore_s": [], "checkpoint_bytes": None, "placed": []}
+
+    class TimedCheckpointer(Checkpointer):
+        def save(self, step, state, extra=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = super().save(step, state, extra)
+            timed["save_s"].append(time.perf_counter() - t0)
+            timed["checkpoint_bytes"] = sum(os.path.getsize(os.path.join(path, f))
+                                            for f in os.listdir(path))
+            return path
+
+        def restore(self, step=None, shardings=None, device=None):
+            t0 = time.perf_counter()
+            out = super().restore(step, shardings=shardings, device=device)
+            timed["restore_s"].append(time.perf_counter() - t0)
+            return out
 
     def run(fault_at):
         step = make_train_step(cfg, AdamWConfig(lr=3e-3, warmup_steps=1,
@@ -1702,13 +1747,26 @@ def _train_restart(faults: list) -> dict:
 
         def load(tree, extra):
             pipe.load_state_dict(extra["pipeline"])
-            tree = tree_map(lambda t: t.to("cuda"), tree)
+            if mesh is None:
+                tree = tree_map(lambda t: t.to("cuda"), tree)
+            else:                   # the restore's second half: this rank's shards
+                t0 = time.perf_counter()
+                tree = place(tree, train_state_shardings(weights, mesh, cfg), device="cuda")
+                torch.cuda.synchronize()
+                timed["restore_s"][-1] += time.perf_counter() - t0
+                o = tree["opt_state"]
+                timed["placed"].append(all(
+                    isinstance(t, DTensor) and t.device.type == "cuda"
+                    for t in tree_leaves(tree["params"]) + tree_leaves(o["mu"])
+                    + tree_leaves(o["nu"])))
             o = tree["opt_state"]
             return tree["params"], AdamWState(o["step"], o["mu"], o["nu"]), extra["loss"]
 
         shutil.rmtree(directory, ignore_errors=True)
         params = tree_map(lambda t: t.clone().to("cuda"), weights)
-        runner = ResilientRunner(Checkpointer(directory, keep=2),
+        if mesh is not None:
+            params = distribute_params(params, mesh, cfg)
+        runner = ResilientRunner(TimedCheckpointer(directory, keep=2),
                                  FaultPolicy(max_restarts=2, checkpoint_every=2), save, load)
         try:
             final, end = runner.run((params, adamw_init(params), float("nan")), step_fn,
@@ -1717,15 +1775,35 @@ def _train_restart(faults: list) -> dict:
             shutil.rmtree(directory, ignore_errors=True)
         return final[2], end, runner
 
-    clean_loss, _, clean = run(None)
-    loss, end, runner = run(TRAIN_RESTART_FAULT)
+    kernels = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
+               "ssd_chunked": sm.ssd_chunked}
+    ctx.set_mesh(mesh)
+    try:
+        torch.cuda.synchronize()
+        before = {name: fn.launches for name, fn in kernels.items()}
+        clean_loss, _, clean = run(None)
+        loss, end, runner = run(TRAIN_RESTART_FAULT)
+        torch.cuda.synchronize()
+    finally:
+        ctx.set_mesh(None)
+    launches = {name: fn.launches - before[name] for name, fn in kernels.items()}
     rel = abs(loss - clean_loss) / abs(clean_loss)
     out = {"final_loss": loss, "uninterrupted_final_loss": clean_loss, "rel": rel,
            "end_step": end, "restarts": runner.restarts, "events": runner.events,
            "uninterrupted_restarts": clean.restarts}
-    emit({"phase": "train", "check": "checkpoint_restart", **out, "tol": TRAIN_RESTART_REL})
-    if not (rel <= TRAIN_RESTART_REL and runner.restarts == 1 and clean.restarts == 0
-            and end == TRAIN_RESTART_STEPS):
+    ok = (runner.restarts == 1 and clean.restarts == 0 and end == TRAIN_RESTART_STEPS)
+    if mesh is None:
+        emit({"phase": "train", "check": "checkpoint_restart", **out, "tol": TRAIN_RESTART_REL})
+        ok = ok and rel <= TRAIN_RESTART_REL
+    else:
+        out.update(equal=loss == clean_loss, restored_dtensors_on_cuda=timed["placed"],
+                   save_s=timed["save_s"], restore_s=timed["restore_s"],
+                   checkpoint_bytes=timed["checkpoint_bytes"], launches=launches,
+                   nvidia_smi=nvidia_smi())
+        emit({"phase": "mesh", "part": "checkpoint_restart", "arch": cfg.name, **out})
+        ok = (ok and out["equal"] and timed["placed"] == [True]
+              and not any(launches.values()))
+    if not ok:
         faults.append(f"checkpoint-restart: {out}")
     return out
 
@@ -1856,6 +1934,81 @@ def _mesh_train(faults: list, mesh) -> dict:
     return out
 
 
+def _mesh_checkpoint_full(faults: list, mesh) -> dict:
+    """One save and one restore of TRAIN_ARCH's fp32 train state (params,
+    AdamW step, mu, nu) at full width and CKPT_LAYERS layers on the mesh:
+    the gather and host copy of each leaf, rank 0's npz and its hash, the
+    hash and load on the restore and each shard's copy to the card, at the
+    leaves' real sizes.  Every restored leaf must be placed as it was saved,
+    with an equal local shard."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import _leaves
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed import context as ctx
+    from repro_torch.distributed.sharding import distribute_params, train_state_shardings
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=CKPT_LAYERS)
+    directory = os.path.join(HERE, "build", "checkpoint_full")
+    shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = init_params(cfg, gen, device="cuda", dtype=torch.float32)
+
+    def drawn(scale):
+        return distribute_params(tree_map(lambda p: torch.randn(
+            p.shape, generator=gen, device="cuda").mul_(scale).abs_(), params), mesh, cfg)
+
+    placed = distribute_params(params, mesh, cfg)
+    state = {"params": placed,
+             "opt_state": {"step": torch.ones((), dtype=torch.int32, device="cuda"),
+                           "mu": drawn(1e-3), "nu": drawn(1e-6)}}
+    ck = Checkpointer(directory, keep=1)
+    ctx.set_mesh(mesh)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ck.save(1, state)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        t0 = time.perf_counter()
+        _, got, _ = ck.restore(1, shardings=train_state_shardings(params, mesh, cfg),
+                               device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        saved, back = _leaves(state), _leaves(got)
+        bad = sorted(k for k in saved if k not in back or not (
+            torch.equal(back[k], saved[k]) if not isinstance(saved[k], DTensor) else
+            isinstance(back[k], DTensor) and back[k].device.type == "cuda"
+            and back[k].placements == saved[k].placements
+            and torch.equal(back[k].to_local(), saved[k].to_local())))
+    finally:
+        ctx.set_mesh(None)
+        shutil.rmtree(directory, ignore_errors=True)
+    n = sum(p.numel() for p in _leaves(params).values())
+    largest = max(_leaves(params).items(), key=lambda kv: kv[1].numel())
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "params_b": n / 1e9,
+           "leaves": len(saved), "largest_leaf": [largest[0], list(largest[1].shape)],
+           "checkpoint_bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+           "save_gb_per_s": nbytes / save_s / 1e9, "restore_gb_per_s": nbytes / restore_s / 1e9,
+           "peak_gib": peak / 2 ** 30, "unequal": bad, "nvidia_smi": nvidia_smi()}
+    emit({"phase": "mesh", "part": "checkpoint_full_width", **out})
+    if bad or len(back) != len(saved):
+        faults.append(f"full-width checkpoint: {len(bad)} leaves restored unequal: {bad[:5]}")
+    del state, got, placed, params, saved, back
+    torch.cuda.empty_cache()
+    return out
+
+
 def _mesh_serve(faults: list, mesh) -> dict:
     """SERVE_ARCH at full width, one group through BatchedServer on the mesh
     and off it, every launch held against its plain version."""
@@ -1959,7 +2112,9 @@ def phase_mesh(state):
         if backend != "nccl" or mesh.device_type != "cuda":
             faults.append(f"the card mesh is {backend} on {mesh.device_type}")
         parts = {}
-        for name, part in (("train", _mesh_train), ("serve", _mesh_serve)):
+        for name, part in (("train", _mesh_train), ("checkpoint_restart", _train_restart),
+                           ("checkpoint_full_width", _mesh_checkpoint_full),
+                           ("serve", _mesh_serve)):
             t0 = time.perf_counter()
             parts[name] = part(faults, mesh)
             parts[name + "_s"] = time.perf_counter() - t0
@@ -1971,6 +2126,10 @@ def phase_mesh(state):
                                    for p in ("mesh", "unsharded")},
               "serve_step_ms": {p: parts["serve"][f"decode_ms_median_{p}"]
                                 for p in ("mesh", "unsharded")},
+              "checkpoint_restart_equal": parts["checkpoint_restart"]["equal"],
+              "checkpoint_full_width_gb_per_s": {
+                  k: parts["checkpoint_full_width"][f"{k}_gb_per_s"]
+                  for k in ("save", "restore")},
               "launches": parts["serve"]["launches"],
               "seconds": {k: v for k, v in parts.items() if k.endswith("_s")}})
         state["mesh"] = {"launches": parts["serve"]["launches"], **parts}

@@ -1,3 +1,3 @@
-from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.checkpoint.checkpointer import Checkpointer, place
 
-__all__ = ["Checkpointer"]
+__all__ = ["Checkpointer", "place"]

@@ -13,8 +13,9 @@ Under a mesh, ``reduce_gradients`` is the communication hook: it reduces
 each gradient DTensor to its parameter's placements, the "pod" axis in the
 compressed dtype (bf16: the partial gradients all-reduced in bf16;
 int8_ef: one per-tensor scale from an all-reduce MAX of |g + r|, the int8
-codes summed in int32, then dequantised; the residual kept per rank).  With
-one pod that is the round trip above.  With more, the result differs from
+codes summed in int32, then dequantised; the residual kept per rank and
+placed ``Partial`` over "pod", so that its ``full_tensor()`` is the sum of
+the pods' residuals).  With one pod that is the round trip above.  With more, the result differs from
 compressing the reduced gradient, within the quantisation bound (ROADMAP
 Queue 3).
 
@@ -31,12 +32,14 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial
 
 from repro_torch.distributed import context as ctx
-from repro_torch.tree import tree_leaves, tree_map, zeros_like
+from repro_torch.distributed.spmd import grad_placements, zero_grad
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def compress_init(grads):
-    """Error-feedback residual buffers (zeros, same structure as grads)."""
-    return tree_map(lambda g: zeros_like(g, dtype=torch.float32), grads)
+    """Error-feedback residual buffers (fp32 zeros, same structure as
+    grads); a DTensor's placed as its gradient is, ``Partial`` over "pod"."""
+    return tree_map(lambda g: zero_grad(g, dtype=torch.float32), grads)
 
 
 def compress_bf16(grads):
@@ -93,9 +96,12 @@ def reduce_gradients(grads, params, method: str = "none", residual=None):
     parameter's placements, and summed over "pod" in the compressed dtype of
     ``method``: the backward leaves each pod its own gradient, placed
     ``Partial`` over "pod" (``spmd.grad_placements``), and a gradient placed
-    otherwise there raises.  Without a mesh, ``apply_grad_compression``.  Returns (grads_f32, new_residual); the
-    residual's leaves are DTensors placed as the parameters, whose local
-    shard is this rank's own."""
+    otherwise there raises.  Without a mesh, ``apply_grad_compression``.
+    Returns (grads_f32, new_residual); the residual's leaves are DTensors
+    whose local shard is this rank's own, placed as the parameters but
+    ``Partial`` over "pod": the pods' residuals differ, and their sum is
+    the error left in the reduced gradient, which ``full_tensor()`` and a
+    checkpoint hold."""
     mesh = ctx.get_mesh()
     if mesh is None:
         return apply_grad_compression(grads, method, residual)
@@ -139,7 +145,7 @@ def reduce_gradients(grads, params, method: str = "none", residual=None):
                 dist.all_reduce(q32, group=pod_group)
                 qv = q32.float()
             gl = qv * scale
-            out_r.append(DTensor.from_local(new_r, mesh, p.placements, run_check=False))
+            out_r.append(DTensor.from_local(new_r, mesh, grad_placements(p), run_check=False))
         out_g.append(DTensor.from_local(gl, mesh, p.placements, run_check=False))
     it_g, it_r = iter(out_g), iter(out_r)
     new_grads = tree_map(lambda _: next(it_g), params)

@@ -83,6 +83,15 @@ class ResilientRunner:
     ``step_fn(state, step_idx) -> state`` may raise (simulated preemption /
     hardware fault); the runner restores from the last checkpoint and
     continues, up to ``policy.max_restarts`` times.
+
+    Under a mesh every rank runs the runner with the same policy.  Saving
+    is then a collective (``Checkpointer.save``), and a fault raised on
+    every rank at the same step (a preempted job) restores every rank from
+    one checkpoint: the restore hands ``load_state_fn`` whole tensors, and
+    the caller's ``load_state_fn`` places them
+    (``checkpoint.place(tree, shardings)``, with
+    ``sharding.train_state_shardings``).  A fault on some ranks only leaves
+    the others in a collective; the runner does not recover from that.
     """
 
     def __init__(self, checkpointer: Checkpointer, policy: FaultPolicy,

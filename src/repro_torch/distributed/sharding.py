@@ -28,7 +28,8 @@ from __future__ import annotations
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.tree import tree_map_with_path
+from repro_torch.distributed.spmd import pod_partial
+from repro_torch.tree import tree_map, tree_map_with_path
 
 
 class MeshView:
@@ -135,6 +136,21 @@ def param_shardings(params, mesh, cfg: ArchConfig):
     view = MeshView(mesh)
     return tree_map_with_path(
         lambda path, leaf: _spec_for(_path_str(path), tuple(leaf.shape), view, cfg), params)
+
+
+def train_state_shardings(params, mesh, cfg: ArchConfig, residual: bool = False) -> dict:
+    """The placements of a train state saved as ``{"params", "opt_state":
+    {"step", "mu", "nu"}, "residual"}`` (``residual`` only with it), for
+    ``Checkpointer.restore(shardings=)``: the parameters and AdamW moments
+    placed by ``param_shardings``, an ``int8_ef`` residual alike but
+    ``Partial`` over "pod" (each pod's own, ``collectives.compress_init``),
+    the AdamW step None (a plain tensor)."""
+    names = MeshView(mesh).axis_names
+    pl = tree_map(lambda spec: placements(spec, mesh), param_shardings(params, mesh, cfg))
+    state = {"params": pl, "opt_state": {"step": None, "mu": pl, "nu": pl}}
+    if residual:
+        state["residual"] = tree_map(lambda p: pod_partial(p, names), pl)
+    return state
 
 
 def distribute_params(params, mesh, cfg: ArchConfig, requires_grad=None):

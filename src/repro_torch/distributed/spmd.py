@@ -193,24 +193,30 @@ def batch_axes_sum(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def pod_partial(placements, names) -> tuple:
+    """``placements`` on a mesh with axes ``names``, but ``Partial`` over
+    "pod": each pod holds its own part, and the whole is their sum."""
+    return tuple(Partial() if n == "pod" else p for n, p in zip(names, placements))
+
+
 def grad_placements(leaf: DTensor) -> tuple:
     """The placements of a parameter's gradient from the backward: the
     parameter's, but ``Partial`` over "pod" (each pod's own gradient)."""
-    return tuple(Partial() if n == "pod" else p
-                 for n, p in zip(leaf.device_mesh.mesh_dim_names, leaf.placements))
+    return pod_partial(leaf.placements, leaf.device_mesh.mesh_dim_names)
 
 
 def _local(leaf: DTensor) -> torch.Tensor:
     return leaf.to_local(grad_placements=grad_placements(leaf))
 
 
-def zero_grad(leaf):
+def zero_grad(leaf, dtype=None):
     """The zero gradient of a parameter the loss did not reach, placed as
-    the backward places a gradient."""
+    the backward places a gradient (in ``dtype``, the parameter's when
+    None)."""
     if not isinstance(leaf, DTensor):
-        return torch.zeros_like(leaf)
-    return DTensor.from_local(torch.zeros_like(leaf.to_local()), leaf.device_mesh,
-                              grad_placements(leaf), run_check=False)
+        return torch.zeros_like(leaf, dtype=dtype)
+    return DTensor.from_local(torch.zeros_like(leaf.to_local(), dtype=dtype),
+                              leaf.device_mesh, grad_placements(leaf), run_check=False)
 
 
 def unstack(leaf) -> list:
