@@ -22,11 +22,14 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  phi-3-vision-4.2b (96), and the gate's verdicts through
                  kernel and plain version
   decode_kernel  flash_decode vs its plain version walking the same splits:
-                 fp32 over split count, rep, head_dim (16, 64, 128), ragged
-                 L, per-sequence valid_len and softcap; bf16 at the served
-                 Jamba shape under its bounds at several split counts, with
-                 a wrong version (valid_len - 1) the bounds must reject; bf16
-                 at head_dim 64, 96 and 120 (the last two zero-padded to 128)
+                 fp32 on the simt body over split count, rep, head_dim (16,
+                 64, 128), ragged L, per-sequence valid_len and softcap; bf16
+                 on the wgmma body at the served Jamba shape under its bounds
+                 at several split counts (two identical calls bit-equal),
+                 with a wrong version (valid_len - 1) the bounds must reject,
+                 and at head_dim 64, 96 and 120 (no copy); the wgmma body's
+                 CTAs per SM against the split rule's; one kernel a bf16 call
+                 (torch.profiler)
   ssd_kernel     ssd_chunked vs its plain version: fp32 on the serial body
                  over (P, N), chunk, ragged L and H; bf16 on the chunked body
                  over the same grid and at the served Jamba shape under its
@@ -141,7 +144,10 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  plain version; the teacher-forced agreement of kernel and
                  plain paths is printed beside witnesses (blocked vs plain:
                  no kernel; both again with the MoE routing frozen to the
-                 plain path's); reduced Jamba's tokens on the card
+                 plain path's); every flash_decode call on the wgmma body,
+                 and the requests' tokens again with it and with every call
+                 routed to the simt body: equal, or a rounding tie at the
+                 first difference; reduced Jamba's tokens on the card
                  must equal the CPU reference path's, and so must those of
                  reduced h2o-danube-3-4b and phi-3-vision-4.2b at their
                  published head dims (120, 96) with impl="auto"
@@ -152,10 +158,11 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  prompt's length, as the JAX package feeds them): 36
                  flash_attention launches per group (encoder, self- and
                  cross-attention, all on the wgmma body), 24 flash_decode
-                 calls per decode step (the self and the cross cache), no
-                 ssd_chunked, every launch of the first group held against
-                 its plain version, and a torch.profiler reading of the
-                 second group (as serve's); (b) prefill and ENCDEC_STEPS
+                 calls per decode step (the self and the cross cache, all on
+                 the wgmma body), no ssd_chunked, every launch of the first
+                 group held against its plain version, a torch.profiler
+                 reading of the second group (as serve's) and the tokens on
+                 the simt body (as serve's); (b) prefill and ENCDEC_STEPS
                  decode steps with seeded random frames (ENCDEC_FRAMES
                  frames, ENCDEC_PROMPT-token prompts), every launch held
                  against its plain version, the cross shapes, the plain path
@@ -225,16 +232,18 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  turns (mma_sync, wgmma, wgmma, mma_sync), for the seed, a
                  fixed pipelined genome and the search's best at every
                  mha_suite shape, and at the served prefill; flash_decode
-                 (one split against the wrapper's split count, in turns, and
-                 a sweep of split counts) and ssd_chunked (the serial body
-                 against the chunked one, in turns) at the served shapes:
-                 kernel ms, bound ms, plain
+                 (its wgmma body against its simt body, in turns, each beside
+                 its device time with the host's enqueue hidden behind a
+                 spin kernel, again after a flush that writes, and a sweep
+                 of split counts) and ssd_chunked
+                 (the serial body against the chunked one, in turns) at the
+                 served shapes: kernel ms, bound ms, plain
                  ms, and a library yardstick where one PyTorch call computes
                  the same function; both attention kernels at head_dim 120
                  and 96 beside 128; both attention kernels in
                  seamless-m4t-medium's roles (the encoder's non-causal
                  self-attention, cross-attention, decode over the cross
-                 cache) beside SDPA
+                 cache) beside SDPA.  The L2 is flushed by reading 256 MB
   kernels        the summary line of every ported kernel
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
 nothing of the JAX package.
@@ -291,8 +300,12 @@ SERVE_ARCH, SERVE_LAYERS = "jamba-v0.1-52b", 16
 SERVE_BATCH, SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 4, 8, 32, 4096
 SERVE_PROMPT = (1000, 2049)         # prompt lengths drawn in [lo, hi)
 DECODE_SPLITS = (1, 2, 3, 5, 8, None)   # None: the wrapper's split count
-DECODE_SWEEP = (2, 3, 5, 8, 9, 10, 16)  # split counts timed at the served shape
+DECODE_SWEEP = (2, 4, 6, 8, 10, 12, 16)  # wgmma split counts timed at the served shape
 TEACHER_STEPS = 8                   # decode steps of the teacher-forced reading
+# where the served tokens of flash_decode's two bodies part: a tie is two
+# router probabilities, or a token's logit and the best one, within 4 bf16
+# ulps in both runs (two roundings of each of two values), among the top 4
+DECODE_TIE_ULPS, DECODE_TIE_TOP = 4, 4
 ENCDEC_ARCH = "seamless-m4t-medium"         # served at full width and full depth
 ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_STEPS = 1500, 16, 32   # direct part: Se, S, steps
 ENCDEC_CARD_CPU_STEPS = 8                   # reduced fp32 decode steps, card vs CPU
@@ -666,19 +679,40 @@ def _cuda(*arrays):
     return [torch.from_numpy(a).cuda() for a in arrays]
 
 
-def time_cold_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def _l2_flush(kind: str = "read"):
+    """A function that pushes the 50 MB L2 out with 256 MB of traffic:
+    "read" sums a buffer, as the weight reads between two decode steps
+    would; "write" zeroes it, which leaves the L2 full of dirty lines whose
+    write-back then competes with the timed kernel's reads."""
+    import torch
+    buf = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
+    if kind == "write":
+        return buf.zero_
+    words, sink = buf.view(torch.int64), torch.empty(1, dtype=torch.int64, device="cuda")
+    return lambda: torch.sum(words, dim=0, keepdim=True, out=sink)
+
+
+def time_cold_ms(fn, reps: int = 20, warmup: int = 3, flush: str = "read",
+                 cushion: bool = False) -> float:
     """Median CUDA-event milliseconds of ``fn()`` with the L2 cache flushed
-    before every run: on the served path a decode launch finds its K/V cold
-    (the layers between two steps stream gigabytes of weights)."""
+    before every run (``_l2_flush``): on the served path a decode launch
+    finds its K/V cold (the layers between two steps stream gigabytes of
+    weights).  The reading includes any time the host takes to enqueue
+    ``fn``'s work beyond the flush's.  With ``cushion``, a spin kernel of
+    about 1 ms runs between the flush and the start event, so the host has
+    enqueued all of ``fn`` before the card reaches it: the reading is then
+    the card's time for the call alone, host gaps excluded."""
     import statistics
 
     import torch
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    flush_l2 = _l2_flush(flush)
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        flush_l2()
+        if cushion:
+            torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -687,6 +721,38 @@ def time_cold_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernels_a_call(fn, reps: int = 3) -> dict:
+    """The CUDA kernels ``fn()`` launches per call and their names, from
+    torch.profiler (warm, nothing else in the window)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {"kernels_per_call": sum(e.count for e in rows) / reps,
+            "kernels": sorted({e.key[:80] for e in rows})}
+
+
+@contextlib.contextmanager
+def decode_routed_to_simt():
+    """Every flash_decode call inside takes the simt body: the A/B of the
+    served tokens, routed from this script's side (the server has no such
+    option)."""
+    from repro_torch.kernels import flash_decode as fd
+    routed = fd.decode_body
+    fd.decode_body = lambda dtype, head_dim: "simt"
+    try:
+        yield
+    finally:
+        fd.decode_body = routed
 
 
 def _bound(nbytes: float, ops: float) -> tuple:
@@ -724,8 +790,10 @@ def attention_bound(B, Hq, Hkv, S, D, esize=2) -> tuple:
 
 def phase_decode_kernel(state):
     """flash_decode against its plain version walking the same splits: fp32
-    over the axes, bf16 at the served shape under its bounds at several
-    split counts, and a wrong version that must fail."""
+    over the axes on the simt body; bf16 on the wgmma body at the served
+    shape under its bounds at several split counts (two identical calls
+    bit-equal), with a wrong version that must fail, and at the registry's
+    other head dims; the wgmma body's occupancy, and one kernel a call."""
     import itertools
 
     import numpy as np
@@ -737,6 +805,7 @@ def phase_decode_kernel(state):
     rng = np.random.default_rng(1)
     worst_plain = worst_ref = 0.0
     n = 0
+    fp32_before = dict(fd.flash_decode.launches_by_body)
     for rep, D, L, softcap in itertools.product((1, 2, 4, 6, 7, 8), fd.HEAD_DIMS,
                                                (37, 256, 1000), (0.0, 30.0)):
         B, Hkv = 3, 2
@@ -753,10 +822,23 @@ def phase_decode_kernel(state):
             worst_plain = max(worst_plain, float((out - plain).abs().max()))
             worst_ref = max(worst_ref, float((out - ref).abs().max()))
             n += 1
+    fp32_took = {b: fd.flash_decode.launches_by_body[b] - fp32_before[b] for b in fd.BODIES}
     emit({"phase": "decode_kernel", "check": "fp32_grid", "cases": n,
           "splits": [s or "wrapper's" for s in DECODE_SPLITS],
+          "launches_by_body": fp32_took,
           "max_abs_err_vs_plain": worst_plain, "max_abs_err_vs_reference": worst_ref,
           "tol": TOL_F32})
+    faults = []
+    if fp32_took != {"wgmma": 0, "simt": n}:
+        faults.append(f"fp32 launches by body {fp32_took}: all {n} must take simt")
+
+    # the wgmma body's occupancy: the split rule assumes CTAS_PER_SM
+    occupancy = {D: fd.wgmma_ctas_per_sm(D) for D in (64, 128)}
+    emit({"phase": "decode_kernel", "check": "wgmma_ctas_per_sm", "by_head_dim": occupancy,
+          "split_rule_assumes": fd.CTAS_PER_SM, "ring_depth": fd.RING_DEPTH})
+    if set(occupancy.values()) != {fd.CTAS_PER_SM}:
+        faults.append(f"wgmma CTAs per SM {occupancy}, the split rule assumes "
+                      f"{fd.CTAS_PER_SM}")
 
     # bf16 at the served shape: (4, 32, 128) against a (4, 8, 4096, 128) cache
     B, Hq, Hkv, L, D = SERVE_BATCH, 32, 8, SERVE_MAX_LEN, 128
@@ -768,17 +850,23 @@ def phase_decode_kernel(state):
     bounds = {"bound_atol": fd.BF16_ATOL, "bound_rtol_of_magnitude": fd.BF16_RTOL,
               "bound_rel_rms": fd.BF16_REL_RMS, "bound_row_rel_rms": fd.BF16_ROW_REL_RMS}
     verdicts, worst_bf16 = [], 0.0
+    before, checked = dict(fd.flash_decode.launches_by_body), 0
     for softcap in (0.0, 50.0):
         for splits in (auto, 1, 3, 8):
             kw = dict(softcap=softcap, splits=splits)
             plain = fd.flash_decode_plain(q, k, v, vl, **kw)
             mag = fd.flash_decode_plain(q, k, v.abs(), vl, **kw)
-            st = fd.bf16_agreement(fd.flash_decode(q, k, v, vl, impl="kernel", **kw),
-                                   plain, mag)
-            emit({"phase": "decode_kernel", "check": "served_bf16", "softcap": softcap,
-                  "splits": splits, "wrapper_splits": splits == auto, **st, **bounds})
+            out = fd.flash_decode(q, k, v, vl, impl="kernel", **kw)
+            again = fd.flash_decode(q, k, v, vl, impl="kernel", **kw)
+            checked += 2
+            st = fd.bf16_agreement(out, plain, mag)
+            bit_equal = bool(torch.equal(out, again))
+            emit({"phase": "decode_kernel", "check": "served_bf16", "body": "wgmma",
+                  "softcap": softcap, "splits": splits, "wrapper_splits": splits == auto,
+                  "two_calls_bit_equal": bit_equal, **st, **bounds})
             worst_bf16 = max(worst_bf16, st["max_abs_err"])
-            verdicts.append((f"kernel, {splits} splits", softcap, fd.bf16_agrees(st), True))
+            verdicts.append((f"kernel, {splits} splits", softcap,
+                             fd.bf16_agrees(st) and bit_equal, True))
         wrong = fd.flash_decode_plain(q, k, v, vl - 1, softcap=softcap)
         st = fd.bf16_agreement(wrong, fd.flash_decode_plain(q, k, v, vl, softcap=softcap),
                                fd.flash_decode_plain(q, k, v.abs(), vl, softcap=softcap))
@@ -786,30 +874,46 @@ def phase_decode_kernel(state):
               "control": "valid_len-1", "softcap": softcap, **st, **bounds})
         verdicts.append(("valid_len-1", softcap, fd.bf16_agrees(st), False))
     # bf16 at the registry's head dims off the served one, each arch's heads:
-    # seamless-m4t-medium's 64 (compiled), phi-3-vision-4.2b's 96 and
-    # h2o-danube-3-4b's 120 (both zero-padded to 128)
+    # seamless-m4t-medium's 64, phi-3-vision-4.2b's 96 and h2o-danube-3-4b's
+    # 120 (the last two in 128-wide tiles, TMA filling the columns past D)
     for arch, D, Hq_d, Hkv_d in (("seamless-m4t-medium", 64, 16, 16),
                                  ("phi-3-vision-4.2b", 96, 32, 32),
                                  ("h2o-danube-3-4b", 120, 32, 8)):
         qd = torch.randn((B, Hq_d, D), generator=g, device="cuda").to(torch.bfloat16)
         kd, vd = (torch.randn((B, Hkv_d, L, D), generator=g, device="cuda")
                   .to(torch.bfloat16) for _ in range(2))
-        before = fd.flash_decode.launches
+        launched = fd.flash_decode.launches
         out = fd.flash_decode(qd, kd, vd, vl, impl="kernel")
+        checked += 1
         n = fd.kernel_splits(qd, kd)
         st = fd.bf16_agreement(out, fd.flash_decode_plain(qd, kd, vd, vl, splits=n),
                                fd.flash_decode_plain(qd, kd, vd.abs(), vl, splits=n))
         emit({"phase": "decode_kernel", "check": "head_dim_bf16", "arch": arch,
-              "head_dim": D, "runs_at": fd.kernel_head_dim(D), "splits": n,
+              "head_dim": D, "body": fd.decode_body(qd.dtype, D), "splits": n,
               "shape": f"q ({B}, {Hq_d}, {D}), cache ({B}, {Hkv_d}, {L}, {D})",
-              "launches": fd.flash_decode.launches - before, **st, **bounds})
+              "launches": fd.flash_decode.launches - launched, **st, **bounds})
         worst_bf16 = max(worst_bf16, st["max_abs_err"])
         verdicts.append((f"kernel at head_dim {D}", 0.0,
-                         fd.bf16_agrees(st) and fd.flash_decode.launches == before + 1
+                         fd.bf16_agrees(st) and fd.flash_decode.launches == launched + 1
                          and out.shape == qd.shape, True))
         del qd, kd, vd
-    faults = [f"{who} (softcap {sc}) {'failed' if want else 'passed'} the bf16 bounds"
-              for who, sc, ok, want in verdicts if ok != want]
+    took = {b: fd.flash_decode.launches_by_body[b] - before[b] for b in fd.BODIES}
+    if took != {"wgmma": checked, "simt": 0}:
+        faults.append(f"{checked} bf16 calls, launches by body {took}: all must take wgmma")
+    # one bf16 call is one kernel launch: with one split and with the rule's,
+    # and at 96 and 120 (no copy of the cache)
+    calls = {f"splits {n}": (lambda n=n: fd.flash_decode(q, k, v, vl, splits=n)) for n in (1, auto)}
+    for D, Hkv_d in ((96, 32), (120, 8)):
+        qd = torch.randn((B, 32, D), generator=g, device="cuda").to(torch.bfloat16)
+        kd = torch.randn((B, Hkv_d, L, D), generator=g, device="cuda").to(torch.bfloat16)
+        calls[f"head_dim {D}"] = lambda qd=qd, kd=kd: fd.flash_decode(qd, kd, kd, vl)
+    for name, call in calls.items():
+        seen = kernels_a_call(call)
+        emit({"phase": "decode_kernel", "check": "one_launch_a_call", "call": name, **seen})
+        if seen["kernels_per_call"] != 1 or "decode_wgmma" not in "".join(seen["kernels"]):
+            faults.append(f"a bf16 call ({name}) launched {seen}")
+    faults += [f"{who} (softcap {sc}) {'failed' if want else 'passed'} the bf16 bounds"
+               for who, sc, ok, want in verdicts if ok != want]
     if worst_plain > TOL_F32 or worst_ref > TOL_F32:
         faults.append(f"fp32: {worst_plain} vs plain, {worst_ref} vs reference")
     if faults:
@@ -1050,7 +1154,8 @@ def _profile_group(server, group, phase="serve"):
         device_ms[new] = sum(r[1] for r in rows)
         ours = {name: sum(ms for key, ms, _ in rows if any(t in key for t in tags))
                 for name, tags in (("flash_attention", ("fa_fwd",)),
-                                   ("flash_decode", ("decode_split", "decode_combine")),
+                                   ("flash_decode", ("decode_wgmma", "decode_split",
+                                                     "decode_combine")),
                                    ("ssd_chunked", ("ssd_kernel", "ssd_chunk_state",
                                                     "ssd_state_pass", "ssd_chunk_scan")))}
         t = server.timings[-1]
@@ -1107,6 +1212,7 @@ def _serve_traffic(cfg, params, checked, faults: list, **tags) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
+    decode_by_body = dict(fd.flash_decode.launches_by_body)
     steps = sum(len(t["decode_ms"]) for t in server.timings)
     for i, t in enumerate(server.timings):
         dec = sorted(t["decode_ms"])
@@ -1123,7 +1229,108 @@ def _serve_traffic(cfg, params, checked, faults: list, **tags) -> dict:
         if len(r.output) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in r.output):
             faults.append(f"request {r.rid} output {r.output}")
     return dict(server=server, reqs=reqs, groups=groups, launches=launches, steps=steps,
-                checks=checks, wall=wall)
+                checks=checks, wall=wall, decode_by_body=decode_by_body)
+
+
+def _bf16_ulp(x: float) -> float:
+    import math
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def _decode_bodies_agree(cfg, params, run, faults: list, **tags) -> dict:
+    """The served requests again, twice, through a fresh BatchedServer: with
+    flash_decode as routed (the wgmma body) and with every call routed to
+    the simt body from this script's side.  The routed run must give the
+    served run's tokens (the kernel is deterministic).  Where a request's
+    tokens differ between the two runs, the first point where the two runs
+    part must be a rounding tie: the first decode step at which one of its
+    MoE layers chose other experts (the k-th and the next expert's router
+    probabilities within DECODE_TIE_ULPS of each other in both runs), or, with
+    no such step before it, the first differing token (the two tokens each
+    run's top DECODE_TIE_TOP, within DECODE_TIE_ULPS of each run's best)."""
+    import torch
+
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models import moe
+
+    own_top_k, steps_a_group = moe.top_k, SERVE_NEW - 1
+    outs, tops, routes = {}, {}, {}
+    for body in ("wgmma", "simt"):
+        server = BatchedServer(cfg, params, batch_size=SERVE_BATCH, max_len=SERVE_MAX_LEN,
+                               compute_dtype=torch.bfloat16)
+        inner, top, route, at = server._serve, [], [], {"step": None}
+
+        def serve(params_, cache, token, inner=inner, top=top, at=at):
+            at["step"] = len(top)
+            logits, cache = inner(params_, cache, token)
+            at["step"] = None
+            best = logits.float().topk(DECODE_TIE_TOP, dim=-1)
+            top.append((best.values.cpu(), best.indices.cpu()))
+            return logits, cache
+
+        def top_k(probs, k, route=route, at=at):
+            vals, idx = own_top_k(probs, k)
+            if at["step"] is not None:             # a decode step's MoE layer
+                route.append((at["step"], idx.cpu(), probs.float().topk(k + 1).values.cpu()))
+            return vals, idx
+        server._serve = serve
+        reqs = [Request(r.rid, r.prompt, r.max_new_tokens) for r in run["reqs"]]
+        moe.top_k = top_k
+        try:
+            with decode_routed_to_simt() if body == "simt" else contextlib.nullcontext():
+                server.run(reqs)
+        finally:
+            moe.top_k = own_top_k
+        outs[body], tops[body], routes[body] = [r.output for r in reqs], top, route
+    served = [r.output for r in run["reqs"]]
+    parted = []
+    for i, (a, b) in enumerate(zip(outs["wgmma"], outs["simt"])):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        grp, row = divmod(i, SERVE_BATCH)
+        first = grp * steps_a_group                # the group's first decode step
+        where = {"request": i, "token_position": j, "tokens": [a[j], b[j]]}
+        moved = next(((st, n) for n, ((st, ia, _), (_, ib, _)) in enumerate(
+            zip(routes["wgmma"], routes["simt"]))
+            if first <= st < first + j and sorted(ia[row].tolist())
+            != sorted(ib[row].tolist())), None) if j > 0 else None
+        if moved is not None:                      # an MoE layer chose other experts
+            st, n = moved
+            layer = n - next(m for m, r in enumerate(routes["wgmma"]) if r[0] == st)
+            where.update(parted_at=f"decode step {st - first}, MoE layer {layer}")
+            ok = True
+            for body in ("wgmma", "simt"):
+                ranked = routes[body][n][2][row].tolist()      # top k + 1 probabilities
+                kth, nxt = ranked[-2], ranked[-1]
+                where[body] = {"router_top": ranked, "experts": routes[body][n][1][row].tolist(),
+                               "gap_bf16_ulps": (kth - nxt) / _bf16_ulp(kth)}
+                ok &= kth - nxt <= DECODE_TIE_ULPS * _bf16_ulp(kth)
+        elif j > 0:                                # the token itself was a tie
+            where.update(parted_at=f"token {j}")
+            ok = True
+            for body, other in (("wgmma", b[j]), ("simt", a[j])):
+                vals, idx = tops[body][first + j - 1]          # token j: decode step j - 1
+                best, toks = vals[row].tolist(), idx[row].tolist()
+                gap = best[0] - best[toks.index(other)] if other in toks else float("inf")
+                where[body] = {"top": best, "top_tokens": toks,
+                               "other_run_token_gap_bf16_ulps": gap / _bf16_ulp(best[0])}
+                ok &= gap <= DECODE_TIE_ULPS * _bf16_ulp(best[0])
+        else:
+            where.update(parted_at="the prefill's token")
+            ok = False
+        where["rounding_tie"] = ok
+        parted.append(where)
+    line = {**tags, "check": "decode_bodies_agree", "requests": len(served),
+            "routed_equals_served": outs["wgmma"] == served,
+            "simt_equals_wgmma": outs["wgmma"] == outs["simt"],
+            "requests_parted": len(parted), "first_parting": parted}
+    emit(line)
+    if outs["wgmma"] != served:
+        faults.append("the routed rerun's tokens differ from the served run's")
+    if not all(p["rounding_tie"] for p in parted):
+        faults.append(f"wgmma and simt runs part other than at a rounding tie: {parted}")
+    return line
 
 
 def phase_serve(state):
@@ -1177,6 +1384,10 @@ def phase_serve(state):
     if ssd_by_body["chunked"] != launches["ssd_chunked"]:
         faults.append(f"ssd_chunked launches by body {ssd_by_body}: the served bf16 "
                       f"prefill must take the chunked body")
+    decode_by_body = run["decode_by_body"]
+    if decode_by_body["wgmma"] != launches["flash_decode"]:
+        faults.append(f"flash_decode launches by body {decode_by_body}: every served "
+                      f"bf16 decode call must take the wgmma body")
     state["serve_err"] = _checked(run["checks"], faults, phase="serve", group=0)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     total_new = sum(len(r.output) for r in reqs)
@@ -1185,12 +1396,14 @@ def phase_serve(state):
           "init_s": init_s, "peak_gib": peak_gib, "launches": launches,
           "launches_expected": expected, "flash_attention_launches_by_body": by_body,
           "ssd_chunked_launches_by_body": ssd_by_body,
+          "flash_decode_launches_by_body": decode_by_body,
           "launches_per_prefill": {k: v // len(groups) for k, v in launches.items()
                                    if k != "flash_decode"},
           "flash_decode_per_step": launches["flash_decode"] / steps,
           "outputs_first_request": reqs[0].output})
 
     _profile_group(server, groups[1])
+    _decode_bodies_agree(cfg, params, run, faults, phase="serve")
     for name, impl, ref_impl, freeze in (
             ("kernel_vs_plain", "kernel", "plain", False),
             ("blocked_vs_plain", "blocked", "plain", False),
@@ -1201,6 +1414,7 @@ def phase_serve(state):
         emit({"phase": "serve", "check": f"teacher_forced_{name}", "gate": False,
               "steps": rows, "routing": routing})
     state["serve"] = {"launches": launches, "by_body": by_body, "ssd_by_body": ssd_by_body,
+                      "decode_by_body": decode_by_body,
                       "prompt_lens": [t["prompt_len"] for t in server.timings],
                       "timings": server.timings}
     del params, server
@@ -1277,19 +1491,25 @@ def _encdec_served(cfg, params, faults: list) -> dict:
     if by_body["wgmma"] != launches["flash_attention"]:
         faults.append(f"served: flash_attention launches by body {by_body}: the bf16 "
                       "launches at head_dim 64 must take the wgmma body")
+    decode_by_body = run["decode_by_body"]
+    if decode_by_body["wgmma"] != launches["flash_decode"]:
+        faults.append(f"served: flash_decode launches by body {decode_by_body}: every "
+                      "bf16 decode call must take the wgmma body")
     err = _checked(run["checks"], faults, phase="serve_encdec", part="served")
     total_new = sum(len(r.output) for r in run["reqs"])
     emit({"phase": "serve_encdec", "part": "served", "summary": True,
           "requests": len(run["reqs"]), "new_tokens": total_new, "wall_s": run["wall"],
           "tokens_per_s": total_new / run["wall"], "launches": launches,
           "launches_expected": expected, "flash_attention_launches_by_body": by_body,
+          "flash_decode_launches_by_body": decode_by_body,
           "flash_attention_per_group": launches["flash_attention"] / len(groups),
           "flash_decode_per_step": launches["flash_decode"] / steps,
           "outputs_first_request": run["reqs"][0].output})
-    out = {"launches": launches, "by_body": by_body, "err": err,
-           "prompt_lens": [t["prompt_len"] for t in server.timings],
+    out = {"launches": launches, "by_body": by_body, "decode_by_body": decode_by_body,
+           "err": err, "prompt_lens": [t["prompt_len"] for t in server.timings],
            "timings": list(server.timings)}
     _profile_group(server, groups[1], "serve_encdec")
+    _decode_bodies_agree(cfg, params, run, faults, phase="serve_encdec", part="served")
     return out
 
 
@@ -2063,6 +2283,7 @@ def _mesh_serve(faults: list, mesh) -> dict:
         runs[path] = {"tokens": [r.output for r in group], "launches": launches,
                       "by_body": dict(fa.flash_attention.launches_by_body),
                       "ssd_by_body": dict(sm.ssd_chunked.launches_by_body),
+                      "decode_by_body": dict(fd.flash_decode.launches_by_body),
                       "prefill_ms": t["prefill_ms"], "decode_ms_median": dec[len(dec) // 2],
                       "decode_steps": len(dec), "prompt_len": t["prompt_len"]}
         runs[path]["err"] = _checked(checks, faults, phase="mesh", part="serve", path=path)
@@ -2072,9 +2293,10 @@ def _mesh_serve(faults: list, mesh) -> dict:
         if launches != expected:
             faults.append(f"serve {path}: launches {launches}, the path implies {expected}")
         if runs[path]["by_body"]["wgmma"] != launches["flash_attention"] or \
-                runs[path]["ssd_by_body"]["chunked"] != launches["ssd_chunked"]:
+                runs[path]["ssd_by_body"]["chunked"] != launches["ssd_chunked"] or \
+                runs[path]["decode_by_body"]["wgmma"] != launches["flash_decode"]:
             faults.append(f"serve {path}: bodies {runs[path]['by_body']} "
-                          f"{runs[path]['ssd_by_body']}")
+                          f"{runs[path]['ssd_by_body']} {runs[path]['decode_by_body']}")
     equal = runs["mesh"]["tokens"] == runs["unsharded"]["tokens"]
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": SERVE_BATCH,
            "prompt_lens": [int(n) for n in lens], "new_tokens": MESH_SERVE_NEW,
@@ -2088,7 +2310,8 @@ def _mesh_serve(faults: list, mesh) -> dict:
                       f"{runs['unsharded']['tokens']}")
     del params, placed, server
     torch.cuda.empty_cache()
-    return {**out, "launches": runs["mesh"]["launches"]}
+    return {**out, "launches": runs["mesh"]["launches"],
+            "decode_by_body": runs["mesh"]["decode_by_body"]}
 
 
 def phase_mesh(state):
@@ -3694,13 +3917,46 @@ def phase_times(state):
     _encdec_times(state)
 
 
+def _decode_row(q, k, v, vl, valid, library=None) -> dict:
+    """flash_decode at one shape: its two bodies in turns (simt, wgmma,
+    wgmma, simt), CUDA events with the L2 flushed, each as the host drives
+    it (``ms``) and as the card runs it (``device_ms``: the host's enqueue
+    hidden, ``time_cold_ms(cushion=True)``); the plain version (one
+    reading), the bound, and ``library`` (one PyTorch call, the same two
+    readings) where given."""
+    from repro_torch.core.evals.scorer import time_cuda_ms
+    from repro_torch.kernels import flash_decode as fd
+
+    B, Hq, D = q.shape
+    splits = fd.kernel_splits(q, k)
+    run = {body: (lambda body=body: fd.flash_decode(q, k, v, vl, impl="kernel", body=body))
+           for body in fd.BODIES}
+    t = in_turns(lambda body: time_cold_ms(run[body]), "simt", "wgmma")
+    dev = in_turns(lambda body: time_cold_ms(run[body], cushion=True), "simt", "wgmma")
+    b_ms, b_by = decode_bound(B, Hq, k.shape[1], D, valid)
+    row = {"splits": splits, "ms": t["wgmma"]["ms"], "readings": t["wgmma"]["readings"],
+           "device_ms": dev["wgmma"]["ms"], "device_readings": dev["wgmma"]["readings"],
+           "simt_ms": t["simt"]["ms"], "simt_readings": t["simt"]["readings"],
+           "simt_device_ms": dev["simt"]["ms"], "simt_device_readings": dev["simt"]["readings"],
+           "plain_ms": time_cuda_ms(lambda: fd.flash_decode_plain(q, k, v, vl, splits=splits),
+                                    warmup=1, reps=1),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    if library is not None:
+        try:
+            row.update(library_ms=time_cold_ms(library),
+                       library_device_ms=time_cold_ms(library, cushion=True))
+        except (RuntimeError, TypeError) as e:        # recorded, not hidden
+            row["library_error"] = str(e)[:160]
+    return row
+
+
 def _encdec_times(state):
     """Both attention kernels in seamless-m4t-medium's roles off the causal
     path (bf16, 16 heads of 64, the direct part's shapes): flash_attention
     at the encoder's self-attention (ENCDEC_FRAMES frames, non-causal) and at
-    the cross-attention (ENCDEC_PROMPT decoder rows against the frames),
-    flash_decode over the cross cache (valid_len = ENCDEC_FRAMES, L2
-    flushed): kernel ms, bound, plain ms (one reading) and SDPA's ms."""
+    the cross-attention (ENCDEC_PROMPT decoder rows against the frames):
+    kernel ms, bound, plain ms (one reading) and SDPA's ms; flash_decode
+    over the cross cache (valid_len = ENCDEC_FRAMES): ``_decode_row``."""
     import torch
     import torch.nn.functional as F
 
@@ -3735,15 +3991,9 @@ def _encdec_times(state):
     q = rand(B, H, D)
     valid = [Se] * B
     vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
-    b_ms, b_by = decode_bound(B, H, H, D, valid)
     out["flash_decode"]["cross_cache"] = {
         "shape": f"q ({B}, {H}, {D}), cache ({B}, {H}, {Se}, {D}) bf16, valid_len {Se}",
-        "splits": fd.kernel_splits(q, k),
-        "ms": time_cold_ms(lambda: fd.flash_decode(q, k, v, vl, impl="kernel")),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "plain_ms": time_cuda_ms(lambda: fd.flash_decode_plain(
-            q, k, v, vl, splits=fd.kernel_splits(q, k)), warmup=1, reps=1),
-        "library_ms": time_cold_ms(lambda: F.scaled_dot_product_attention(
+        **_decode_row(q, k, v, vl, valid, library=lambda: F.scaled_dot_product_attention(
             q[:, :, None], k, v)),
         "library": "sdpa over the whole cross cache, L2 flushed"}
     del q, k, v
@@ -3760,8 +4010,9 @@ def _head_dim_times(state):
     widths, at the served prompt length, beside the compiled width in
     turns: flash_attention at h2o-danube-3-4b's 120 (zero-padded to 128)
     against 128 (GQA 32 / 8, causal), and at phi-3-vision-4.2b's 96 (MHA,
-    the mma_sync body) beside SDPA; flash_decode at 120 and 96 (padded to
-    128, the cache copied) against 128, L2 flushed.  Readings, not checks."""
+    the mma_sync body) beside SDPA; flash_decode at 120 and 96 (the wgmma
+    body in 128-wide tiles, no copy) against 128, L2 flushed, device times
+    beside.  Readings, not checks."""
     import torch
     import torch.nn.functional as F
 
@@ -3796,13 +4047,18 @@ def _head_dim_times(state):
     for arch, D, Hkv in (("h2o-danube-3-4b", 120, 8), ("phi-3-vision-4.2b", 96, 32)):
         q, k, v = rand(B, Hq, D), rand(B, Hkv, L, D), rand(B, Hkv, L, D)
         q_w, k_w, v_w = rand(B, Hq, 128), rand(B, Hkv, L, 128), rand(B, Hkv, L, 128)
-        t = in_turns(lambda d: time_cold_ms(
-            (lambda: fd.flash_decode(q, k, v, vl)) if d == D else
-            (lambda: fd.flash_decode(q_w, k_w, v_w, vl))), 128, D)
+        run = {D: lambda: fd.flash_decode(q, k, v, vl),
+               128: lambda: fd.flash_decode(q_w, k_w, v_w, vl)}
+        t = in_turns(lambda d: time_cold_ms(run[d]), 128, D)
+        dev = in_turns(lambda d: time_cold_ms(run[d], cushion=True), 128, D)
         out["flash_decode"][D] = {
             "arch": arch, "shape": f"q ({B}, {Hq}, {D}), cache ({B}, {Hkv}, {L}, {D}), "
                                    f"valid_len {S + 16}",
-            "ms": t[D]["ms"], "readings": t[D]["readings"], "ms_at_128": t[128]["ms"]}
+            "body": fd.decode_body(q.dtype, D), "ms": t[D]["ms"], "readings": t[D]["readings"],
+            "device_ms": dev[D]["ms"], "device_readings": dev[D]["readings"],
+            "ms_at_128": t[128]["ms"], "device_ms_at_128": dev[128]["ms"],
+            "bound_ms": decode_bound(B, Hq, Hkv, D, [S + 16] * B)[0],
+            "bound_ms_at_128": decode_bound(B, Hq, Hkv, 128, [S + 16] * B)[0]}
         del q, k, v, q_w, k_w, v_w
     torch.cuda.empty_cache()
     for name, rows in out.items():
@@ -3816,8 +4072,9 @@ def _served_times(state):
     """The three kernels at the served Jamba shapes (the first group's prompt
     length when the serve phase ran): kernel ms, bound, plain ms (one run),
     and a library yardstick where one PyTorch call computes the function.
-    flash_attention's two bodies and flash_decode's one split against the
-    wrapper's split count are timed in turns."""
+    Each kernel's two bodies are timed in turns; flash_decode's beside
+    their device times (``_decode_row``), after a writing flush too, and
+    the wgmma body over a sweep of split counts."""
     import torch
     import torch.nn.functional as F
 
@@ -3867,28 +4124,23 @@ def _served_times(state):
     valid = [S + 16] * B
     vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
     mask = (torch.arange(L, device="cuda")[None, :] < vl[:, None])[:, None, None, :]
-    b_ms, b_by = decode_bound(B, Hq, Hkv, D, valid)
-    lib, err = None, None
-    try:
-        lib = time_cold_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
-    except (RuntimeError, TypeError) as e:
-        err = str(e)[:160]
-    splits = fd.kernel_splits(q, k)
-    t = in_turns(lambda n: time_cold_ms(lambda: fd.flash_decode(
-        q, k, v, vl, impl="kernel", splits=n)), 1, splits)
-    sweep = {n: time_cold_ms(lambda: fd.flash_decode(q, k, v, vl, impl="kernel", splits=n))
+    row = _decode_row(q, k, v, vl, valid, library=lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
+    # the same two bodies after a flush that writes (as the earlier
+    # readings were taken), and the wgmma body over a sweep of split counts
+    row["ms_after_write_flush"] = {
+        body: time_cold_ms(lambda body=body: fd.flash_decode(q, k, v, vl, impl="kernel",
+                                                              body=body), flush="write")
+        for body in fd.BODIES}
+    sweep = {n: {"ms": time_cold_ms(lambda: fd.flash_decode(q, k, v, vl, splits=n)),
+                 "device_ms": time_cold_ms(lambda: fd.flash_decode(q, k, v, vl, splits=n),
+                                           cushion=True)}
              for n in DECODE_SWEEP}
     emit({"phase": "times", "check": "flash_decode_split_sweep", "gate": False,
-          "wrapper_splits": splits, "ms_by_splits": sweep})
+          "body": "wgmma", "wrapper_splits": row["splits"], "by_splits": sweep})
     out["flash_decode"] = {
         "shape": f"q ({B}, {Hq}, {D}), cache ({B}, {Hkv}, {L}, {D}) bf16, valid_len {valid[0]}",
-        "splits": splits, "ms": t[splits]["ms"], "readings": t[splits]["readings"],
-        "one_split_ms": t[1]["ms"], "one_split_readings": t[1]["readings"],
-        "plain_ms": time_cuda_ms(lambda: fd.flash_decode_plain(q, k, v, vl, splits=splits),
-                                 warmup=1, reps=1),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-        "library": "sdpa over the cache, valid_len mask, L2 flushed", "library_error": err}
+        **row, "library": "sdpa over the cache, valid_len mask, L2 flushed"}
     del q, k, v
 
     # ssd_chunked at the served prefill: Jamba's 128 heads of (64, 16)
@@ -3998,7 +4250,14 @@ def phase_kernels(state):
             "library_ms": t.get("library_ms"), "shape": t.get("shape")}
         if name == "flash_decode":
             entry.update(splits=t.get("splits", state.get("decode_splits")),
-                         one_split_ms=t.get("one_split_ms"),
+                         device_ms=t.get("device_ms"), simt_ms=t.get("simt_ms"),
+                         simt_device_ms=t.get("simt_device_ms"),
+                         library_device_ms=t.get("library_device_ms"),
+                         ms_after_write_flush=t.get("ms_after_write_flush"),
+                         launches_by_body={"serve": serve.get("decode_by_body"),
+                                           "serve_encdec": encdec.get("decode_by_body"),
+                                           "mesh": state.get("mesh", {}).get("serve", {})
+                                           .get("decode_by_body")},
                          head_dims=state.get("head_dim_times", {}).get("flash_decode"),
                          encdec=encdec_times.get("flash_decode"),
                          max_abs_err_serve_encdec_bf16=encdec.get("err", {}).get(name))

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` source has a plain C interface.  It is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/`` at the
-repository root (listed in ``.gitignore``), named by a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one loads at once.
+repository root (listed in ``.gitignore``), named by a hash of the source,
+the shared headers ``csrc/*.cuh`` and the flags, so an edited source or
+header rebuilds and an unchanged one loads at once.
 Nothing is compiled when a module is imported: the CPU tests import every
 module on a host without ``nvcc``.
 
@@ -30,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# after the source: flash_attention.cu finds cuTensorMapEncodeTiled with dlsym
+# after the source: hopper.cuh finds cuTensorMapEncodeTiled with dlsym
 LINK_FLAGS = ("-ldl",)
 
 _LOCK = threading.Lock()
@@ -72,10 +73,12 @@ def _ptxas_summary(log: str) -> list:
 
 
 def library_path(source: str) -> Path:
-    """Where ``csrc/<source>`` is built: named by a hash of source and flags."""
+    """Where ``csrc/<source>`` is built: named by a hash of the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
     src = CSRC / source
     flags = " ".join(NVCC_FLAGS + LINK_FLAGS).encode()
-    tag = hashlib.sha256(src.read_bytes() + flags).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src.read_bytes() + headers + flags).hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}-{tag}.so"
 
 

@@ -7,38 +7,47 @@ Source note.
             flash_decode`` (body ``_decode_body``).
   Kernel    ``csrc/flash_decode.cu``, CUDA C++ for ``sm_90a``, built by
             ``_build.py`` with ``nvcc`` and bound with ``ctypes``.  Split-K
-            (flash-decoding): ``decode_split`` runs a grid of (splits, Hkv,
-            B) CTAs; each reads ``valid_len[b]`` on the device and walks its
-            share of the live 64-key tiles, double-buffered with
-            ``cp.async``, the ``rep`` query heads of its KV head being the
-            rows of each (rep x D) . (D x 64) product (the TPU kernel's GQA
-            packing).  It writes partial (m, l, acc) to fp32 scratch that
-            this wrapper allocates; ``decode_combine`` merges the splits per
-            (sequence, query head) and writes the output.  fp32 and bf16
-            inputs; products, statistics and accumulator in IEEE fp32.
+            (flash-decoding): a grid of (splits, Hkv, B) CTAs; each reads
+            ``valid_len[b]`` on the device and walks its share of the live
+            64-key tiles, the ``rep`` query heads of its KV head sharing
+            every tile (the TPU kernel's GQA packing).  Two bodies, routed
+            by dtype and head_dim alone (:func:`decode_body`):
+            ``wgmma`` (bf16, head_dim 17-128 and a multiple of 8): one
+            launch a call.  A producer warp keeps a 96 KB ring of K/V tiles
+            in flight with TMA; one consumer warpgroup computes S^T = K q^T
+            and O^T += V^T P on tensor cores (wgmma m64n8k16, the query
+            heads as N, P carried as two bf16 terms); the last split CTA of
+            each (b, KV head) to finish merges the splits, in split order,
+            through fp32 scratch and a counter this wrapper keeps per
+            (device, stream).  TMA zero-fills the columns past D, so 96 and
+            120 run with no copy.
+            ``simt`` (fp32, and bf16 at other head dims or when asked):
+            ``decode_split`` double-buffers the tiles with ``cp.async`` and
+            computes in IEEE fp32 FFMA, ``decode_combine`` (a second launch)
+            merges the splits; instances at ``HEAD_DIMS``, other head dims
+            zero-padded (:func:`pad_head_dim`, a copy of the cache).
   Bound     bytes.  One call reads the live K/V rows once: 2 x valid_len x
             D x 2 bytes per (b, KV head), against 4 x rep x valid_len x D
             operations: one operation per byte, far below the H100's
-            ~295 operations per byte of bf16 tensor-core balance.  One CTA
-            per (b, KV head) left 100 of 132 SMs idle at the served Jamba
-            shape; ``decode_splits`` picks enough splits to fill every SM:
-            5 there, 39-43 us with the L2 cold against a 9.4 us bound
-            (NVIDIA H100 80GB HBM3 at 700.00 W, ``chip_smoke.py``; PERF.md).
-  Later     TMA loads; CUDA graphs over the host-bound decode step.
+            ~295 operations per byte of bf16 tensor-core balance.  The
+            ring keeps up to 192 KB of K/V requested on each SM, the tensor
+            cores take the products off the path of the tiles, and the
+            in-launch merge saves a launch.  On the card's own time, L2
+            flushed (``chip_smoke.py``, NVIDIA H100 80GB HBM3, 700.00 W;
+            PERF.md): the served Jamba shape (valid_len 1908, 8 splits)
+            0.0219 ms against simt's 0.0316, SDPA's 0.0423 and a 0.0094
+            bound; the seamless cross cache (4 splits) 0.0184 ms against
+            simt's 0.0208, SDPA's 0.0183 and a 0.0073 bound.  What is left
+            besides the stream from DRAM: the first tile's latency, and the
+            merge's tail (partials, fence, atomic, one load round trip) on
+            the path of the last CTA.
+  Later     fp8 K/V; a persistent grid; a cluster merge; CUDA graphs over
+            the host-bound decode step.
 
-Head dims.  The kernels are compiled for ``HEAD_DIMS`` = 16, 64 and 128.
-A call at another head_dim D <= 128 (phi-3-vision-4.2b's 96,
-h2o-danube-3-4b's 120) runs at :func:`kernel_head_dim` (D), the next
-compiled one: :func:`pad_head_dim` zero-pads q and the caches, the scale
-stays 1/sqrt(D), and the output is sliced back to D.  Zero columns add
-nothing to q K^T and give zero output columns, so this is the same
-function.  Padding copies the cache, at every decode step.  Past 128 the
-kernel raises.
-
-``flash_decode`` takes the kernels for CUDA tensors and the plain version
+``flash_decode`` takes a kernel body for CUDA tensors and the plain version
 for CPU tensors; a CUDA tensor never falls back to the plain version.
-``flash_decode.launches`` counts calls that launched the kernels (each
-launches ``decode_split`` and ``decode_combine`` once).
+``flash_decode.launches`` counts calls that launched a body,
+``flash_decode.launches_by_body`` splits them by body.
 """
 from __future__ import annotations
 
@@ -52,10 +61,17 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels.flash_attention import NEG_INF, _apply_softcap
 from repro_torch.kernels.guard import refuse_autograd, refuse_dtensor
 
-HEAD_DIMS = (16, 64, 128)  # head dims the kernel is compiled for
-MAX_REP = 8                # query heads per KV head the kernel takes
-TILE_K = 64                # keys per tile of the kernel's walk
-MAX_SPLITS = 1024          # splits the combine kernel takes
+HEAD_DIMS = (16, 64, 128)  # head dims the simt body is compiled for
+MAX_REP = 8                # query heads per KV head the kernels take
+TILE_K = 64                # keys per tile of the kernels' walk
+MAX_SPLITS = 1024          # splits the merges take
+BODIES = ("wgmma", "simt")
+# The split rule's view of the wgmma body (csrc/flash_decode.cu): two CTAs
+# of 101 KB of shared memory fit an SM, and the 96 KB ring holds 3 tiles at
+# head_dim 128 (6 at 64).  chip_smoke.py checks CTAS_PER_SM against the
+# card's occupancy calculator.
+CTAS_PER_SM = 2
+RING_DEPTH = 3
 
 # bf16 inputs, kernel vs plain version.  Both compute in fp32 from the same
 # bf16 inputs and round the output to bf16 once, so an element differs by at
@@ -74,12 +90,15 @@ BF16_ROW_REL_RMS = 4e-3               # every row of head_dim values
 
 
 def decode_splits(B: int, Hkv: int, L: int, n_sm: int) -> int:
-    """The kernel's split count for a (B, Hkv, L) cache on a card of
-    ``n_sm`` SMs: the smallest that puts a CTA on every SM, at most one
-    split per tile of the cache.  A pure function of host-known shapes, so
-    the host never reads ``valid_len``."""
-    fill = -(-n_sm // (B * Hkv))
-    return max(1, min(fill, -(-L // TILE_K)))
+    """The kernels' split count for a (B, Hkv, L) cache on a card of
+    ``n_sm`` SMs: as many splits as fit B x Hkv x splits CTAs into one wave
+    of the card's CTA slots (``n_sm`` x ``CTAS_PER_SM``), but no more than
+    give each split ``RING_DEPTH`` tiles of the cache, and at least one.  A
+    pure function of host-known shapes, so the host never reads
+    ``valid_len``."""
+    fill = (n_sm * CTAS_PER_SM) // (B * Hkv)
+    deep = -(-L // TILE_K) // RING_DEPTH
+    return max(1, min(fill, deep))
 
 
 @functools.cache
@@ -93,8 +112,34 @@ def kernel_splits(q: torch.Tensor, k_cache: torch.Tensor) -> int:
     return decode_splits(B, Hkv, L, _sm_count(q.device.index or 0))
 
 
+def decode_body(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel body a call takes: fixed by dtype and head_dim alone.
+    bf16 at head_dim 17-128 takes ``wgmma`` where TMA can describe the rows
+    (D x 2 bytes a multiple of 16: every registry head dim); fp32, and bf16
+    at the rest, take ``simt``."""
+    if dtype == torch.bfloat16 and 16 < head_dim <= 128 and head_dim % 8 == 0:
+        return "wgmma"
+    if dtype in (torch.float32, torch.bfloat16):
+        return "simt"
+    raise TypeError(f"no flash_decode body for dtype {dtype}")
+
+
+def _resolve_body(body: Optional[str], dtype: torch.dtype, head_dim: int) -> str:
+    """``body`` if it can take the call (None: :func:`decode_body`'s
+    choice); ``simt`` takes every bf16 call too, for A/B timing."""
+    routed = decode_body(dtype, head_dim)
+    if body is None:
+        return routed
+    if body not in BODIES:
+        raise ValueError(f"body={body!r}; expected None or one of {BODIES}")
+    if body == "wgmma" and routed != "wgmma":
+        raise ValueError(f"body='wgmma' cannot take a {dtype} call at head_dim "
+                         f"{head_dim}; it routes to {routed!r}")
+    return body
+
+
 def kernel_head_dim(head_dim: int) -> int:
-    """The head_dim the kernel runs a call at: the smallest compiled one
+    """The head_dim the simt body runs a call at: the smallest compiled one
     that holds it."""
     for d in HEAD_DIMS:
         if head_dim <= d:
@@ -105,7 +150,9 @@ def kernel_head_dim(head_dim: int) -> int:
 
 def pad_head_dim(q, k_cache, v_cache, scale: Optional[float]):
     """``(q, k_cache, v_cache, scale)`` at :func:`kernel_head_dim`: the head
-    dim zero-padded, the scale 1/sqrt(D) of the original D unless given."""
+    dim zero-padded (a copy of the cache), the scale 1/sqrt(D) of the
+    original D unless given.  The simt body's way to other head dims; zero
+    columns add nothing to q K^T and give zero output columns."""
     D = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
     pad = kernel_head_dim(D) - D
@@ -222,25 +269,55 @@ def _check_inputs(q, k_cache, v_cache, valid_len):
 
 
 @functools.cache
-def _kernel():
-    """The library's C entry point, built at first use and typed once."""
+def _kernel(body: str):
+    """The library's C entry point of ``body``, built at first use and typed
+    once."""
     from repro_torch.kernels import _build
-    fn = _build.load("flash_decode.cu").avo_flash_decode
+    lib = _build.load("flash_decode.cu")
+    if body == "simt":
+        fn = lib.avo_flash_decode
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    else:
+        fn = lib.avo_flash_decode_wgmma
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     return fn
 
 
-def _launch(q, k_cache, v_cache, valid_len, *, softcap, scale, splits):
-    D0 = q.shape[-1]
-    q, k_cache, v_cache, scale = pad_head_dim(q, k_cache, v_cache, scale)
-    B, Hq, D = q.shape
-    _, Hkv, L, _ = k_cache.shape
-    rep = Hq // Hkv
-    if rep > MAX_REP:
-        raise ValueError(f"{rep} query heads per KV head; the flash_decode "
-                         f"kernel takes at most {MAX_REP}")
+def wgmma_ctas_per_sm(head_dim: int) -> int:
+    """How many wgmma CTAs fit an SM of the current card at ``head_dim``,
+    from the CUDA occupancy calculator (the split rule assumes
+    ``CTAS_PER_SM``)."""
+    from repro_torch.kernels import _build
+    fn = _build.load("flash_decode.cu").avo_flash_decode_wgmma_ctas_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    n = ctypes.c_int(0)
+    err = fn(head_dim, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"flash_decode occupancy query failed: CUDA error {err}")
+    return n.value
+
+
+# The wgmma body's split counters: one int32 per (sequence, KV head) for
+# every (device, stream), zeroed once when allocated; the last split CTA of
+# each call resets its counter to 0, so a buffer is ready for the next call
+# on its stream, and a CUDA graph that replays the call finds it so too.
+# Two streams never share one.
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
+def _launch(q, k_cache, v_cache, valid_len, *, softcap, scale, splits, body):
     if valid_len.dtype != torch.int32:
         raise TypeError(f"valid_len must be int32, got {valid_len.dtype}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
@@ -249,22 +326,45 @@ def _launch(q, k_cache, v_cache, valid_len, *, softcap, scale, splits):
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    D0 = q.shape[-1]
+    body = _resolve_body(body, q.dtype, D0)
+    if body == "simt":
+        q, k_cache, v_cache, scale = pad_head_dim(q, k_cache, v_cache, scale)
+    scale = scale if scale is not None else 1.0 / (D0 ** 0.5)
+    B, Hq, D = q.shape
+    _, Hkv, L, _ = k_cache.shape
+    rep = Hq // Hkv
+    if rep > MAX_REP:
+        raise ValueError(f"{rep} query heads per KV head; the flash_decode "
+                         f"kernel takes at most {MAX_REP}")
     splits = kernel_splits(q, k_cache) if splits is None else int(splits)
     if not 1 <= splits <= MAX_SPLITS:
         raise ValueError(f"splits must lie in [1, {MAX_SPLITS}], got {splits}")
     o = torch.empty_like(q)
-    # the splits' partial m, l (B, Hkv, splits, rep) and acc (..., D), fp32
-    n = B * Hkv * splits * rep
-    scratch = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
-    part = scratch.data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                    valid_len.data_ptr(), part, part + 4 * n, part + 8 * n, o.data_ptr(),
-                    int(q.dtype == torch.bfloat16), B, Hkv, rep, L, D, splits,
-                    float(softcap or 0.0), float(scale), stream)
+    # the splits' partial m, l (B, Hkv, splits, rep) and acc (..., D), fp32:
+    # simt's m, l, acc; wgmma's acc first (its merge loads it 16 bytes at a
+    # time), none with one split
+    n = B * Hkv * splits * rep
+    m = l = acc = 0
+    if body == "simt" or splits > 1:
+        scratch = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
+        part = scratch.data_ptr()
+        m, l, acc = ((part, part + 4 * n, part + 8 * n) if body == "simt" else
+                     (part + 4 * n * D, part + 4 * n * (D + 1), part))
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid_len.data_ptr(),
+            m, l, acc)
+    tail = (B, Hkv, rep, L, D, splits, float(softcap or 0.0), float(scale), stream)
+    if body == "simt":
+        err = _kernel(body)(*ptrs, o.data_ptr(), int(q.dtype == torch.bfloat16), *tail)
+    else:
+        counters = _counters(q.device, stream, B * Hkv)
+        err = _kernel(body)(*ptrs, counters.data_ptr(), o.data_ptr(), *tail)
     if err != 0:
-        raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_decode {body} launch failed (q {tuple(q.shape)}, cache "
+                           f"{tuple(k_cache.shape)}, {splits} splits): CUDA error {err}")
     flash_decode.launches += 1
+    flash_decode.launches_by_body[body] += 1
     return o if D == D0 else o[..., :D0].contiguous()
 
 
@@ -278,19 +378,24 @@ def flash_decode(
     scale: Optional[float] = None,
     splits: Optional[int] = None,
     impl: Optional[str] = None,
+    body: Optional[str] = None,
 ) -> torch.Tensor:
     """One query token per sequence against its cache.  CUDA tensors launch
-    the sm_90a kernels with ``splits`` splits (None: :func:`kernel_splits`);
-    CPU tensors take :func:`flash_decode_plain` (None: one split).
-    ``impl="kernel"`` demands the kernels and raises on CPU tensors."""
+    a kernel body (``body`` None: :func:`decode_body`'s choice; "simt"
+    forces the simt body on a bf16 call, for A/B timing; a body that cannot
+    take the call raises) with ``splits`` splits (None:
+    :func:`kernel_splits`); CPU tensors take :func:`flash_decode_plain`
+    (None: one split).  ``impl="kernel"`` demands a kernel and raises on CPU
+    tensors."""
     refuse_dtensor("flash_decode", q, k_cache, v_cache, valid_len)
     _check_inputs(q, k_cache, v_cache, valid_len)
     if impl not in (None, "kernel"):
         raise ValueError(f"impl={impl!r}; expected None or 'kernel'")
+    _resolve_body(body, q.dtype, q.shape[-1])
     if q.device.type == "cuda":
         refuse_autograd("flash_decode", q, k_cache, v_cache)
         return _launch(q, k_cache, v_cache, valid_len, softcap=softcap, scale=scale,
-                       splits=splits)
+                       splits=splits, body=body)
     if impl == "kernel":
         raise ValueError(f"the flash_decode kernel runs on CUDA tensors; "
                          f"got tensors on {q.device}")
@@ -299,3 +404,4 @@ def flash_decode(
 
 
 flash_decode.launches = 0
+flash_decode.launches_by_body = dict.fromkeys(BODIES, 0)

@@ -154,17 +154,78 @@ def test_one_split_is_the_unsplit_walk_exactly():
 
 
 @pytest.mark.parametrize("B,Hkv,L,n_sm,want", [
-    (4, 8, 4096, 132, 5),       # the served Jamba shape: 32 CTAs a split
-    (4, 33, 4096, 132, 1),      # B x Hkv = 132 fills the card unsplit
+    (4, 8, 4096, 132, 8),       # the served Jamba shape: 256 of the 264 CTA slots
+    (4, 33, 4096, 132, 2),      # B x Hkv = 132: two CTAs on every SM
     (16, 16, 4096, 132, 1),     # B x Hkv = 256
-    (1, 1, 100, 132, 2),        # capped at one split per tile of the cache
+    (1, 1, 100, 132, 1),        # 2 tiles: fewer than the ring's depth
     (1, 1, 30, 132, 1),
-    (2, 4, 65536, 132, 17),
+    (2, 4, 65536, 132, 33),
+    (4, 8, 500, 132, 2),        # 8 tiles: the ring's depth binds before the slots
 ])
 def test_decode_splits(B, Hkv, L, n_sm, want):
+    """The split rule: B x Hkv x splits CTAs fill one wave of the card's
+    CTA slots as far as each split keeps RING_DEPTH tiles."""
     got = decode_splits(B, Hkv, L, n_sm)
     assert got == want
-    assert got <= -(-L // TILE_K) and B * Hkv * got >= min(n_sm, B * Hkv * -(-L // TILE_K))
+    tiles, slots, pairs = -(-L // TILE_K), n_sm * fd_mod.CTAS_PER_SM, B * Hkv
+    assert 1 <= got <= tiles                          # at most one split per tile
+    assert pairs * got <= max(pairs, slots)           # one wave
+    # every slot filled: one more split would overflow the wave or leave a
+    # split short of the ring's depth
+    assert pairs * (got + 1) > slots or (got + 1) * fd_mod.RING_DEPTH > tiles
+    if tiles >= fd_mod.RING_DEPTH:                    # each split gets the ring's depth
+        assert tiles // got >= fd_mod.RING_DEPTH
+
+
+@pytest.mark.parametrize("splits", [decode_splits(4, 8, 4096, 132),
+                                    decode_splits(2, 2, 1024, 132)])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_split_walk_at_the_served_shape_matches_jax(splits, softcap):
+    """The plain version at the split rule's counts (8 at the served Jamba
+    shape, 5 at this cut of it) against JAX interpret mode and the
+    reference: the served shape reduced to B = 2, 2 KV heads of rep 4 at
+    head_dim 128, a 1024-key cache, one ragged valid_len and one full.
+    fp32, TOL."""
+    q, kc, vc, _ = _inputs(12, 2, 8, 2, 1024, 128)
+    vl = np.array([777, 1024], np.int32)
+    ours = flash_decode_plain(*map(torch.from_numpy, (q, kc, vc, vl)),
+                              softcap=softcap, splits=splits).numpy()
+    theirs = np.asarray(jax_flash_decode(*map(jnp.asarray, (q, kc, vc, vl)),
+                                         softcap=softcap, block_k=256, interpret=True))
+    ref = np.asarray(jax_decode_reference(*map(jnp.asarray, (q, kc, vc, vl)),
+                                          softcap=softcap))
+    np.testing.assert_allclose(ours, theirs, **TOL)
+    np.testing.assert_allclose(ours, ref, **TOL)
+
+
+def test_body_routing_is_a_function_of_dtype_and_head_dim():
+    """bf16 at head_dim 17-128 (a multiple of 8) takes wgmma; fp32, and
+    bf16 at 16 or below, take simt; a body= that cannot take the call raises
+    before anything runs, on any device."""
+    for D in range(1, 129):
+        for dtype in (torch.float32, torch.bfloat16):
+            want = ("wgmma" if dtype == torch.bfloat16 and D > 16 and D % 8 == 0
+                    else "simt")
+            assert fd_mod.decode_body(dtype, D) == want
+    assert [fd_mod.decode_body(torch.bfloat16, d) for d in (16, 24, 64, 96, 120, 128)] \
+        == ["simt", "wgmma", "wgmma", "wgmma", "wgmma", "wgmma"]
+    with pytest.raises(TypeError, match="dtype"):
+        fd_mod.decode_body(torch.float16, 64)
+    q, kc, vc, vl = map(torch.from_numpy, _inputs(13, 2, 8, 2, 100, 64))
+    plain = flash_decode_plain(q, kc, vc, vl)
+    torch.testing.assert_close(flash_decode(q, kc, vc, vl, body="simt"), plain,
+                               rtol=0, atol=0)
+    before = dict(flash_decode.launches_by_body)
+    with pytest.raises(ValueError, match="cannot take"):
+        flash_decode(q, kc, vc, vl, body="wgmma")          # fp32
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, kc, vc))
+    flash_decode(qb, kb, vb, vl, body="wgmma")              # bf16 at 64: the plain version
+    with pytest.raises(ValueError, match="cannot take"):
+        flash_decode(qb[..., :16].contiguous(), kb[..., :16].contiguous(),
+                     vb[..., :16].contiguous(), vl, body="wgmma")
+    with pytest.raises(ValueError, match="body="):
+        flash_decode(q, kc, vc, vl, body="mma_sync")
+    assert flash_decode.launches_by_body == before and set(before) == set(fd_mod.BODIES)
 
 
 def test_wrapper_passes_splits_to_the_plain_version_on_cpu():

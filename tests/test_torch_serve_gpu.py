@@ -121,6 +121,132 @@ def test_decode_padded_and_64_on_card(D, dtype, splits):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rep", [1, 2, 4, 7, 8])
+@pytest.mark.parametrize("D", [64, 96, 120, 128])
+@pytest.mark.parametrize("splits", [1, 3, None])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_wgmma_decode_matches_plain_on_card(rep, D, splits, softcap):
+    """The wgmma body (bf16) against the plain version walking the same
+    splits, within flash_decode's bf16 bounds: valid_len of one key, a
+    ragged tile (577 = 9 x 64 + 1) and the whole cache; the cache's own D
+    (96 and 120 in 128-wide tiles, no copy).  A second identical call is
+    bit-equal: the splits merge in split order, whichever CTA ends last."""
+    _need_card()
+    rng = np.random.default_rng(1000 * rep + D)
+    B, Hkv, L = 3, 2, 1000
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda()
+               .to(torch.bfloat16) for s in ((B, rep * Hkv, D), (B, Hkv, L, D), (B, Hkv, L, D)))
+    vl = torch.tensor([1, 577, L], dtype=torch.int32, device="cuda")
+    before = dict(fd.flash_decode.launches_by_body)
+    out = fd.flash_decode(q, k, v, vl, splits=splits, softcap=softcap)
+    again = fd.flash_decode(q, k, v, vl, splits=splits, softcap=softcap)
+    assert fd.flash_decode.launches_by_body == dict(before, wgmma=before["wgmma"] + 2)
+    assert out.shape == q.shape and torch.equal(out, again)
+    n = splits or fd.kernel_splits(q, k)
+    plain = fd.flash_decode_plain(q, k, v, vl, splits=n, softcap=softcap)
+    mag = fd.flash_decode_plain(q, k, v.abs(), vl, splits=n, softcap=softcap)
+    stats = fd.bf16_agreement(out, plain, mag)
+    assert fd.bf16_agrees(stats), stats
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, None])
+def test_a_bf16_decode_call_is_one_kernel_launch(splits):
+    """At the served Jamba shape one bf16 call launches exactly one CUDA
+    kernel (torch.profiler), the wgmma body's, the split merge included;
+    the simt body's bf16 call launches its two."""
+    _need_card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((4, 32, 128), generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((4, 8, 4096, 128), generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    vl = torch.full((4,), 1908, dtype=torch.int32, device="cuda")
+    for body, want in (("wgmma", ["decode_wgmma"]), ("simt", ["decode_split", "decode_combine"])):
+        fd.flash_decode(q, k, v, vl, splits=splits, body=body)     # built, counters made
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fd.flash_decode(q, k, v, vl, splits=splits, body=body)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(names) == len(want), (body, names)
+        assert all(w in n for w, n in zip(sorted(want), sorted(names))), (body, names)
+
+
+def _served_decode_inputs(seed=5, L=1000):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((4, 32, 128), generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((4, 8, L, 128), generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    return q, k, v, torch.tensor([1, 577, 900, L], dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.gpu
+def test_wgmma_split_counters_are_per_stream():
+    """Calls on two streams at once each count their splits on their own
+    counters and give the default stream's output bit for bit."""
+    _need_card()
+    q, k, v, vl = _served_decode_inputs()
+    want = fd.flash_decode(q, k, v, vl, splits=3)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(4):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(fd.flash_decode(q, k, v, vl, splits=3))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+    keys = {(q.device.index, s.cuda_stream) for s in streams}
+    assert keys <= set(fd._COUNTERS) and len({fd._COUNTERS[k].data_ptr() for k in keys}) == 2
+    assert all(int(fd._COUNTERS[k].abs().sum()) == 0 for k in keys)
+
+
+@pytest.mark.gpu
+def test_wgmma_decode_replays_in_a_cuda_graph():
+    """One call captured in a CUDA graph (after a call on the capturing
+    stream) replays to the eager output bit for bit, again and again: the
+    last split CTA resets its counter, so each replay finds it at 0."""
+    _need_card()
+    q, k, v, vl = _served_decode_inputs()
+    want = fd.flash_decode(q, k, v, vl, splits=3)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fd.flash_decode(q, k, v, vl, splits=3)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        out = fd.flash_decode(q, k, v, vl, splits=3)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["jamba-v0.1-52b", "seamless-m4t-medium"])
+def test_served_bf16_decode_takes_the_wgmma_body(name):
+    """Reduced jamba-v0.1-52b and seamless-m4t-medium at their published
+    head dims (128 and 64), served in bf16 on the card: every flash_decode
+    call of every decode step takes the wgmma body."""
+    _need_card()
+    cfg = published_head_dim(name)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(3), device="cuda",
+                         dtype=torch.bfloat16)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)) for n in (5, 19, 33, 40)]
+    before = (fd.flash_decode.launches, dict(fd.flash_decode.launches_by_body))
+    srv = BatchedServer(cfg, params, batch_size=2, max_len=64, compute_dtype=torch.bfloat16)
+    srv.run([Request(i, p, 6) for i, p in enumerate(prompts)])
+    calls = fd.flash_decode.launches - before[0]
+    took = {b: fd.flash_decode.launches_by_body[b] - before[1][b] for b in fd.BODIES}
+    assert calls > 0 and took == {"wgmma": calls, "simt": 0}, (calls, took)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("body", sm.BODIES)
 @pytest.mark.parametrize("P,N", sm.SHAPES)
 @pytest.mark.parametrize("L", [37, 300])
