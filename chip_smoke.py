@@ -29,7 +29,17 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  with a wrong version (valid_len - 1) the bounds must reject,
                  and at head_dim 64, 96 and 120 (no copy); the wgmma body's
                  CTAs per SM against the split rule's; one kernel a bf16 call
-                 (torch.profiler)
+                 (torch.profiler); shards: one sequence at long context, q
+                 (1, 32, 128) against a (1, 8, LONG_LEN, 128) bf16 cache with
+                 LONG_VALID live keys: the kernel over the whole cache, and
+                 the partial mode over LONG_SHARDS equal length shards
+                 (each shard's output and statistics against the plain
+                 version's), merged and held against the plain version over
+                 the whole cache under the bf16 bounds; the shards past
+                 LONG_VALID read o = 0, M = -1e30, l = 0, no NaN, on both
+                 bodies; the whole call and one shard's timed on the card's
+                 own time beside the bytes bound and SDPA over the masked
+                 cache
   ssd_kernel     ssd_chunked vs its plain version: fp32 on the serial body
                  over (P, N), chunk, ragged L and H; bf16 on the chunked body
                  over the same grid and at the served Jamba shape under its
@@ -151,6 +161,14 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  must equal the CPU reference path's, and so must those of
                  reduced h2o-danube-3-4b and phi-3-vision-4.2b at their
                  published head dims (120, 96) with impl="auto"
+  long_decode    jamba-v0.1-52b at full width (serve's depth and weights)
+                 decoding one sequence at LONG_LEN keys: init_decode_cache
+                 filled with seeded bf16 K/V up to LONG_VALID - 1 and seeded
+                 fp32 Mamba states, LONG_STEPS greedy steps through
+                 decode_step (2 flash_decode launches a step, all on the
+                 wgmma body; ms per step, peak memory), then the same steps
+                 with every launch held against its plain version, the
+                 tokens equal
   serve_encdec   seamless-m4t-medium at full width and full depth (12
                  encoder and 12 decoder layers), bf16, random weights from a
                  seeded generator on the card: (a) 8 requests through
@@ -291,7 +309,7 @@ FRONTIER_BUDGET = 400       # paid evaluations per job (the steps end first)
 FRONTIER_STEPS = 6          # archipelago steps per job, migration every 2
 FRONTIER_SEED = 5           # both jobs' seed, and the direct run's
 FRONTIER_SUITE, FRONTIER_ISLANDS = "mha+gqa+decode", 4    # each job's archipelago
-PHASES = ("device", "build", "kernel", "decode_kernel", "ssd_kernel", "serve",
+PHASES = ("device", "build", "kernel", "decode_kernel", "ssd_kernel", "serve", "long_decode",
           "serve_encdec", "train", "mesh", "dryrun", "rank", "noise", "evolve", "backends", "islands",
           "cascade", "frontier", "gqa", "decode_suite", "times", "kernels")
 SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd.cu")
@@ -302,6 +320,10 @@ SERVE_PROMPT = (1000, 2049)         # prompt lengths drawn in [lo, hi)
 DECODE_SPLITS = (1, 2, 3, 5, 8, None)   # None: the wrapper's split count
 DECODE_SWEEP = (2, 4, 6, 8, 10, 12, 16)  # wgmma split counts timed at the served shape
 TEACHER_STEPS = 8                   # decode steps of the teacher-forced reading
+# one sequence at long context (the dry run's long_500k cell): the cache
+# length, the live keys, the equal length shards the partial mode is merged
+# over in decode_kernel, and long_decode's greedy steps
+LONG_LEN, LONG_VALID, LONG_SHARDS, LONG_STEPS = 524288, 400000, (2, 4, 16), 8
 # where the served tokens of flash_decode's two bodies part: a tie is two
 # router probabilities, or a token's logit and the best one, within 4 bf16
 # ulps in both runs (two roundings of each of two values), among the top 4
@@ -916,10 +938,231 @@ def phase_decode_kernel(state):
                for who, sc, ok, want in verdicts if ok != want]
     if worst_plain > TOL_F32 or worst_ref > TOL_F32:
         faults.append(f"fp32: {worst_plain} vs plain, {worst_ref} vs reference")
+    state["decode_shards"] = _decode_shards(faults)
     if faults:
         raise AssertionError("flash_decode: " + "; ".join(faults))
     state["decode_err"] = max(worst_plain, worst_bf16)
     state["decode_splits"] = auto
+
+
+def _decode_shards(faults: list) -> dict:
+    """flash_decode on one sequence at long context: q (1, 32, 128) against
+    a (1, 8, LONG_LEN, 128) bf16 cache (jamba's attention), LONG_VALID live
+    keys.  The kernel over the whole cache, and its partial mode over
+    LONG_SHARDS equal length shards, each shard's (o, M, l) held against
+    the plain version's on it, the shards merged (merge_partials, as the
+    ranks of a length-sharded cache merge them) and held against the plain
+    version over the whole cache under the bf16 bounds; the shards past
+    LONG_VALID read o = 0, M = -1e30, l = 0 and no NaN, on the wgmma body
+    and (at the most shards) on the simt body.  Times on the card's own
+    time and host-inclusive, L2 flushed: the whole call, one full shard's
+    partial call, the plain version (one reading) and SDPA over the masked
+    cache, beside the bytes bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.evals.scorer import time_cuda_ms
+    from repro_torch.kernels import flash_decode as fd
+
+    B, Hq, Hkv, D, L = 1, 32, 8, 128, LONG_LEN
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q = torch.randn((B, Hq, D), generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((B, Hkv, L, D), generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    vl = torch.tensor([LONG_VALID], dtype=torch.int32, device="cuda")
+    splits = fd.kernel_splits(q, k)
+    plain = fd.flash_decode_plain(q, k, v, vl, splits=splits)
+    mag = fd.flash_decode_plain(q, k, v.abs(), vl, splits=splits)
+    before = dict(fd.flash_decode.launches_by_body)
+    out = fd.flash_decode(q, k, v, vl)
+    whole = fd.bf16_agreement(out, plain, mag)
+    emit({"phase": "decode_kernel", "check": "long_context_whole", "body": "wgmma",
+          "shape": f"q ({B}, {Hq}, {D}), cache ({B}, {Hkv}, {L}, {D}) bf16, "
+                   f"valid_len {LONG_VALID}", "splits": splits, **whole})
+    if not fd.bf16_agrees(whole):
+        faults.append(f"long context, whole cache: {whole}")
+    worst, merged_stats, empties, calls = whole["max_abs_err"], {}, {}, {"wgmma": 1, "simt": 0}
+    for n, body in [(n, "wgmma") for n in LONG_SHARDS] + [(LONG_SHARDS[-1], "simt")]:
+        Lr, parts, stat_worst, empty = L // n, [], {"stat_m_err": 0.0, "stat_l_rel": 0.0}, []
+        for r in range(n):
+            ks, vs = (t[:, :, r * Lr:(r + 1) * Lr].contiguous() for t in (k, v))
+            vr = (vl - r * Lr).clamp(0, Lr).to(torch.int32)
+            part = fd.flash_decode(q, ks, vs, vr, body=body, partial=True)
+            calls[body] += 1
+            sp = fd.kernel_splits(q, ks)
+            st = fd.partial_agreement(part, fd.flash_decode_plain(q, ks, vs, vr, splits=sp,
+                                                                  partial=True),
+                                      fd.flash_decode_plain(q, ks, vs.abs(), vr, splits=sp,
+                                                            partial=True)[0])
+            for key in stat_worst:
+                stat_worst[key] = max(stat_worst[key], st[key])
+            if not fd.bf16_agrees(st):
+                faults.append(f"long context, {body} partial, shard {r} of {n}: {st}")
+            if int(vr) == 0:
+                empty.append(r)
+                o, M, l = part
+                if not (torch.equal(o, torch.zeros_like(o)) and bool((M == -1e30).all())
+                        and bool((l == 0).all())):
+                    faults.append(f"long context, {body}: empty shard {r} of {n} reads "
+                                  f"|o| {float(o.abs().max())}, M {M.flatten()[:2].tolist()}, "
+                                  f"l {float(l.abs().max())}")
+            parts.append(part)
+            del ks, vs
+        merged = fd.merge_partials(*(torch.stack(t) for t in zip(*parts)))
+        st = fd.bf16_agreement(merged.to(torch.bfloat16), plain, mag)
+        emit({"phase": "decode_kernel", "check": "long_context_shards_merged", "body": body,
+              "shards": n, "keys_a_shard": Lr, "empty_shards": empty,
+              "shard_stats_worst": stat_worst, "stat_rel_bound": fd.STAT_REL, **st})
+        if not fd.bf16_agrees(st):
+            faults.append(f"long context, {n} {body} shards merged: {st}")
+        worst = max(worst, st["max_abs_err"])
+        merged_stats[f"{n}_{body}"] = st["rel_rms"]
+        empties[f"{n}_{body}"] = empty
+    took = {b: fd.flash_decode.launches_by_body[b] - before[b] for b in fd.BODIES}
+    if took != calls:
+        faults.append(f"long context: launches by body {took}, the calls were {calls}")
+
+    # times: the whole call and one full shard (of the most shards) in partial mode
+    Lr = L // LONG_SHARDS[-1]
+    ks, vs = (t[:, :, :Lr].contiguous() for t in (k, v))
+    vr = torch.tensor([Lr], dtype=torch.int32, device="cuda")
+    mask = (torch.arange(L, device="cuda") < LONG_VALID)[None, None, None, :]
+    b_ms, b_by = decode_bound(B, Hq, Hkv, D, [LONG_VALID])
+    row = {"shape": f"q ({B}, {Hq}, {D}), cache ({B}, {Hkv}, {L}, {D}) bf16, valid_len "
+                    f"{LONG_VALID}", "splits": splits,
+           "ms": time_cold_ms(lambda: fd.flash_decode(q, k, v, vl)),
+           "device_ms": time_cold_ms(lambda: fd.flash_decode(q, k, v, vl), cushion=True),
+           "shard_keys": Lr, "shard_splits": fd.kernel_splits(q, ks),
+           "shard_ms": time_cold_ms(lambda: fd.flash_decode(q, ks, vs, vr, partial=True)),
+           "shard_device_ms": time_cold_ms(lambda: fd.flash_decode(q, ks, vs, vr, partial=True),
+                                           cushion=True),
+           "plain_ms": time_cuda_ms(lambda: fd.flash_decode_plain(q, k, v, vl, splits=splits),
+                                    warmup=1, reps=1),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "shard_bound_ms": decode_bound(B, Hq, Hkv, D, [Lr])[0], "library_ms": None,
+           "library": "sdpa over the masked cache, L2 flushed",
+           "max_abs_err": worst, "merged_rel_rms": merged_stats, "empty_shards": empties}
+    try:
+        sdpa = lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,  # noqa: E731
+                                                      enable_gqa=True)
+        row.update(library_ms=time_cold_ms(sdpa), library_device_ms=time_cold_ms(
+            sdpa, cushion=True))
+    except (RuntimeError, TypeError) as e:            # recorded, not hidden
+        row["library_error"] = str(e)[:160]
+    emit({"phase": "decode_kernel", "check": "long_context_times", "gate": False,
+          "nvidia_smi": nvidia_smi(), **row})
+    del q, k, v, ks, vs, plain, mag
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_long_decode(state):
+    """SERVE_ARCH at full width (serve's depth: 2 attention layers) decoding
+    one sequence against a LONG_LEN-key cache: init_decode_cache filled
+    with seeded bf16 K/V in the slots before LONG_VALID - 1 and seeded fp32
+    Mamba states, then LONG_STEPS greedy steps through decode_step, timed
+    with the launch counts set to 0 just before and read just after (2
+    flash_decode launches a step, all on the wgmma body, nothing else);
+    then the same steps again from the same cache with every flash_decode
+    launch held against its plain version (tokens equal).  Takes serve's
+    weights when serve ran before it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd as sm
+    from repro_torch.models import decode_step, init_decode_cache, init_params
+
+    cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=SERVE_LAYERS)
+    params = state.pop("serve_params", None)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if params is None:
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda", dtype=torch.bfloat16)
+    weights_gib = sum(t.numel() * t.element_size() for t in _leaves(params)) / 2 ** 30
+    cache = init_decode_cache(cfg, 1, LONG_LEN, cache_dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    mamba0 = {}
+    for pos, entry in cache["layers"].items():
+        if "k" in entry:
+            for name in ("k", "v"):
+                entry[name][:, :, :, :LONG_VALID - 1].normal_(generator=g)
+        if "mamba" in entry:
+            entry["mamba"]["ssm"].normal_(0.0, 0.1, generator=g)
+            entry["mamba"]["conv"].normal_(generator=g)
+            mamba0[pos] = {n: t.clone() for n, t in entry["mamba"].items()}
+    cache["pos"] = LONG_VALID - 1
+    cache_gib = sum(t.numel() * t.element_size() for t in _leaves(cache["layers"])) / 2 ** 30
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    first = int(np.random.default_rng(13).integers(0, cfg.vocab_size))
+    kernels = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
+               "ssd_chunked": sm.ssd_chunked}
+
+    def steps(timed: bool):
+        for pos, saved in mamba0.items():            # the same start every time
+            for n, t in saved.items():
+                cache["layers"][pos]["mamba"][n].copy_(t)
+        c, tok, toks, marks, finite = cache, torch.tensor([first], device="cuda"), [], [], []
+        with torch.no_grad():
+            for _ in range(LONG_STEPS):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                logits, c = decode_step(params, cfg, c, tok)
+                tok = torch.argmax(logits, -1)
+                b.record()
+                marks.append((a, b))
+                finite.append(torch.isfinite(logits).all() if logits.shape == (
+                    1, cfg.vocab_size) else torch.tensor(False))
+                toks.append(tok)
+        torch.cuda.synchronize()
+        return ([int(t) for t in toks], [a.elapsed_time(b) for a, b in marks] if timed else [],
+                all(bool(f) for f in finite))
+
+    faults: list = []
+    n_attn = sum(b.kind == "attn" for b in cfg.pattern) * cfg.n_periods
+    expected = {"flash_attention": 0, "flash_decode": n_attn * LONG_STEPS, "ssd_chunked": 0}
+    torch.cuda.synchronize()
+    reset_counts(*kernels.values())
+    tokens, ms, finite = steps(timed=True)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    by_body = dict(fd.flash_decode.launches_by_body)
+    checks: dict = {}
+    with ops.checking(lambda name, st: checks.setdefault(name, []).append(st)):
+        tokens_checked, _, finite_checked = steps(timed=False)
+    err = _checked(checks, faults, phase="long_decode")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = sorted(ms)[len(ms) // 2]
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "of_layers": get_arch(SERVE_ARCH).n_layers,
+           "batch": 1, "max_len": LONG_LEN, "valid_len_first_step": LONG_VALID,
+           "steps": LONG_STEPS, "launches": launches, "launches_expected": expected,
+           "flash_decode_launches_by_body": by_body,
+           "launches_checked": len(checks.get("flash_decode", [])),
+           "ms_per_step": ms, "ms_per_step_median": med, "tokens_per_s": 1e3 / med,
+           "weights_gib": weights_gib, "cache_gib": cache_gib, "peak_gib": peak_gib,
+           "setup_s": setup_s, "tokens": tokens, "tokens_checked_equal": tokens == tokens_checked,
+           "max_abs_err": err.get("flash_decode"), "nvidia_smi": nvidia_smi()}
+    emit({"phase": "long_decode", "summary": True, **out})
+    if launches != expected:
+        faults.append(f"launches {launches}, the path implies {expected}")
+    if by_body["wgmma"] != launches["flash_decode"]:
+        faults.append(f"flash_decode launches by body {by_body}: all must take wgmma")
+    if not (finite and finite_checked):
+        faults.append("logits not finite or not (1, vocab)")
+    if tokens != tokens_checked:
+        faults.append(f"tokens {tokens}, again with the checks {tokens_checked}")
+    state["long_decode"] = out
+    del params, cache
+    torch.cuda.empty_cache()
+    if faults:
+        raise AssertionError("long_decode: " + "; ".join(faults))
 
 
 def ssd_inputs(gen, B, L, H, P, N, dtype, A=None):
@@ -1417,6 +1660,8 @@ def phase_serve(state):
                       "decode_by_body": decode_by_body,
                       "prompt_lens": [t["prompt_len"] for t in server.timings],
                       "timings": server.timings}
+    if "long_decode" in state.get("phases", ()):
+        state["serve_params"] = params      # long_decode decodes on the same weights
     del params, server
     torch.cuda.empty_cache()
 
@@ -4177,6 +4422,8 @@ def phase_kernels(state):
     serve_err = state.get("serve_err", {})
     train_launches = state.get("train", {}).get("launches", {})
     mesh_launches = state.get("mesh", {}).get("launches", {})
+    long_decode = state.get("long_decode", {})
+    long_launches = long_decode.get("launches", {})
     encdec = state.get("serve_encdec", {})
     encdec_launches = encdec.get("launches", {})
     encdec_times = state.get("encdec_times", {})
@@ -4239,8 +4486,9 @@ def phase_kernels(state):
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
             "launches": serve_launches.get(name, 0) + encdec_launches.get(name, 0)
-            + mesh_launches.get(name, 0),
+            + mesh_launches.get(name, 0) + long_launches.get(name, 0),
             "launches_by_path": {"serve": serve_launches.get(name, 0),
+                                 "long_decode": long_launches.get(name, 0),
                                  "serve_encdec": encdec_launches.get(name, 0),
                                  "train": train_launches.get(name, 0),
                                  "mesh": mesh_launches.get(name, 0)},
@@ -4255,10 +4503,16 @@ def phase_kernels(state):
                          library_device_ms=t.get("library_device_ms"),
                          ms_after_write_flush=t.get("ms_after_write_flush"),
                          launches_by_body={"serve": serve.get("decode_by_body"),
+                                           "long_decode": long_decode.get(
+                                               "flash_decode_launches_by_body"),
                                            "serve_encdec": encdec.get("decode_by_body"),
                                            "mesh": state.get("mesh", {}).get("serve", {})
                                            .get("decode_by_body")},
                          head_dims=state.get("head_dim_times", {}).get("flash_decode"),
+                         long_context=state.get("decode_shards"),
+                         long_decode={k: long_decode.get(k) for k in (
+                             "ms_per_step_median", "tokens_per_s", "peak_gib",
+                             "launches_checked", "max_abs_err")} if long_decode else None,
                          encdec=encdec_times.get("flash_decode"),
                          max_abs_err_serve_encdec_bf16=encdec.get("err", {}).get(name))
         else:
@@ -4291,14 +4545,15 @@ def main() -> int:
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    state: dict = {}
+    state: dict = {"phases": phases}
     if "device" in phases:
         emit({"phase": "device", "name": name, "count": count, "nvidia_smi": smi,
               "torch": torch.__version__, "cuda": torch.version.cuda})
         device_check()
     runners = {"build": lambda st: phase_build(), "kernel": phase_kernel,
                "decode_kernel": phase_decode_kernel, "ssd_kernel": phase_ssd_kernel,
-               "serve": phase_serve, "serve_encdec": phase_serve_encdec,
+               "serve": phase_serve, "long_decode": phase_long_decode,
+               "serve_encdec": phase_serve_encdec,
                "train": phase_train, "mesh": phase_mesh, "dryrun": phase_dryrun,
                "noise": phase_noise,
                "rank": phase_rank,

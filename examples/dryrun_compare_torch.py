@@ -7,9 +7,13 @@ collective bytes per rank (both counted by ``HloAnalysis``'s rule).
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
   PYTHONPATH=src python -m repro.launch.dryrun --all --mesh single   # the reference's records
   PYTHONPATH=src python examples/dryrun_compare_torch.py [--port results/dryrun_torch] [--ref results/dryrun]
+  PYTHONPATH=src python examples/dryrun_compare_torch.py --port AFTER --before BEFORE
 
 Reads both packages' records through ``repro_torch.launch.roofline.load``.
-A cell the reference has no record of reads "none" in its columns.
+A cell the reference has no record of reads "none" in its columns.  With
+``--before`` (the port's records of an earlier tree), a second table gives,
+per cell the two trees share and each mesh, the port's dot FLOPs, argument
+bytes and collective bytes over "data" a rank, before and after.
 """
 import argparse
 import os
@@ -35,6 +39,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--port", default=RESULTS_DIR)
     ap.add_argument("--ref", default=os.path.join(REPO, "results", "dryrun"))
+    ap.add_argument("--before", default=None, help="the port's records of an earlier tree")
     args = ap.parse_args(argv)
     pod1, pod2 = records(args.port, "pod1"), records(args.port, "pod2")
     ref = records(args.ref, "pod1")
@@ -54,6 +59,29 @@ def main(argv=None) -> None:
                 if p and j and j["collectives"]["total_bytes"] else "none")
         print(f"| {key[0]} | {key[1]} | {terms(p)} | {terms(pod2.get(key))} "
               f"| {dot} | {jdot} | {ratio} | {coll} |")
+    if args.before:
+        changes(args.before, {"pod1": pod1, "pod2": pod2})
+
+
+def changes(before_dir: str, after: dict) -> None:
+    """The port's records of an earlier tree beside these: per rank, dot
+    FLOPs, argument bytes (parameters, state, batch, cache) and collective
+    bytes over "data", before -> after and after / before."""
+    print()
+    print("| arch | cell | mesh | dot FLOPs before -> after | after / before "
+          "| argument bytes before -> after | after / before "
+          "| data collective bytes before -> after |")
+    print("|" + "---|" * 8)
+    for tag in ("pod1", "pod2"):
+        before = records(before_dir, tag)
+        for key in sorted(set(before) & set(after[tag]),
+                          key=lambda k: (k[0], CELL_ORDER.index(k[1]))):
+            b, a = before[key], after[tag][key]
+            ab, aa = b["memory"]["argument_bytes"], a["memory"]["argument_bytes"]
+            cb, ca = (r["collectives"]["by_axis"].get("data", 0) for r in (b, a))
+            print(f"| {key[0]} | {key[1]} | {tag} | {b['hlo_dot_flops']:.6g} -> "
+                  f"{a['hlo_dot_flops']:.6g} | {a['hlo_dot_flops'] / b['hlo_dot_flops']:.4f} "
+                  f"| {ab:.6g} -> {aa:.6g} | {aa / ab:.4f} | {cb} -> {ca} |")
 
 
 if __name__ == "__main__":

@@ -9,6 +9,8 @@ activation layouts hold by construction.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.distributed.tensor import DTensor
 
@@ -56,6 +58,19 @@ def batch_spec(n: int):
     for a in ba:
         dp *= axis_size(a)
     return ba if ba and n % dp == 0 else None
+
+
+def length_spec(batch: int, length: int):
+    """The batch axes for a decode cache's length of ``length`` keys when
+    they do not shard a batch of ``batch`` rows (``batch_spec`` is None)
+    and do divide the length, else None.  This is the JAX package's
+    ``cache_shardings`` for such a batch (a batch of 1 at 524 288 keys): the
+    cache's largest dim over (pod, data).  With one data-parallel rank every
+    batch divides, so the length is never split."""
+    ba = batch_axes()
+    if not ba or batch_spec(batch) is not None:
+        return None
+    return ba if length % math.prod(axis_size(a) for a in ba) == 0 else None
 
 
 def local(x) -> torch.Tensor:

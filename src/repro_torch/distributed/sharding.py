@@ -18,10 +18,13 @@ rule degrades gracefully: a dim that does not divide its axis stays
 replicated.
 
 The program places parameters through these rules (``distribute_params``).
-The JAX package's batch and cache rules have no counterpart here: the
-executed batch takes ``spmd.local_rows`` (the batch rule's layout), and the
-executed cache the kernels' layout (``models.transformer._cache_specs``),
-which the dry run traces too (``launch.specs``).
+The JAX package's batch and cache rules are not restated here: the executed
+batch takes ``spmd.local_rows`` (the batch rule's layout), and the executed
+cache ``models.transformer._cache_specs``, the kernels' layout: rows over
+the data axes where they divide the batch, else (a batch of 1 at long
+context) the attention cache's length over them where they divide it, as
+``cache_shardings`` puts the largest dim there (``context.length_spec``).
+The dry run traces the same layout (``launch.specs``).
 """
 from __future__ import annotations
 

@@ -6,7 +6,10 @@ model block has one body for one device and for a mesh.
 Under a mesh (``context.set_mesh``) the activations are plain tensors, each
 rank's batch shard (the rows of its data-parallel index, pod-major; the
 whole batch where the data-parallel size does not divide it), whole over
-the "model" axis.  Parameters are DTensors placed by ``sharding``; a block
+the "model" axis.  Where the batch does not split and the decode cache's
+length does (``context.length_spec``), each rank holds its shard of the
+cache's length and the attention's partials are merged across the ranks
+(``merge_over_data``).  Parameters are DTensors placed by ``sharding``; a block
 takes each as a local tensor in the layout it computes with (``use``),
 gathering the dims the rules shard and the block does not.  Where a block
 splits its work over "model" (heads, experts, the expert or MLP hidden dim,
@@ -35,6 +38,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Shard
 
 from repro_torch.distributed import context as ctx
+from repro_torch.kernels.flash_decode import merge_partials
 
 
 class Local(NamedTuple):
@@ -182,6 +186,20 @@ def gather_rows(t: torch.Tensor, partial: bool) -> torch.Tensor:
     for a in reversed(ctx.batch_axes()):          # minor first: data, then pod
         t = gather(t, 0, a, partial)
     return t
+
+
+def merge_over_data(o: torch.Tensor, M: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """One decode output from every data-parallel rank's partial over its
+    shard of a length-sharded cache: ``o`` (B, Hq, D), ``M`` and ``l`` (B,
+    Hq), fp32, as the partial decode returns them.  The ranks' partials are
+    gathered in ``dp_rank`` order (one all-gather of B x Hq x (D + 2)
+    floats over "data", then over "pod") and merged there
+    (``merge_partials``); every rank holds the same result."""
+    D = o.shape[-1]
+    t = torch.cat([o, M[..., None], l[..., None]], dim=-1)[None]
+    for a in reversed(ctx.batch_axes()):          # minor first: data, then pod
+        t = gather(t, 0, a, partial=False)
+    return merge_partials(t[..., :D], t[..., D], t[..., D + 1])
 
 
 def batch_axes_sum(t: torch.Tensor) -> torch.Tensor:

@@ -80,6 +80,22 @@
 //          splits.  Instances at D = 16, 64 and 128; the wrapper zero-pads
 //          other head dims to the next (96 and 120 run at 128).
 //
+// Partial mode (stat_m, stat_l not null): both bodies also write each query
+// row's merged statistics, the running maximum M and the denominator l
+// (fp32, (B, Hkv x rep)), and write the output in fp32, so that a merge of
+// several calls over shards of one cache (the length sharded over ranks)
+// starts from no bf16 rounding: out = sum_r e^(M_r - M*) l_r o_r / sum_r
+// e^(M_r - M*) l_r.  The wgmma body writes them in the last CTA's merge (or
+// the one CTA's epilogue), the simt body in decode_combine.  A shard with no
+// live key (valid_len 0) loads no tile and writes o = 0, M = -1e30, l = 0:
+// every split's (m, l, acc) stays (-1e30, 0, 0), so the merge's weights are
+// e^0 = 1 against l = 0 and the output is 0 / max(0, 1e-30) = 0, no NaN.
+//
+// Offsets.  Every element offset into the caches, the partials and the
+// output is formed in size_t (B x Hkv x L x D reaches 2^31 at a batch of 4
+// at 524 288 keys); TMA addresses the caches with 64-bit strides and int32
+// coordinates (keys < 2^31).
+//
 // Types.  The simt body's products, statistics and accumulator are IEEE
 // fp32 (FFMA, expf, tanhf), so fp32 inputs agree with the plain version to a
 // few ulps.  Both bodies round a bf16 output once.
@@ -94,8 +110,9 @@
 // last CTA.
 //
 // C interface: avo_flash_decode(...) launches the simt body's two kernels,
-// avo_flash_decode_wgmma(...) the wgmma body's one, on the given stream;
-// both return a CUDA error code as an int (0: launched).
+// avo_flash_decode_wgmma(...) the wgmma body's one, on the given stream
+// (stat_m and stat_l both null, or both set: partial mode); both return a
+// CUDA error code as an int (0: launched).
 // avo_flash_decode_wgmma_ctas_per_sm(D, &n) reports how many wgmma CTAs fit
 // an SM.
 
@@ -117,7 +134,8 @@ constexpr float NEG_INF = -1e30f;
 struct Params {
     const void* q; const void* k; const void* v; const int* valid_len;
     float* part_m; float* part_l; float* part_acc;   // (B, Hkv, splits, rep[, D])
-    void* o;
+    void* o;                                         // T, or fp32 with the statistics
+    float* stat_m; float* stat_l;                    // (B, Hkv x rep) or null
     int B, Hkv, rep, L, splits;
     float softcap, scale;
 };
@@ -352,7 +370,9 @@ constexpr int MAX_SPLITS = 1024;
 
 // One CTA per (sequence, KV head): warp r merges row r's statistics into
 // weights e^(m_s - M) and a denominator in shared memory, then every thread
-// sums the weighted partial accumulators of its (row, column) pairs.
+// sums the weighted partial accumulators of its (row, column) pairs.  With
+// the statistics asked for (partial mode) it writes each row's M and
+// denominator too, and T is fp32 whatever the inputs' type.
 template <typename T, int D>
 __global__ void __launch_bounds__(COMBINE_THREADS)
 decode_combine(const Params p) {
@@ -374,7 +394,13 @@ decode_combine(const Params p) {
             den = fmaf(w, p.part_l[row0 + (size_t)s * rep], den);
         }
         den = warp_sum(den);
-        if (lane == 0) den_s[warp] = den;
+        if (lane == 0) {
+            den_s[warp] = den;
+            if (p.stat_m) {
+                p.stat_m[head * rep + warp] = M;
+                p.stat_l[head * rep + warp] = den;
+            }
+        }
     }
     __syncthreads();
     T* og = static_cast<T*>(p.o) + head * rep * D;
@@ -398,7 +424,10 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const size_t combine_smem = (size_t)(MAX_REP * p.splits + MAX_REP) * sizeof(float);
-    decode_combine<T, D><<<dim3(p.Hkv, p.B), COMBINE_THREADS, combine_smem, stream>>>(p);
+    if (p.stat_m)           // partial mode: the output in fp32
+        decode_combine<float, D><<<dim3(p.Hkv, p.B), COMBINE_THREADS, combine_smem, stream>>>(p);
+    else
+        decode_combine<T, D><<<dim3(p.Hkv, p.B), COMBINE_THREADS, combine_smem, stream>>>(p);
     return cudaGetLastError();
 }
 
@@ -445,7 +474,8 @@ struct WParams {
     const __nv_bfloat16* q; const int* valid_len;
     float* part_m; float* part_l; float* part_acc;   // (B, Hkv, splits, rep[, D])
     int* counters;                                   // (B, Hkv), 0 between calls
-    __nv_bfloat16* o;
+    void* o;                                         // bf16, or fp32 with the statistics
+    float* stat_m; float* stat_l;                    // (B, Hkv x rep) or null
     int Hkv, rep, L, D, splits;
     float softcap, scale;
 };
@@ -460,6 +490,12 @@ __device__ __forceinline__ void wgmma_n8(float (&d)[4], uint64_t da, uint64_t db
                  "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, 0;\n}\n"
                  : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
                  : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A));
+}
+
+// element i of the output: bf16, or fp32 in partial mode (statistics asked for)
+__device__ __forceinline__ void store_out(const WParams& p, size_t i, float x) {
+    if (p.stat_m) static_cast<float*>(p.o)[i] = x;
+    else static_cast<__nv_bfloat16*>(p.o)[i] = __float2bfloat16_rn(x);
 }
 
 // the four consumer warps, without the producer
@@ -670,7 +706,7 @@ decode_wgmma(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ C
         lsum[c] = ((red[col] + red[8 + col]) + red[16 + col]) + red[24 + col];
     }
 
-    __nv_bfloat16* og = p.o + q_row0 * D;
+    const size_t o0 = q_row0 * D;                      // this (b, KV head)'s output rows
     if (p.splits == 1) {
 #pragma unroll
         for (int mt = 0; mt < NB; ++mt)
@@ -678,8 +714,16 @@ decode_wgmma(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ C
             for (int e = 0; e < 4; ++e) {
                 const int col = 2 * tig + (e & 1), d = mt * 64 + 16 * warp + g + 8 * (e >> 1);
                 if (col < rep && d < D)
-                    og[col * D + d] = __float2bfloat16_rn(o[mt][e] / fmaxf(lsum[e & 1], 1e-30f));
+                    store_out(p, o0 + col * D + d, o[mt][e] / fmaxf(lsum[e & 1], 1e-30f));
             }
+        if (p.stat_m && warp == 0 && g == 0) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+                if (2 * tig + c < rep) {
+                    p.stat_m[q_row0 + 2 * tig + c] = m[c];
+                    p.stat_l[q_row0 + 2 * tig + c] = lsum[c];
+                }
+        }
         return;
     }
 
@@ -744,6 +788,10 @@ decode_wgmma(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ C
             den = den + w * l_s[s * rep + tid];
         }
         den_s[tid] = den;
+        if (p.stat_m) {
+            p.stat_m[q_row0 + tid] = M;
+            p.stat_l[q_row0 + tid] = den;
+        }
     }
     consumer_sync();
     for (int i = tid; i < RD; i += 128) {
@@ -752,7 +800,7 @@ decode_wgmma(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ C
         for (int s = 0; s < SC; ++s) num = num + w_s[s * rep + r] * acc_s[s * RD + i];
         for (int s = SC; s < S; ++s)
             num = num + w_s[s * rep + r] * __ldcg(p.part_acc + (h0 + (size_t)s * rep) * D + i);
-        og[i] = __float2bfloat16_rn(num / fmaxf(den_s[r], 1e-30f));
+        store_out(p, o0 + i, num / fmaxf(den_s[r], 1e-30f));
     }
     if (tid == 0) p.counters[head] = 0;                 // ready for the next call
 }
@@ -791,7 +839,8 @@ bool wgmma_head_dim(int D) { return D > 16 && D <= 128 && D % 8 == 0; }
 
 extern "C" int avo_flash_decode(
         const void* q, const void* k, const void* v, const void* valid_len,
-        void* part_m, void* part_l, void* part_acc, void* o, int dtype_bf16,
+        void* part_m, void* part_l, void* part_acc, void* o, void* stat_m, void* stat_l,
+        int dtype_bf16,
         int B, int Hkv, int rep, int L, int D, int splits,
         float softcap, float scale, void* stream) {
     if (rep < 1 || rep > MAX_REP || B < 1 || Hkv < 1 || L < 1 || splits < 1 ||
@@ -800,7 +849,8 @@ extern "C" int avo_flash_decode(
         return (int)cudaErrorInvalidValue;
     Params p{q, k, v, static_cast<const int*>(valid_len),
              static_cast<float*>(part_m), static_cast<float*>(part_l),
-             static_cast<float*>(part_acc), o, B, Hkv, rep, L, splits, softcap, scale};
+             static_cast<float*>(part_acc), o, static_cast<float*>(stat_m),
+             static_cast<float*>(stat_l), B, Hkv, rep, L, splits, softcap, scale};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = dtype_bf16 ? dispatch<__nv_bfloat16>(p, D, s)
                                  : dispatch<float>(p, D, s);
@@ -812,16 +862,17 @@ extern "C" int avo_flash_decode(
 extern "C" int avo_flash_decode_wgmma(
         const void* q, const void* k, const void* v, const void* valid_len,
         void* part_m, void* part_l, void* part_acc, void* counters, void* o,
-        int B, int Hkv, int rep, int L, int D, int splits,
+        void* stat_m, void* stat_l, int B, int Hkv, int rep, int L, int D, int splits,
         float softcap, float scale, void* stream) {
     if (rep < 1 || rep > MAX_REP || B < 1 || Hkv < 1 || L < 1 || splits < 1 ||
         splits > MAX_SPLITS || Hkv > 65535 || B > 65535 || !wgmma_head_dim(D) ||
-        (splits > 1 && (!part_m || !counters)))
+        (splits > 1 && (!part_m || !counters)) || (!stat_m != !stat_l))
         return (int)cudaErrorInvalidValue;
     WParams p{static_cast<const __nv_bfloat16*>(q), static_cast<const int*>(valid_len),
               static_cast<float*>(part_m), static_cast<float*>(part_l),
               static_cast<float*>(part_acc), static_cast<int*>(counters),
-              static_cast<__nv_bfloat16*>(o), Hkv, rep, L, D, splits, softcap, scale};
+              o, static_cast<float*>(stat_m), static_cast<float*>(stat_l), Hkv, rep, L, D,
+              splits, softcap, scale};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return (int)(D > 64 ? launch_wgmma<2>(p, k, v, B, s) : launch_wgmma<1>(p, k, v, B, s));
 }

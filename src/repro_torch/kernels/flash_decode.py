@@ -41,6 +41,12 @@ Source note.
             besides the stream from DRAM: the first tile's latency, and the
             merge's tail (partials, fence, atomic, one load round trip) on
             the path of the last CTA.
+  Partial   ``partial=True``: both bodies also return each query row's
+            merged statistics M and l (fp32, (B, Hq)) and the output in
+            fp32, so that a decode over a cache whose length is sharded
+            over ranks merges the ranks' results (:func:`merge_partials`,
+            ``distributed.spmd.merge_over_data``) from no bf16 rounding.  A
+            shard with no live key gives o = 0, M = -1e30, l = 0.
   Later     fp8 K/V; a persistent grid; a cluster merge; CUDA graphs over
             the host-bound decode step.
 
@@ -87,6 +93,12 @@ RING_DEPTH = 3
 BF16_ATOL, BF16_RTOL = 1e-5, 1e-2     # every element, against its magnitude
 BF16_REL_RMS = 4e-4                   # the whole output
 BF16_ROW_REL_RMS = 4e-3               # every row of head_dim values
+# Partial mode's statistics, kernel vs plain version: M (the row's maximum
+# score) within 1e-4 of max(1, |M|), l (the sum of e^(s - M)) within 1e-4 of
+# itself.  Both sides sum the same fp32 products of bf16 inputs in another
+# order: a score moves by a few fp32 ulps of the row's largest terms, and l
+# by as much relative, far under 1e-4.
+STAT_REL = 1e-4
 
 
 def decode_splits(B: int, Hkv: int, L: int, n_sm: int) -> int:
@@ -171,16 +183,22 @@ def flash_decode_plain(
     softcap: float = 0.0,
     scale: Optional[float] = None,
     splits: int = 1,
-) -> torch.Tensor:
-    """The plain PyTorch version: the kernel's walk, every sequence at once.
-    Each of ``splits`` splits walks its share of a sequence's live tiles of
-    ``TILE_K`` keys (ceil(live / splits) consecutive tiles, as the kernel
-    does) with the online softmax of ``_decode_body``; the splits are then
-    combined, M = max m_s, out = sum e^(m_s - M) acc_s / sum e^(m_s - M) l_s.
+    partial: bool = False,
+):
+    """The plain PyTorch version: the kernel's walk, every sequence and
+    every split at once.  Each of ``splits`` splits walks its share of a
+    sequence's live tiles of ``TILE_K`` keys (ceil(live / splits)
+    consecutive tiles, as the kernel does) with the online softmax of
+    ``_decode_body``; the splits are then combined in split order, M = max
+    m_s, out = sum e^(m_s - M) acc_s / sum e^(m_s - M) l_s.
     One split is the TPU kernel's walk; its block size does not change the
     function, since a block past ``valid_len`` adds exactly nothing.  A
     ``valid_len`` past L counts as L, as in ``decode_reference`` (the TPU
-    kernel would attend its zero pad)."""
+    kernel would attend its zero pad).  With ``partial``: ``(out, M, l)``,
+    the output in fp32 and each query row's merged statistics (B, Hq), as
+    the kernels' partial mode writes them (:func:`merge_partials` merges
+    such triples); a sequence with no live key gives out = 0, M = -1e30,
+    l = 0."""
     if splits < 1:
         raise ValueError(f"splits must be positive, got {splits}")
     B, Hq, D = q.shape
@@ -197,43 +215,57 @@ def flash_decode_plain(
     valid = valid_len.to(device=dev, dtype=torch.int64).clamp(max=L)
     live = -(-valid // bk)                                       # (B,) live tiles
     per = -(-live // splits)                                     # tiles per split
-    qf = q.reshape(B, Hkv, rep, D).float()
-    rows = torch.arange(B, device=dev)[:, None]
-    parts = []
+    # every split's walk at once, the splits as dim 1: split sp of row b
+    # walks tiles [lo, hi) of that row
+    lo = torch.arange(splits, device=dev)[None, :] * per[:, None]   # (B, S)
+    hi = torch.minimum(live[:, None], lo + per[:, None])
+    qf = q.reshape(B, 1, Hkv, rep, D).float()
+    rows = torch.arange(B, device=dev)[:, None, None]
+    acc = torch.zeros((B, splits, Hkv, rep, D), dtype=torch.float32, device=dev)
+    m = torch.full((B, splits, Hkv, rep), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, splits, Hkv, rep), dtype=torch.float32, device=dev)
+    for j in range(int(per.max())):
+        t = lo + j                                               # (B, S) tile of each split
+        kpos = t.clamp(max=nk - 1)[..., None] * bk + torch.arange(bk, device=dev)
+        kj = k_cache[rows, :, kpos].permute(0, 1, 3, 2, 4).float()   # (B, S, Hkv, bk, D)
+        vj = v_cache[rows, :, kpos].permute(0, 1, 3, 2, 4).float()
+        s = (qf @ kj.transpose(-1, -2)) * scale_                 # (B, S, Hkv, rep, bk)
+        s = _apply_softcap(s, softcap)
+        ok = kpos < valid[:, None, None]                         # (B, S, bk)
+        s = torch.where(ok[:, :, None, None, :], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        run = (t < hi)[..., None, None]                          # (B, S, 1, 1)
+        acc = torch.where(run[..., None], acc * alpha[..., None] + p @ vj, acc)
+        l = torch.where(run, l * alpha + p.sum(dim=-1), l)
+        m = torch.where(run, m_new, m)
+    # the merge, in split order
+    M = m.amax(dim=1)
+    num = torch.zeros_like(acc[:, 0])
+    den = torch.zeros_like(l[:, 0])
     for sp in range(splits):
-        lo = sp * per
-        hi = torch.minimum(live, lo + per)
-        acc = torch.zeros((B, Hkv, rep, D), dtype=torch.float32, device=dev)
-        m = torch.full((B, Hkv, rep), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((B, Hkv, rep), dtype=torch.float32, device=dev)
-        for j in range(int(per.max())):
-            t = lo + j                                           # (B,) tile of each row
-            kpos = t.clamp(max=nk - 1)[:, None] * bk + torch.arange(bk, device=dev)
-            kj = k_cache[rows, :, kpos].transpose(1, 2).float()  # (B, Hkv, bk, D)
-            vj = v_cache[rows, :, kpos].transpose(1, 2).float()
-            s = (qf @ kj.transpose(-1, -2)) * scale_             # (B, Hkv, rep, bk)
-            s = _apply_softcap(s, softcap)
-            ok = kpos < valid[:, None]                           # (B, bk)
-            s = torch.where(ok[:, None, None, :], s, torch.full_like(s, NEG_INF))
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new[..., None])
-            run = (t < hi)[:, None, None]                        # (B, 1, 1)
-            acc = torch.where(run[..., None], acc * alpha[..., None] + p @ vj, acc)
-            l = torch.where(run, l * alpha + p.sum(dim=-1), l)
-            m = torch.where(run, m_new, m)
-        parts.append((m, l, acc))
-    M = parts[0][0]
-    for m, _, _ in parts[1:]:
-        M = torch.maximum(M, m)
-    num = torch.zeros_like(parts[0][2])
-    den = torch.zeros_like(parts[0][1])
-    for m, l, acc in parts:
-        w = torch.exp(m - M)
-        num = num + w[..., None] * acc
-        den = den + w * l
+        w = torch.exp(m[:, sp] - M)
+        num = num + w[..., None] * acc[:, sp]
+        den = den + w * l[:, sp]
     out = num / torch.clamp_min(den, 1e-30)[..., None]
+    if partial:
+        return out.reshape(B, Hq, D), M.reshape(B, Hq), den.reshape(B, Hq)
     return out.to(q.dtype).reshape(B, Hq, D)
+
+
+def merge_partials(o: torch.Tensor, M: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """One output from R partial decodes over disjoint shards of a cache,
+    stacked in shard order: ``o`` (R, B, Hq, D), ``M`` and ``l`` (R, B, Hq),
+    fp32, as the partial mode returns them.  out = sum_r w_r o_r / sum_r w_r
+    with w_r = e^(M_r - M*) l_r and M* = max_r M_r, the split merge across
+    shards.  A shard with no live key (l = 0) weighs exactly 0; with no
+    live key anywhere the output is 0.  Its input is R x B x Hq x (D + 2)
+    floats, so no kernel: every rank reduces the same stacked tensor and
+    holds the same result."""
+    w = torch.exp(M - M.amax(dim=0)) * l                          # (R, B, Hq)
+    num = (w[..., None] * o).sum(dim=0)
+    return num / torch.clamp_min(w.sum(dim=0), 1e-30)[..., None]
 
 
 def bf16_agreement(out: torch.Tensor, plain: torch.Tensor,
@@ -244,7 +276,32 @@ def bf16_agreement(out: torch.Tensor, plain: torch.Tensor,
 
 
 def bf16_agrees(stats: dict) -> bool:
-    return _fa.bf16_agrees(stats, rel_rms=BF16_REL_RMS, row_rel_rms=BF16_ROW_REL_RMS)
+    """Within the bf16 bounds; a partial-mode reading
+    (:func:`partial_agreement`) also holds its statistics to
+    ``STAT_REL``."""
+    ok = _fa.bf16_agrees(stats, rel_rms=BF16_REL_RMS, row_rel_rms=BF16_ROW_REL_RMS)
+    if "stat_m_err" in stats:
+        ok = ok and stats["stat_m_err"] <= STAT_REL and stats["stat_l_rel"] <= STAT_REL
+    return ok
+
+
+def partial_agreement(out: tuple, plain: tuple, magnitude: torch.Tensor) -> dict:
+    """A partial-mode call ``(o, M, l)`` against the plain version's:
+    :func:`bf16_agreement` of the outputs, and the statistics' worst
+    errors, M's relative to max(1, |M|) and l's relative to l, over the
+    rows with a live key (the others must read M = -1e30, l = 0 on both
+    sides)."""
+    (o, M, l), (po, pM, pl) = out, plain
+    st = bf16_agreement(o, po, magnitude)
+    live = pl > 0
+    empty_ok = bool((M[~live] == NEG_INF).all() and (l[~live] == 0).all())
+    dm = ((M - pM).abs() / pM.abs().clamp_min(1.0))[live]
+    dl = ((l - pl).abs() / pl.clamp_min(1e-30))[live]
+    st.update(stat_m_err=float(dm.max()) if dm.numel() else 0.0,
+              stat_l_rel=float(dl.max()) if dl.numel() else 0.0,
+              finite=st["finite"] and bool(torch.isfinite(M).all() and torch.isfinite(l).all())
+              and empty_ok)
+    return st
 
 
 def _check_inputs(q, k_cache, v_cache, valid_len):
@@ -276,11 +333,11 @@ def _kernel(body: str):
     lib = _build.load("flash_decode.cu")
     if body == "simt":
         fn = lib.avo_flash_decode
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     else:
         fn = lib.avo_flash_decode_wgmma
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -317,7 +374,8 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return buf
 
 
-def _launch(q, k_cache, v_cache, valid_len, *, softcap, scale, splits, body):
+def _launch(q, k_cache, v_cache, valid_len, *, softcap, scale, splits, body,
+            partial=False):
     if valid_len.dtype != torch.int32:
         raise TypeError(f"valid_len must be int32, got {valid_len.dtype}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
@@ -340,7 +398,10 @@ def _launch(q, k_cache, v_cache, valid_len, *, softcap, scale, splits, body):
     splits = kernel_splits(q, k_cache) if splits is None else int(splits)
     if not 1 <= splits <= MAX_SPLITS:
         raise ValueError(f"splits must lie in [1, {MAX_SPLITS}], got {splits}")
-    o = torch.empty_like(q)
+    # partial mode: the output in fp32, and M, l of every query row
+    o = torch.empty_like(q, dtype=torch.float32 if partial else q.dtype)
+    stats = torch.empty((2, B, Hq), dtype=torch.float32, device=q.device) if partial else None
+    stat_m, stat_l = (stats[0].data_ptr(), stats[1].data_ptr()) if partial else (0, 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     # the splits' partial m, l (B, Hkv, splits, rep) and acc (..., D), fp32:
     # simt's m, l, acc; wgmma's acc first (its merge loads it 16 bytes at a
@@ -356,16 +417,18 @@ def _launch(q, k_cache, v_cache, valid_len, *, softcap, scale, splits, body):
             m, l, acc)
     tail = (B, Hkv, rep, L, D, splits, float(softcap or 0.0), float(scale), stream)
     if body == "simt":
-        err = _kernel(body)(*ptrs, o.data_ptr(), int(q.dtype == torch.bfloat16), *tail)
+        err = _kernel(body)(*ptrs, o.data_ptr(), stat_m, stat_l,
+                            int(q.dtype == torch.bfloat16), *tail)
     else:
         counters = _counters(q.device, stream, B * Hkv)
-        err = _kernel(body)(*ptrs, counters.data_ptr(), o.data_ptr(), *tail)
+        err = _kernel(body)(*ptrs, counters.data_ptr(), o.data_ptr(), stat_m, stat_l, *tail)
     if err != 0:
         raise RuntimeError(f"flash_decode {body} launch failed (q {tuple(q.shape)}, cache "
                            f"{tuple(k_cache.shape)}, {splits} splits): CUDA error {err}")
     flash_decode.launches += 1
     flash_decode.launches_by_body[body] += 1
-    return o if D == D0 else o[..., :D0].contiguous()
+    o = o if D == D0 else o[..., :D0].contiguous()
+    return (o, stats[0], stats[1]) if partial else o
 
 
 def flash_decode(
@@ -379,14 +442,17 @@ def flash_decode(
     splits: Optional[int] = None,
     impl: Optional[str] = None,
     body: Optional[str] = None,
-) -> torch.Tensor:
+    partial: bool = False,
+):
     """One query token per sequence against its cache.  CUDA tensors launch
     a kernel body (``body`` None: :func:`decode_body`'s choice; "simt"
     forces the simt body on a bf16 call, for A/B timing; a body that cannot
     take the call raises) with ``splits`` splits (None:
     :func:`kernel_splits`); CPU tensors take :func:`flash_decode_plain`
     (None: one split).  ``impl="kernel"`` demands a kernel and raises on CPU
-    tensors."""
+    tensors.  With ``partial`` it returns ``(out, M, l)``: the output in
+    fp32 and each query row's merged statistics (B, Hq) in fp32, for a
+    merge across shards of the cache (:func:`merge_partials`)."""
     refuse_dtensor("flash_decode", q, k_cache, v_cache, valid_len)
     _check_inputs(q, k_cache, v_cache, valid_len)
     if impl not in (None, "kernel"):
@@ -395,12 +461,12 @@ def flash_decode(
     if q.device.type == "cuda":
         refuse_autograd("flash_decode", q, k_cache, v_cache)
         return _launch(q, k_cache, v_cache, valid_len, softcap=softcap, scale=scale,
-                       splits=splits, body=body)
+                       splits=splits, body=body, partial=partial)
     if impl == "kernel":
         raise ValueError(f"the flash_decode kernel runs on CUDA tensors; "
                          f"got tensors on {q.device}")
     return flash_decode_plain(q, k_cache, v_cache, valid_len, softcap=softcap,
-                              scale=scale, splits=splits or 1)
+                              scale=scale, splits=splits or 1, partial=partial)
 
 
 flash_decode.launches = 0

@@ -116,10 +116,16 @@ def decode_attention(
     softcap: float = 0.0,
     scale: Optional[float] = None,
     impl: Optional[str] = None,
-) -> torch.Tensor:
+    partial: bool = False,
+):
+    """One query token per sequence against its cache.  With ``partial``
+    (the route of a cache whose length is sharded over ranks): ``(out, M,
+    l)``, the output in fp32 and each query row's softmax statistics (B,
+    Hq), which ``spmd.merge_over_data`` merges across the ranks; the
+    checking hook holds the statistics against the plain version's too."""
     impl = resolve_impl(impl, q)
     if impl in ("kernel", "plain"):
-        kw = dict(softcap=softcap, scale=scale)
+        kw = dict(softcap=softcap, scale=scale, partial=partial)
         q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
         if impl == "plain":
             return _fd.flash_decode_plain(q, k_cache, v_cache, valid_len, **kw)
@@ -128,10 +134,11 @@ def decode_attention(
             kw["splits"] = _fd.kernel_splits(q, k_cache)     # like for like
             plain = _fd.flash_decode_plain(q, k_cache, v_cache, valid_len, **kw)
             mag = _fd.flash_decode_plain(q, k_cache, v_cache.abs(), valid_len, **kw)
-            _check("flash_decode", _fd.bf16_agreement(out, plain, mag))
+            _check("flash_decode", _fd.partial_agreement(out, plain, mag[0]) if partial
+                   else _fd.bf16_agreement(out, plain, mag))
         return out
     return _ref.decode_reference(q, k_cache, v_cache, valid_len,
-                                 softcap=softcap, scale=scale)
+                                 softcap=softcap, scale=scale, partial=partial)
 
 
 def ssd(

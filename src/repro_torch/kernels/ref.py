@@ -162,7 +162,13 @@ def decode_reference(
     *,
     softcap: float = 0.0,
     scale: Optional[float] = None,
-) -> torch.Tensor:
+    partial: bool = False,
+):
+    """With ``partial``: ``(out, M, l)``, the output in fp32 and each query
+    row's softmax statistics (B, Hq), the maximum masked score M and l =
+    sum over live keys of e^(s - M): the kernels' partial mode.  A row with
+    no live key gives out = 0, M = -1e30, l = 0 (the whole-cache softmax
+    would average V there)."""
     B, Hq, D = q.shape
     _, Hkv, L, _ = k_cache.shape
     rep = Hq // Hkv
@@ -173,6 +179,12 @@ def decode_reference(
     s = _softcap(s, softcap)
     live = torch.arange(L, device=q.device)[None, :] < valid_len.to(q.device)[:, None]
     s = torch.where(live[:, None], s, torch.full_like(s, NEG_INF))
+    if partial:
+        M = s.amax(dim=-1)
+        p = torch.where(live[:, None], torch.exp(s - M[..., None]), torch.zeros_like(s))
+        l = p.sum(dim=-1)
+        o = torch.einsum("bhl,bhld->bhd", p, vc.float()) / torch.clamp_min(l, 1e-30)[..., None]
+        return o, M, l
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhl,bhld->bhd", p, vc.float())
     return o.to(q.dtype)

@@ -7,8 +7,11 @@ placements and allocate nothing.  Under an active mesh
 (``distributed.context.set_mesh``) the parameters and AdamW moments are
 DTensors placed by ``sharding.param_shardings`` and the decode cache is in
 the layout the port executes with (``models.init_decode_cache``: rows over
-the data axes, KV or Mamba heads over "model"), not the JAX package's
-``cache_shardings``.  The batch and the decode tokens are the global ones:
+the data axes, KV or Mamba heads over "model"; where the data axes do not
+divide the batch, an attention cache's length over them, as the JAX
+package's ``cache_shardings`` puts it for the ``long_500k`` cell's batch of
+1; the head dim, and the Mamba state over the data axes, stay whole).  The
+batch and the decode tokens are the global ones:
 the port's entry points take the global batch on every rank and cut this
 rank's rows themselves (``spmd.local_rows``).
 """

@@ -22,8 +22,12 @@ Where Q heads divide and KV heads do not, each rank keeps all KV heads and
 reads the ones its Q heads share.  Where the Q heads do not divide, every
 model rank computes all heads: the JAX package shards the query rows over
 "model" there, which the port's kernels, with no row offset, cannot do
-(ROADMAP Queue 3).  The decode cache is held in the same layout, its length
-and head dim whole.
+(ROADMAP Queue 3).  The decode cache is held in the same layout, its head
+dim whole, its length whole too unless the data axes do not divide the
+batch and do divide the length (a batch of 1 at long context): then each
+data-parallel rank holds its shard of the length, decodes it with the
+kernel's partial mode, and the ranks' partials are merged
+(``spmd.merge_over_data``) before the output projection.
 """
 from __future__ import annotations
 
@@ -195,14 +199,19 @@ def cache_from_prefill(kt, vt, blk: Block, max_len: int):
 
 def attn_decode(x, p, cache, cfg: ArchConfig, blk: Block, *, pos: int, compute_dtype,
                 cross_cache: Optional[dict] = None, enc_len: Optional[int] = None,
-                impl: Optional[str] = None):
+                impl: Optional[str] = None, length_split: bool = False):
     """Single-token attention.  x: (B, D); pos: the absolute position (one
     for the whole batch: decode runs in lockstep).  Writes the token's K/V
     into ``cache`` in place and returns the new x.  With ``cross_cache``
     ({"k", "v"}: (B, Hkv, Se, Dh)), cross-attention follows over its first
     ``enc_len`` keys; the cross cache is only read.  Under a mesh it runs on
     this rank's rows, and the caches hold this rank's shard
-    (``_head_layout``)."""
+    (``_head_layout``).  With ``length_split`` the self-attention cache
+    holds this data-parallel rank's shard of the length, slots [r Lr, (r +
+    1) Lr) of the whole Lc = n Lr: the rank that owns the token's slot
+    writes it, each rank decodes its live keys (keys sit in slots [0,
+    min(pos + 1, Lc)), on a ring too) and the partials are merged across
+    the ranks."""
     B = x.shape[0]
     Dh = cfg.head_dim
     q_ax, kv_ax, kv_range = _head_layout(cfg)
@@ -217,14 +226,22 @@ def attn_decode(x, p, cache, cfg: ArchConfig, blk: Block, *, pos: int, compute_d
     q = rope_apply(q.reshape(B, 1, hq, Dh), pos, cfg.rope_theta)[:, 0]
     k = rope_apply(k.reshape(B, 1, hkv, Dh), pos, cfg.rope_theta)[:, 0]
     kc, vc = cache["k"], cache["v"]
-    Lc = kc.shape[2]
+    Lr = kc.shape[2]                                 # this rank's slots
+    n, r = (spmd.dp_size(), spmd.dp_rank()) if length_split else (1, 0)
+    Lc, lo = n * Lr, r * Lr
     # the JAX package's dynamic_update_slice clamps an index past the end
     slot = pos % Lc if blk.window else min(pos, Lc - 1)
-    kc[:, :, slot] = k.to(kc.dtype)
-    vc[:, :, slot] = v.reshape(B, hkv, Dh).to(vc.dtype)
-    valid_len = torch.full((B,), min(pos + 1, Lc), dtype=torch.int32, device=x.device)
-    o = ops.decode_attention(q, _kv_read(kc, kv_range), _kv_read(vc, kv_range),
-                              valid_len, **kw)
+    if lo <= slot < lo + Lr:
+        kc[:, :, slot - lo] = k.to(kc.dtype)
+        vc[:, :, slot - lo] = v.reshape(B, hkv, Dh).to(vc.dtype)
+    live = min(max(min(pos + 1, Lc) - lo, 0), Lr)
+    valid_len = torch.full((B,), live, dtype=torch.int32, device=x.device)
+    kr, vr = _kv_read(kc, kv_range), _kv_read(vc, kv_range)
+    if length_split:
+        o = spmd.merge_over_data(*ops.decode_attention(q, kr, vr, valid_len, partial=True,
+                                                       **kw)).to(q.dtype)
+    else:
+        o = ops.decode_attention(q, kr, vr, valid_len, **kw)
     out = o.reshape(B, hq * Dh) @ w["wo"]
     if split:
         out = spmd.sum_model(out)

@@ -32,7 +32,9 @@ the batch at every block, as the JAX package constrains the stack, or the
 whole batch where the shards do not divide it.  The logits come back as a
 DTensor sharded over "model" on the vocab where it divides (``pad_vocab``
 pads it to divide), the decode cache as DTensors in the kernels' layout
-(rows over the data axes, KV or Mamba heads over "model"), and
+(rows over the data axes, KV or Mamba heads over "model"; where the data
+axes do not divide the batch and do divide an attention cache's length,
+that length over them, ``_cache_specs``), and
 ``lm_loss`` as this rank's value of the global loss whose gradient is this
 rank's share.
 """
@@ -372,8 +374,10 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *, prefix_embeds=None
             arranged = [attn_mod.cache_from_prefill(
                 kt.to(cache_dtype), vt.to(cache_dtype), blk, max_len)
                 for kt, vt in (c["kv"] for c in per)]
-            entry["k"] = torch.stack([a["k"] for a in arranged])
-            entry["v"] = torch.stack([a["v"] for a in arranged])
+            # this rank's shard of the length where the cache splits it
+            length = (None, None, None, _cache_specs(cfg, blk, B, max_len)["k"][3], None)
+            entry["k"] = _shard_of(torch.stack([a["k"] for a in arranged]), length)
+            entry["v"] = _shard_of(torch.stack([a["v"] for a in arranged]), length)
             if "cross" in per[0]:
                 entry["cross"] = {name: torch.stack([c["cross"][j] for c in per])
                                   for j, name in enumerate(("k", "v"))}
@@ -381,34 +385,40 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *, prefix_embeds=None
             entry["mamba"] = {k: torch.stack([c["mamba"][k] for c in per])
                               for k in ("ssm", "conv")}
         layers[f"pos{i}"] = entry
-    cache = {"pos": S, "layers": _wrap_cache(layers, cfg, B)}
+    cache = {"pos": S, "layers": _wrap_cache(layers, cfg, B, max_len)}
     if cfg.enc_dec:
         cache["enc_len"] = enc_out.shape[1]
     return logits, cache
 
 
-def _cache_specs(cfg: ArchConfig, batch: int) -> dict:
-    """The specs of the cache's leaves, by name, in the kernels' layout:
-    rows over the data axes where they divide them, KV heads (Mamba heads)
-    over "model" where they divide it, the cache length and head dim
-    whole."""
+def _cache_specs(cfg: ArchConfig, blk: Block, batch: int, max_len: int) -> dict:
+    """The specs of one block position's cache leaves, as its entry of the
+    cache nests them, in the kernels' layout: rows over the data axes where
+    they divide them, KV heads (Mamba heads) over "model" where they divide
+    it, the head dim whole.  An attention cache's length goes over the data
+    axes where they do not divide the batch and do divide the length
+    (``context.length_spec``: the JAX package's ``cache_shardings`` for a
+    batch of 1), else stays whole, as the cross cache's always does.  The
+    Mamba state stays whole over the data axes (the JAX package shards its
+    largest dim over them at a batch of 1)."""
     bs = ctx.batch_spec(batch)
-    kv = (None, bs, attn_mod._head_layout(cfg)[1], None, None)
-    specs = {"k": kv, "v": kv, "conv": (None, bs, None, None)}
-    if cfg.ssm is not None:
-        specs["ssm"] = (None, bs, ssm_mod.head_axis(cfg), None, None)
-    return specs
+    if blk.kind == "mamba":
+        return {"mamba": {"ssm": (None, bs, ssm_mod.head_axis(cfg), None, None),
+                          "conv": (None, bs, None, None)}}
+    kv_ax = attn_mod._head_layout(cfg)[1]
+    kv = (None, bs, kv_ax, ctx.length_spec(batch, attn_mod.cache_len(blk, max_len)), None)
+    cross = (None, bs, kv_ax, None, None)
+    return {"k": kv, "v": kv, "cross": {"k": cross, "v": cross}}
 
 
-def _wrap_cache(layers: dict, cfg: ArchConfig, batch: int) -> dict:
+def _wrap_cache(layers: dict, cfg: ArchConfig, batch: int, max_len: int) -> dict:
     """Every rank's local cache as DTensors (``_cache_specs``); with no mesh,
     as it is."""
-    specs = _cache_specs(cfg, batch)
-
-    def wrap(tree):
-        return {k: wrap(v) if isinstance(v, dict) else spmd.wrap(v, *specs[k])
+    def wrap(tree, specs):
+        return {k: wrap(v, specs[k]) if isinstance(v, dict) else spmd.wrap(v, *specs[k])
                 for k, v in tree.items()}
-    return wrap(layers)
+    return {f"pos{i}": wrap(layers[f"pos{i}"], _cache_specs(cfg, blk, batch, max_len))
+            for i, blk in enumerate(cfg.pattern)}
 
 
 def _local_cache(layers: dict) -> dict:
@@ -424,31 +434,35 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int, *,
     caches (n_per, B, Hkv, enc_len, Dh) are in ``cache_dtype`` here, as the
     JAX package makes them.  The JAX package broadcasts one zero block over
     the periods; ``decode_step`` writes the port's cache in place, so every
-    period gets its own."""
+    period gets its own.  Under a mesh each rank allocates its shard only
+    (``_cache_specs``)."""
     n_per = cfg.n_periods
+    meta = torch.device("meta")             # the whole cache's shapes
 
     def stacked(one: dict) -> dict:
-        return {k: torch.zeros((n_per, *t.shape), dtype=t.dtype, device=t.device)
+        return {k: torch.empty((n_per, *t.shape), dtype=t.dtype, device=meta)
                 for k, t in one.items()}
     layers = {}
     for i, blk in enumerate(cfg.pattern):
         entry = {}
         if blk.kind == "attn":
             entry.update(stacked(attn_mod.attn_cache_init(cfg, blk, batch, max_len,
-                                                          cache_dtype, device)))
+                                                          cache_dtype, meta)))
             if blk.cross_attn and cfg.enc_dec:
                 shape = (n_per, batch, cfg.n_kv_heads, enc_len, cfg.head_dim)
-                entry["cross"] = {k: torch.zeros(shape, dtype=cache_dtype, device=device)
+                entry["cross"] = {k: torch.empty(shape, dtype=cache_dtype, device=meta)
                                   for k in ("k", "v")}
         elif blk.kind == "mamba":
-            entry["mamba"] = stacked(ssm_mod.mamba_cache_init(cfg, batch, device))
+            entry["mamba"] = stacked(ssm_mod.mamba_cache_init(cfg, batch, meta))
         layers[f"pos{i}"] = entry
-    specs = _cache_specs(cfg, batch)
 
-    def local(tree):                      # this rank's shards of the zero cache
-        return {k: local(v) if isinstance(v, dict) else _shard_of(v, specs[k])
+    def local(tree, specs):               # this rank's shards of the zero cache
+        return {k: local(v, specs[k]) if isinstance(v, dict) else
+                torch.zeros(_shard_of(v, specs[k]).shape, dtype=v.dtype, device=device)
                 for k, v in tree.items()}
-    cache = {"pos": max_len - 1, "layers": _wrap_cache(local(layers), cfg, batch)}
+    layers = {f"pos{i}": local(layers[f"pos{i}"], _cache_specs(cfg, blk, batch, max_len))
+              for i, blk in enumerate(cfg.pattern)}
+    cache = {"pos": max_len - 1, "layers": _wrap_cache(layers, cfg, batch, max_len)}
     if cfg.enc_dec:
         cache["enc_len"] = enc_len
     return cache
@@ -470,8 +484,12 @@ def decode_step(params, cfg: ArchConfig, cache, token, *,
 
     The cache's tensors are updated in place (the JAX package returns new
     arrays); the returned cache is a new dict over the same tensors with
-    ``pos`` advanced by one."""
+    ``pos`` advanced by one.  An attention cache whose length the mesh
+    splits (``_cache_specs``; its global length is the DTensor's) decodes
+    each rank's shard and merges the ranks' partials (``attn_decode``)."""
     B = token.shape[0]
+    split = {pos: "k" in c and ctx.length_spec(B, c["k"].shape[3]) is not None
+             for pos, c in cache["layers"].items()}
     token, layers = spmd.local_rows(token), _local_cache(cache["layers"])
     with spmd.rows(spmd.batch_sharded(B)):
         x = _table(params)[token].to(compute_dtype)
@@ -488,7 +506,7 @@ def decode_step(params, cfg: ArchConfig, cache, token, *,
                     x = attn_mod.attn_decode(
                         x, p["attn"], {"k": c["k"][per], "v": c["v"][per]}, cfg, blk,
                         pos=pos, compute_dtype=compute_dtype, cross_cache=cross,
-                        enc_len=enc_len, impl=impl)
+                        enc_len=enc_len, impl=impl, length_split=split[f"pos{i}"])
                 elif blk.kind == "mamba":
                     mc = c["mamba"]
                     x, new = ssm_mod.mamba_decode(

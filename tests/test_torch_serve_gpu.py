@@ -150,6 +150,56 @@ def test_wgmma_decode_matches_plain_on_card(rep, D, splits, softcap):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("body,dtype", [("wgmma", torch.bfloat16), ("simt", torch.bfloat16),
+                                        ("simt", torch.float32)])
+@pytest.mark.parametrize("splits", [1, 3, None])
+def test_partial_decode_and_empty_shard_on_card(body, dtype, splits):
+    """The partial mode of both bodies: (o in fp32, M, l) against the plain
+    version walking the same splits (fp32 within ATOL and STAT_REL, bf16
+    within flash_decode's bounds and STAT_REL); a row with valid_len 0 (a
+    shard past the token) gives o = 0, M = -1e30, l = 0, no NaN.  Then the
+    cache cut into 4 length shards, each decoded in partial mode at its
+    own valid_len (the last one of row 1 empty), merged: against the plain
+    version over the whole cache."""
+    _need_card()
+    rng = np.random.default_rng(29)
+    B, Hkv, rep, L, D = 3, 2, 4, 1024, 128
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(dtype)
+               for s in ((B, rep * Hkv, D), (B, Hkv, L, D), (B, Hkv, L, D)))
+    vl = torch.tensor([0, 577, L], dtype=torch.int32, device="cuda")
+    before = dict(fd.flash_decode.launches_by_body)
+    o, M, l = fd.flash_decode(q, k, v, vl, splits=splits, softcap=30.0, body=body, partial=True)
+    assert fd.flash_decode.launches_by_body == dict(before, **{body: before[body] + 1})
+    assert o.dtype == M.dtype == l.dtype == torch.float32 and o.shape == q.shape
+    assert M.shape == l.shape == (B, rep * Hkv)
+    assert torch.equal(o[0], torch.zeros_like(o[0]))
+    assert bool((M[0] == -1e30).all() and (l[0] == 0).all())
+    assert bool(torch.isfinite(o).all() and torch.isfinite(M).all() and torch.isfinite(l).all())
+    n = splits or fd.kernel_splits(q, k)
+    plain = fd.flash_decode_plain(q, k, v, vl, splits=n, softcap=30.0, partial=True)
+    mag = fd.flash_decode_plain(q, k, v.abs(), vl, splits=n, softcap=30.0, partial=True)[0]
+    stats = fd.partial_agreement((o, M, l), plain, mag)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, plain[0], atol=ATOL, rtol=0)
+        assert stats["stat_m_err"] <= fd.STAT_REL and stats["stat_l_rel"] <= fd.STAT_REL
+    else:
+        assert fd.bf16_agrees(stats), stats
+    Lr = L // 4
+    parts = [fd.flash_decode(q, k[:, :, r * Lr:(r + 1) * Lr].contiguous(),
+                             v[:, :, r * Lr:(r + 1) * Lr].contiguous(),
+                             (vl - r * Lr).clamp(0, Lr).to(torch.int32), softcap=30.0,
+                             body=body, partial=True) for r in range(4)]
+    merged = fd.merge_partials(*(torch.stack(t) for t in zip(*parts)))
+    whole = fd.flash_decode_plain(q, k, v, vl, softcap=30.0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(merged, whole, atol=ATOL, rtol=0)
+    else:
+        stats = fd.bf16_agreement(merged.to(dtype), whole,
+                                  fd.flash_decode_plain(q, k, v.abs(), vl, softcap=30.0))
+        assert fd.bf16_agrees(stats), stats
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("splits", [1, None])
 def test_a_bf16_decode_call_is_one_kernel_launch(splits):
     """At the served Jamba shape one bf16 call launches exactly one CUDA
