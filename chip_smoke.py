@@ -217,7 +217,10 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  greedy tokens through BatchedServer on the mesh and off it,
                  every launch held against its plain version: equal tokens,
                  the serve phase's launches per group (every kernel on its
-                 rank's local shard), prefill and step ms of both paths;
+                 rank's local shard), prefill and step ms of both paths, and
+                 the decode steps' products on the weights' shards
+                 (spmd.counts: every product through the route, no
+                 collective on one rank);
                  (c) checkpoint_restart: the train phase's ResilientRunner
                  (reduced TRAIN_ARCH, a checkpoint every 2 steps, one fault
                  at TRAIN_RESTART_FAULT) on the mesh, its state DTensors,
@@ -237,11 +240,15 @@ Phases, each printing JSON lines (any failure exits non-zero):
   dryrun         the dry run (repro_torch.launch.dryrun) in one subprocess,
                  which must never initialise CUDA: mamba2-780m decode_32k on
                  the 256- and 512-rank fake meshes, qwen2-7b prefill_32k and
-                 train_4k on the 256-rank one (meta tensors, fake process
-                 group); the pinned pod1 record of mamba2-780m equal to the
-                 CPU test's (DRYRUN_PINNED); one line per record (terms,
-                 dominant, useful fraction, collective bytes by axis, wall
-                 seconds).  Calibration: one-device records of the train
+                 train_4k and mixtral-8x22b decode_32k on the 256-rank one
+                 (meta tensors, fake process group); the pinned pod1 record
+                 of mamba2-780m equal to the CPU test's (DRYRUN_PINNED); one
+                 line per record (terms, dominant, useful fraction,
+                 collective bytes a rank and by axis, the top three
+                 collective sites, wall seconds); a decode record fails on a
+                 site that gathers a product's weight or the table
+                 (">use": a weight through spmd.dot or spmd.lookup's
+                 gather).  Calibration: one-device records of the train
                  phase's step and of the serve phase's decode step; the
                  largest term of each no more than the time the phase
                  measured, and the train record's argument + temp bytes
@@ -350,10 +357,12 @@ MESH_LOSS_REL = 1e-3        # first-step loss, mesh vs unsharded (relative)
 MESH_SERVE_NEW = 8          # greedy tokens of the mesh phase's one group
 CKPT_LAYERS = 1             # the full-width checkpoint: depth cut 28 -> 1 (~16 GB of fp32)
 DRYRUN_CELLS = (("mamba2-780m", "decode_32k", (False, True)),   # (arch, cell, multi_pod)
-                ("qwen2-7b", "prefill_32k", (False,)), ("qwen2-7b", "train_4k", (False,)))
+                ("qwen2-7b", "prefill_32k", (False,)), ("qwen2-7b", "train_4k", (False,)),
+                ("mixtral-8x22b", "decode_32k", (False,)))
 # mamba2-780m decode_32k on the 256-rank mesh: tests/test_torch_dryrun.py's PINNED_POD1
-DRYRUN_PINNED = {"hlo_dot_flops": 9097641984.0,
-                 "collective_bytes": {"all-gather": 2698985472, "all-reduce": 1181184}}
+DRYRUN_PINNED = {"hlo_dot_flops": 1966669824.0,
+                 "collective_bytes": {"all-gather": 11392000, "all-to-all": 2408448,
+                                     "all-reduce": 36828672}}
 DRYRUN_MEM_REL = 0.2        # train record's argument + temp bytes against the measured peak
 DRYRUN_TIMEOUT_S = 300      # the dry-run subprocess (about 60-100 s on the chip host)
 
@@ -2484,6 +2493,7 @@ def _mesh_serve(faults: list, mesh) -> dict:
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.distributed import context as ctx
+    from repro_torch.distributed import spmd
     from repro_torch.distributed.sharding import distribute_params
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
@@ -2506,6 +2516,7 @@ def _mesh_serve(faults: list, mesh) -> dict:
     n_mamba = sum(b.kind == "mamba" for b in cfg.pattern) * cfg.n_periods
     expected = {"flash_attention": n_attn, "ssd_chunked": n_mamba,
                 "flash_decode": n_attn * (MESH_SERVE_NEW - 1)}
+    products_a_step = decode_products(cfg)
     runs = {}
     for path in ("mesh", "unsharded"):
         ctx.set_mesh(mesh if path == "mesh" else None)
@@ -2517,9 +2528,11 @@ def _mesh_serve(faults: list, mesh) -> dict:
             checks: dict = {}
             torch.cuda.synchronize()
             reset_counts(*kernels.values())
+            spmd.counts.update(products=0, collectives=0)
             with ops.checking(lambda name, st: checks.setdefault(name, []).append(st)):
                 server.run_group(group)
             torch.cuda.synchronize()
+            route = dict(spmd.counts)
         finally:
             ctx.set_mesh(None)
         launches = {name: fn.launches for name, fn in kernels.items()}
@@ -2530,13 +2543,20 @@ def _mesh_serve(faults: list, mesh) -> dict:
                       "ssd_by_body": dict(sm.ssd_chunked.launches_by_body),
                       "decode_by_body": dict(fd.flash_decode.launches_by_body),
                       "prefill_ms": t["prefill_ms"], "decode_ms_median": dec[len(dec) // 2],
-                      "decode_steps": len(dec), "prompt_len": t["prompt_len"]}
+                      "decode_steps": len(dec), "prompt_len": t["prompt_len"],
+                      "stationary_route": route}
         runs[path]["err"] = _checked(checks, faults, phase="mesh", part="serve", path=path)
         emit({"phase": "mesh", "part": "serve", "path": path,
               **{k: v for k, v in runs[path].items() if k != "tokens"},
               "tokens_first_request": runs[path]["tokens"][0]})
         if launches != expected:
             faults.append(f"serve {path}: launches {launches}, the path implies {expected}")
+        # decode multiplies every weight on its shard: on one rank, with no
+        # collective; off the mesh the route is not taken
+        want_products = products_a_step * (MESH_SERVE_NEW - 1) if path == "mesh" else 0
+        if route != {"products": want_products, "collectives": 0}:
+            faults.append(f"serve {path}: the stationary route took {route}, "
+                          f"want {want_products} products and no collective")
         if runs[path]["by_body"]["wgmma"] != launches["flash_attention"] or \
                 runs[path]["ssd_by_body"]["chunked"] != launches["ssd_chunked"] or \
                 runs[path]["decode_by_body"]["wgmma"] != launches["flash_decode"]:
@@ -2557,6 +2577,18 @@ def _mesh_serve(faults: list, mesh) -> dict:
     torch.cuda.empty_cache()
     return {**out, "launches": runs["mesh"]["launches"],
             "decode_by_body": runs["mesh"]["decode_by_body"]}
+
+
+def decode_products(cfg) -> int:
+    """The products one decode step takes through spmd.dot and
+    spmd.lookup: the table and the head, and per block Q, K, V and the
+    output projection (and the cross-attention's Q and output projection),
+    in_proj and out_proj, the router and three expert products, or the
+    MLP's two or three."""
+    per_block = {"attn": 4, "mamba": 2}
+    per_mlp = {"moe": 4, "gated_silu": 3, "gated_gelu": 3, "squared_relu": 2, "relu": 2}
+    return 2 + cfg.n_periods * sum(per_block.get(b.kind, 0) + per_mlp.get(b.mlp, 0)
+                                   + 2 * (b.cross_attn and cfg.enc_dec) for b in cfg.pattern)
 
 
 def phase_mesh(state):
@@ -2650,6 +2682,8 @@ def phase_dryrun(state):
     """The dry run in a subprocess (this process has a CUDA context and,
     after the mesh phase, had a default process group), then the pinned
     record and the calibration against the train and serve phases."""
+    from repro_torch.configs.base import SHAPES_BY_NAME
+
     out_dir = os.path.join(HERE, "build", "dryrun")
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
     t0 = time.perf_counter()
@@ -2670,12 +2704,19 @@ def phase_dryrun(state):
               "dominant": rec["dominant"], "useful_flops_frac": rec["useful_flops_frac"],
               "hlo_dot_flops": rec["hlo_dot_flops"],
               "collective_bytes": rec["collectives"]["bytes"],
+              "collective_bytes_a_rank": rec["collectives"]["total_bytes"],
               "collective_bytes_by_axis": rec["collectives"]["by_axis"],
+              "top_collective_sites": rec["top_collective_sites"][:3],
               "memory": rec["memory"], "n_microbatches": rec.get("n_microbatches"),
               "wall_s": rec["wall_s"]})
         if not (rec["hlo_flops"] > 0 and rec["terms_s"]["memory"] > 0
                 and 0 < rec["useful_flops_frac"] < 5.0):
             faults.append(f"{rec['arch']} {rec['cell']} {rec['mesh']}: record {rec}")
+        # decode multiplies every weight on its shard: no site may gather one
+        gathered = [site for site, _ in rec["top_collective_sites"] if ">use" in site]
+        if SHAPES_BY_NAME[rec["cell"]].kind == "decode" and gathered:
+            faults.append(f"{rec['arch']} {rec['cell']} {rec['mesh']}: weight-gather "
+                          f"sites {gathered}")
     pinned = next(r for r in out["records"] if r["arch"] == "mamba2-780m"
                   and r["n_chips"] == 256)
     got = {"hlo_dot_flops": pinned["hlo_dot_flops"],

@@ -13,7 +13,8 @@ Reads both packages' records through ``repro_torch.launch.roofline.load``.
 A cell the reference has no record of reads "none" in its columns.  With
 ``--before`` (the port's records of an earlier tree), a second table gives,
 per cell the two trees share and each mesh, the port's dot FLOPs, argument
-bytes and collective bytes over "data" a rank, before and after.
+bytes, collective bytes over "data" and in all, live temp bytes and
+dominant term a rank, before and after.
 """
 import argparse
 import os
@@ -65,13 +66,16 @@ def main(argv=None) -> None:
 
 def changes(before_dir: str, after: dict) -> None:
     """The port's records of an earlier tree beside these: per rank, dot
-    FLOPs, argument bytes (parameters, state, batch, cache) and collective
-    bytes over "data", before -> after and after / before."""
+    FLOPs, argument bytes (parameters, state, batch, cache), collective
+    bytes over "data" and in all, the live temp bytes, and the dominant
+    term, before -> after (and after / before)."""
     print()
     print("| arch | cell | mesh | dot FLOPs before -> after | after / before "
           "| argument bytes before -> after | after / before "
-          "| data collective bytes before -> after |")
-    print("|" + "---|" * 8)
+          "| data collective bytes before -> after "
+          "| collective bytes before -> after | temp bytes before -> after "
+          "| dominant before -> after |")
+    print("|" + "---|" * 11)
     for tag in ("pod1", "pod2"):
         before = records(before_dir, tag)
         for key in sorted(set(before) & set(after[tag]),
@@ -79,9 +83,13 @@ def changes(before_dir: str, after: dict) -> None:
             b, a = before[key], after[tag][key]
             ab, aa = b["memory"]["argument_bytes"], a["memory"]["argument_bytes"]
             cb, ca = (r["collectives"]["by_axis"].get("data", 0) for r in (b, a))
+            tb, ta = (r["collectives"]["total_bytes"] for r in (b, a))
+            mb, ma = (r["memory"]["temp_bytes"] for r in (b, a))
             print(f"| {key[0]} | {key[1]} | {tag} | {b['hlo_dot_flops']:.6g} -> "
                   f"{a['hlo_dot_flops']:.6g} | {a['hlo_dot_flops'] / b['hlo_dot_flops']:.4f} "
-                  f"| {ab:.6g} -> {aa:.6g} | {aa / ab:.4f} | {cb} -> {ca} |")
+                  f"| {ab:.6g} -> {aa:.6g} | {aa / ab:.4f} | {cb} -> {ca} "
+                  f"| {tb:.6g} -> {ta:.6g} | {mb:.6g} -> {ma:.6g} "
+                  f"| {b['dominant']} -> {a['dominant']} |")
 
 
 if __name__ == "__main__":

@@ -19,6 +19,11 @@ backward sums the ranks' partial gradients) and its output leaves through
 Megatron's f and g.  The collectives are ``torch.distributed``'s on the
 mesh's process groups; nothing here runs DTensor's sharding propagation.
 
+Decode multiplies each weight where it lies (``stationary``, ``dot``,
+``lookup``): the rows of the product go to the weight's shard, never the
+weight to the rows, as the JAX package's compiled decode step partitions
+each product by the weight's ``param_shardings``.
+
 Gradients: a gathered weight's gradient is summed over the ranks that use
 different data (the data-parallel ranks, and model ranks whose parts are
 partial) and sliced back to this rank's shard, so a parameter's ``.grad``
@@ -35,7 +40,7 @@ from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.distributed import context as ctx
 from repro_torch.kernels.flash_decode import merge_partials
@@ -295,3 +300,221 @@ def wrap(t: torch.Tensor, *spec):
     from repro_torch.distributed.sharding import placements
     return DTensor.from_local(t, ctx.get_mesh(), placements(spec, ctx.get_mesh()),
                               run_check=False)
+
+
+# ---------------------------------------------------------------------------
+# products on the weight's shard (decode)
+# ---------------------------------------------------------------------------
+
+_STATIONARY = False
+
+# the stationary route's products and the collectives it issued, since the
+# caller last set them to 0 (the one-rank card mesh must issue none)
+counts = {"products": 0, "collectives": 0}
+
+
+@contextlib.contextmanager
+def stationary():
+    """The scope of ``decode_step``: ``dot`` and ``lookup`` take each
+    weight's local shard and move the activations instead of the weight.
+    Outside it (prefill, ``lm_logits``, training) they gather the weight
+    through ``use``, as before."""
+    global _STATIONARY
+    prev, _STATIONARY = _STATIONARY, True
+    try:
+        yield
+    finally:
+        _STATIONARY = prev
+
+
+def _product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.bmm(h, w) if w.ndim == 3 else h @ w
+
+
+def dot(h: torch.Tensor, leaf, *spec, model_partial: bool = False, rows_partial: bool = True,
+        transposed: bool = False) -> torch.Tensor:
+    """``h @ W`` for a parameter W (``Local``, DTensor or, with no mesh, a
+    tensor) of shape (K, N), or (N, K) with ``transposed``; a 3-D expert
+    weight (E, K, N) takes ``h`` (E, C, K) through ``torch.bmm``.  ``spec``
+    names the dims the block splits, as for ``use``; W is cast to
+    ``h.dtype``, the compute dtype.
+
+    Outside ``stationary`` (or with no mesh) it is ``h @ use(W, *spec,
+    ...)``.  Inside it W stays this rank's shard.  An axis that shards a dim
+    of W the spec does not name acts by that dim's role:
+
+    * the contracting dim: this rank's slice of ``h``'s last dim goes in,
+      and the partial products, in fp32, are summed over the axis, then
+      rounded to the compute dtype once;
+    * the output dim: this rank's columns are computed, then gathered over
+      the axis.
+
+    Where the rows are this rank's data-parallel shard (``rows_sharded``)
+    and "data" has a role, every data rank's rows go in (the weights are
+    whole over "pod") and this rank keeps its own rows of the result: a
+    contracting dim over "data" takes every rank's rows of this rank's
+    slice (one all-to-all of this rank's rows), an output dim over "data"
+    takes every rank's rows whole (an all-gather) and sends each rank its
+    rows of this rank's columns (an all-to-all).  An axis of size 1 has no
+    role: on one rank the route is ``h @ W``.  Any other placement (a
+    sharded expert dim the spec does not name, "pod", ``Partial``) raises;
+    nothing falls back to gathering W.  The route has no backward and
+    refuses inputs that require grad.
+    Leaves that no product contracts (norms, biases, ``conv_w``, ``A_log``,
+    ``D_skip``, ``dt_bias``, ``gate_norm``) keep ``use``: each is at most a
+    few MB gathered."""
+    if not _STATIONARY or ctx.get_mesh() is None:
+        w = use(leaf, *spec, model_partial=model_partial, rows_partial=rows_partial)
+        w = w.to(h.dtype)
+        return _product(h, w.mT if transposed else w)
+    t, placements = _shard(leaf, h)
+    nd = t.ndim
+    kd, od = (nd - 1, nd - 2) if transposed else (nd - 2, nd - 1)
+    roles = _roles(placements, _full_spec(spec, nd), {kd: "contract", od: "columns"})
+    t = _slice_named(t, placements, spec)
+    row = 1 if nd == 3 else 0                  # h's row dim: tokens, or an expert's slots
+    x, own = _rows_in(h, row, roles, t.shape[kd])
+    contract = [a for a, r in roles.items() if r == "contract"]
+    w = t.to(h.dtype)
+    w = w.mT if transposed else w
+    if contract:
+        y = _product(x.float(), w.float())
+        for axis in contract:
+            _all_reduce(y, axis)
+        y = y.to(h.dtype)
+    else:
+        y = _product(x, w)
+    counts["products"] += 1
+    return _columns_out(y, row, own, roles)
+
+
+def lookup(leaf, ids: torch.Tensor, dtype) -> torch.Tensor:
+    """The rows ``ids`` of an embedding table (V, D), in ``dtype``.
+    Outside ``stationary``, ``use(table)[ids]``.  Inside it the table stays
+    this rank's shard: a vocab dim sharded over an axis gives the rows of
+    this rank's vocab slice (the others read 0), summed over the axis (one
+    rank holds each row: the sum is exact); a D dim sharded over an axis
+    gives this rank's columns, gathered over it.  The rows of ``ids`` are
+    handled as ``dot`` handles its rows."""
+    if not _STATIONARY or ctx.get_mesh() is None:
+        return use(leaf)[ids].to(dtype)
+    t, placements = _shard(leaf, None)
+    roles = _roles(placements, (None, None), {0: "vocab", 1: "columns"})
+    x, own = _rows_in(ids, 0, roles, None)
+    vocab = [a for a, r in roles.items() if r == "vocab"]
+    if vocab:
+        (axis,) = vocab
+        n = t.shape[0]
+        local = x - rank(axis) * n
+        held = (local >= 0) & (local < n)
+        y = torch.where(held[..., None], t[local.clamp(0, n - 1)].to(dtype), 0)
+        _all_reduce(y, axis)
+    else:
+        y = t[x].to(dtype)
+    counts["products"] += 1
+    return _columns_out(y, 0, own, roles)
+
+
+def _shard(leaf, h):
+    """(the local shard, its placements) of a parameter; raises where
+    autograd would record the route."""
+    if isinstance(leaf, DTensor):
+        leaf = Local(leaf.to_local(), tuple(leaf.placements))
+    if torch.is_grad_enabled() and (leaf.t.requires_grad
+                                    or (h is not None and h.requires_grad)):
+        raise RuntimeError("the stationary product has no backward: an input requires "
+                           "grad. Decode under torch.no_grad(), or on parameters that "
+                           "need none")
+    return leaf.t, leaf.placements
+
+
+def _full_spec(spec, nd: int) -> tuple:
+    return tuple(spec) + (None,) * (nd - len(spec))
+
+
+def _roles(placements, spec: tuple, by_dim: dict) -> dict:
+    """{axis: role} of every axis of size > 1 that shards a dim of the
+    weight its ``spec`` does not name: ``by_dim[dim]``.  Raises on a
+    placement the stationary route does not handle."""
+    names = ctx.axis_names()
+    roles = {}
+    for axis, p in zip(names, placements):
+        if isinstance(p, Replicate) or ctx.axis_size(axis) == 1:
+            continue
+        if not isinstance(p, Shard) or axis == "pod":
+            raise ValueError(f"the stationary product has no route for {p} over {axis!r}")
+        if spec[p.dim] == axis:
+            continue                                 # the block computes on this shard
+        if spec[p.dim] is not None or p.dim not in by_dim:
+            raise ValueError(f"the stationary product has no route for a weight's dim "
+                             f"{p.dim} sharded over {axis!r} under the block's spec {spec}")
+        roles[axis] = by_dim[p.dim]
+    return roles
+
+
+def _slice_named(t: torch.Tensor, placements, spec) -> torch.Tensor:
+    """``t`` sliced to this rank's part of each dim the spec names over an
+    axis that holds the weight whole there (no communication)."""
+    sharded = _sharded_dims(placements)
+    for dim, axis in enumerate(spec):
+        if axis is not None and axis not in sharded and ctx.axis_size(axis) > 1:
+            t = t.chunk(ctx.axis_size(axis), dim)[rank(axis)]
+    return t
+
+
+def _all_reduce(t: torch.Tensor, axis: str) -> None:
+    dist.all_reduce(t, group=_group(axis))
+    counts["collectives"] += 1
+
+
+def _gather_counted(t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    counts["collectives"] += 1
+    return gather(t, dim, axis, partial=False)
+
+
+def _all_to_all(t: torch.Tensor, axis: str) -> torch.Tensor:
+    """``t`` (n, ...): chunk j goes to rank j of ``axis``; chunk j of the
+    result came from rank j."""
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=_group(axis))
+    counts["collectives"] += 1
+    return out
+
+
+def _rows_in(h: torch.Tensor, row: int, roles: dict, k):
+    """``h`` as the product takes it, and this rank's row count where the
+    result must be cut back to its own rows (else None): cut to this
+    rank's slice (``k`` wide) of the last dim over each axis that contracts
+    it, and where its rows are this rank's data-parallel shard and "data"
+    has a role, every data rank's rows (along ``row``, in rank order),
+    through one all-to-all where "data" contracts."""
+    exchange = rows_sharded() and "data" in roles
+    for axis, role in roles.items():
+        if role == "contract" and not (exchange and axis == "data"):
+            h = h.narrow(-1, rank(axis) * k, k)
+    if not exchange:
+        return h, None
+    n, own = ctx.axis_size("data"), h.shape[row]
+    if roles["data"] != "contract":
+        return _gather_counted(h, row, "data"), own
+    parts = h.movedim(row, 0).unflatten(-1, (n, -1)).movedim(-2, 0)
+    return _all_to_all(parts, "data").flatten(0, 1).movedim(0, row), own
+
+
+def _columns_out(y: torch.Tensor, row: int, own, roles: dict) -> torch.Tensor:
+    """The result with every column of this rank's rows: the columns of an
+    axis that gave this rank only its own gathered over it, over "data"
+    by an all-to-all where every data rank holds every row and keeps its
+    own."""
+    if roles.get("data") == "columns" and own is not None:
+        n = ctx.axis_size("data")
+        parts = y.movedim(row, 0).unflatten(0, (n, -1))
+        y = _all_to_all(parts, "data").movedim(0, -2).flatten(-2).movedim(0, row)
+    elif roles.get("data") == "columns":
+        y = _gather_counted(y, -1, "data")
+    elif own is not None:
+        y = y.narrow(row, rank("data") * own, own)
+    if roles.get("model") == "columns":
+        y = _gather_counted(y, -1, "model")
+    return y

@@ -38,7 +38,8 @@ as its out-of-place name):
   reduce-scatter, the operand of every other kind.  They are summed by
   kind, by mesh axis (the
   name of the group's mesh dimension) and by site, the innermost frame of
-  ``repro_torch.models`` or ``repro_torch.launch`` at the call.  As HLO's
+  ``repro_torch.models`` or ``repro_torch.launch`` at the call and the
+  ``distributed.spmd`` functions that issued it (:func:`_site`).  As HLO's
   collective instructions do in ``HloAnalysis``, a collective adds no FLOPs
   and adds its operand and result bytes to ``bytes_accessed``.
 
@@ -96,6 +97,7 @@ _OPERAND_ARGS = ("tensors", "input_tensors", "input_tensor", "inputs", "input",
 _RESULT_ARGS = ("output_tensors", "output_tensor", "outputs", "output",
                 "output_lists")
 _SITE_DIRS = tuple(os.path.join("repro_torch", d) + os.sep for d in ("models", "launch"))
+_SPMD = os.path.join("repro_torch", "distributed", "spmd.py")
 
 # H100 SXM5 NVLink 4: 900 GB/s per card (data sheet); one card moves nothing
 # over it, so the term is 0 for every summary of one card
@@ -209,15 +211,24 @@ class _Counter(TorchDispatchMode):
 
 
 def _site() -> str:
-    """``file:line function`` of the innermost frame of the models or the
-    launch code on the stack (this module's own frames excluded)."""
+    """``file:line function [chain]`` of the innermost frame of the models or
+    the launch code on the stack (this module's own frames excluded); the
+    chain names the public ``distributed.spmd`` functions between it and
+    the collective, outermost first: ``dot>use>gather`` is a weight gathered
+    for a product, ``dot>gather`` the activations of a product taken on the
+    weight's shard."""
     f = sys._getframe(2)
+    chain = []
     while f is not None:
-        path = f.f_code.co_filename
+        path, name = f.f_code.co_filename, f.f_code.co_name
+        if path.endswith(_SPMD) and not name.startswith("_") \
+                and name not in ("forward", "backward"):
+            chain.append(name)
         for d in _SITE_DIRS:
             i = path.rfind(d)
             if i >= 0 and not path.endswith("trace_analysis.py"):
-                return f"{path[i:]}:{f.f_lineno} {f.f_code.co_name}"
+                via = f" [{'>'.join(reversed(chain))}]" if chain else ""
+                return f"{path[i:]}:{f.f_lineno} {name}{via}"
         f = f.f_back
     return "?"
 

@@ -92,22 +92,18 @@ def _local_heads(cfg: ArchConfig, q_ax, kv_ax) -> tuple:
             cfg.n_kv_heads // m if kv_ax else cfg.n_kv_heads)
 
 
-def _projections(p, cfg: ArchConfig, prefix: str, q_ax, kv_ax, compute_dtype):
-    """The block's projection weights as this rank uses them: Q (and the
-    output projection's rows) over its heads, K and V over its KV heads or
-    whole, their gradients partial over "model" where the work splits."""
-    split = q_ax is not None
-    kv_part = split and kv_ax is None           # whole K/V, read in part
-    cd = compute_dtype
-    w = {"wq": spmd.use(p[prefix + "wq"], None, q_ax).to(cd),
-         "wk": spmd.use(p[prefix + "wk"], None, kv_ax, model_partial=kv_part).to(cd),
-         "wv": spmd.use(p[prefix + "wv"], None, kv_ax, model_partial=kv_part).to(cd),
-         "wo": spmd.use(p[prefix + "wo"], q_ax, None).to(cd)}
-    if cfg.qkv_bias and not prefix:
-        w["bq"] = spmd.use(p["bq"], q_ax).to(cd)
-        w["bk"] = spmd.use(p["bk"], kv_ax, model_partial=kv_part).to(cd)
-        w["bv"] = spmd.use(p["bv"], kv_ax, model_partial=kv_part).to(cd)
-    return w
+def _kv_partial(q_ax, kv_ax) -> dict:
+    """``spmd``'s keywords for K/V's weights and biases: partial over "model"
+    where each model rank holds K/V whole and reads its part."""
+    return dict(model_partial=q_ax is not None and kv_ax is None)
+
+
+def _biases(p, q_ax, kv_ax, compute_dtype) -> dict:
+    """The self-attention's Q/K/V biases as this rank adds them."""
+    kv = _kv_partial(q_ax, kv_ax)
+    return {"bq": spmd.use(p["bq"], q_ax).to(compute_dtype),
+            "bk": spmd.use(p["bk"], kv_ax, **kv).to(compute_dtype),
+            "bv": spmd.use(p["bv"], kv_ax, **kv).to(compute_dtype)}
 
 
 def _kv_read(t, kv_range):
@@ -132,16 +128,20 @@ def attn_apply(x, p, cfg: ArchConfig, blk: Block, *, causal: bool, compute_dtype
     q_ax, kv_ax, kv_range = _head_layout(cfg)
     hq, hkv = _local_heads(cfg, q_ax, kv_ax)
     split = q_ax is not None
-    w = _projections(p, cfg, prefix, q_ax, kv_ax, compute_dtype)
     h = norm_apply(x, spmd.use(p[prefix + "norm"]), cfg).to(compute_dtype)
     src = kv_source.to(compute_dtype) if cross else h
     if split:                     # each model rank's part: the backward sums them
         h = spmd.enter_model(h)
         src = spmd.enter_model(src) if cross else h
     Sk = src.shape[1]
-    q, k, v = h @ w["wq"], src @ w["wk"], src @ w["wv"]
-    if "bq" in w:
-        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+    # Q over this rank's heads, K and V over its KV heads or whole (spmd.dot)
+    kv = _kv_partial(q_ax, kv_ax)
+    q = spmd.dot(h, p[prefix + "wq"], None, q_ax)
+    k = spmd.dot(src, p[prefix + "wk"], None, kv_ax, **kv)
+    v = spmd.dot(src, p[prefix + "wv"], None, kv_ax, **kv)
+    if not cross and cfg.qkv_bias:
+        b = _biases(p, q_ax, kv_ax, compute_dtype)
+        q, k, v = q + b["bq"], k + b["bk"], v + b["bv"]
     q, k, v = (q.reshape(B, S, hq, Dh), k.reshape(B, Sk, hkv, Dh), v.reshape(B, Sk, hkv, Dh))
     if not cross:
         qpos = torch.arange(S, device=x.device)
@@ -152,7 +152,7 @@ def attn_apply(x, p, cfg: ArchConfig, blk: Block, *, causal: bool, compute_dtype
                       causal=causal and not cross,
                       window=None if cross else blk.window, softcap=cfg.attn_softcap,
                       impl=impl, genome=genome)
-    out = o.transpose(1, 2).reshape(B, S, hq * Dh) @ w["wo"]
+    out = spmd.dot(o.transpose(1, 2).reshape(B, S, hq * Dh), p[prefix + "wo"], q_ax, None)
     if split:
         out = spmd.sum_model(out)
     if cfg.post_norms and not cross:
@@ -218,11 +218,14 @@ def attn_decode(x, p, cache, cfg: ArchConfig, blk: Block, *, pos: int, compute_d
     hq, hkv = _local_heads(cfg, q_ax, kv_ax)
     split = q_ax is not None
     kw = dict(softcap=cfg.attn_softcap, impl=impl)
-    w = _projections(p, cfg, "", q_ax, kv_ax, compute_dtype)
     h = norm_apply(x, spmd.use(p["norm"]), cfg).to(compute_dtype)
-    q, k, v = h @ w["wq"], h @ w["wk"], h @ w["wv"]
-    if "bq" in w:
-        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+    kv = _kv_partial(q_ax, kv_ax)
+    q = spmd.dot(h, p["wq"], None, q_ax)
+    k = spmd.dot(h, p["wk"], None, kv_ax, **kv)
+    v = spmd.dot(h, p["wv"], None, kv_ax, **kv)
+    if cfg.qkv_bias:
+        b = _biases(p, q_ax, kv_ax, compute_dtype)
+        q, k, v = q + b["bq"], k + b["bk"], v + b["bv"]
     q = rope_apply(q.reshape(B, 1, hq, Dh), pos, cfg.rope_theta)[:, 0]
     k = rope_apply(k.reshape(B, 1, hkv, Dh), pos, cfg.rope_theta)[:, 0]
     kc, vc = cache["k"], cache["v"]
@@ -242,7 +245,7 @@ def attn_decode(x, p, cache, cfg: ArchConfig, blk: Block, *, pos: int, compute_d
                                                        **kw)).to(q.dtype)
     else:
         o = ops.decode_attention(q, kr, vr, valid_len, **kw)
-    out = o.reshape(B, hq * Dh) @ w["wo"]
+    out = spmd.dot(o.reshape(B, hq * Dh), p["wo"], q_ax, None)
     if split:
         out = spmd.sum_model(out)
     if cfg.post_norms:
@@ -251,10 +254,10 @@ def attn_decode(x, p, cache, cfg: ArchConfig, blk: Block, *, pos: int, compute_d
 
     if cross_cache is not None:
         hc = norm_apply(x, spmd.use(p["c_norm"]), cfg).to(compute_dtype)
-        qc = (hc @ spmd.use(p["c_wq"], None, q_ax).to(compute_dtype)).reshape(B, hq, Dh)
+        qc = spmd.dot(hc, p["c_wq"], None, q_ax).reshape(B, hq, Dh)
         vl = torch.full((B,), enc_len, dtype=torch.int32, device=x.device)
         ck, cv = (_kv_read(cross_cache[n], kv_range).to(compute_dtype) for n in ("k", "v"))
         oc = ops.decode_attention(qc, ck, cv, vl, **kw)
-        out = oc.reshape(B, hq * Dh) @ spmd.use(p["c_wo"], q_ax, None).to(compute_dtype)
+        out = spmd.dot(oc.reshape(B, hq * Dh), p["c_wo"], q_ax, None)
         x = x + (spmd.sum_model(out) if split else out).to(x.dtype)
     return x

@@ -98,21 +98,18 @@ def mlp_apply(x, p, cfg: ArchConfig, blk: Block, compute_dtype):
     split over "model" where it divides it, and the parts of the down
     projection summed over "model"."""
     f_ax = ctx.div_axis(cfg.d_ff)
-    cd = compute_dtype
-    h = norm_apply(x, spmd.use(p["norm"]), cfg).to(cd)
+    h = norm_apply(x, spmd.use(p["norm"]), cfg).to(compute_dtype)
     if f_ax:
         h = spmd.enter_model(h)
-    up = spmd.use(p["w_up"], None, f_ax).to(cd)
-    down = spmd.use(p["w_down"], f_ax, None).to(cd)
     if blk.mlp in ("gated_silu", "gated_gelu"):
-        g = h @ spmd.use(p["w_gate"], None, f_ax).to(cd)
+        g = spmd.dot(h, p["w_gate"], None, f_ax)
         a = F.silu(g) if blk.mlp == "gated_silu" else F.gelu(g, approximate="tanh")
-        h = (a * (h @ up)) @ down
-    elif blk.mlp == "squared_relu":
-        a = F.relu(h @ up)
-        h = (a * a) @ down
-    elif blk.mlp == "relu":
-        h = F.relu(h @ up) @ down
+        a = a * spmd.dot(h, p["w_up"], None, f_ax)
+    else:                                   # squared_relu, relu
+        a = F.relu(spmd.dot(h, p["w_up"], None, f_ax))
+        if blk.mlp == "squared_relu":
+            a = a * a
+    h = spmd.dot(a, p["w_down"], f_ax, None)
     if f_ax:
         h = spmd.sum_model(h)
     if cfg.post_norms:

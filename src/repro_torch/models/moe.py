@@ -22,9 +22,15 @@ count divides it, else TP over the expert hidden dim
 (``distributed.sharding``): each model rank computes its experts' (or its
 hidden slice's) part of the output, and the parts are summed over
 ``model``.  Every model rank routes the same tokens the same way, so the
-drop order is ``_moe_flat``'s on each.
+drop order is ``_moe_flat``'s on each.  In decode (``spmd.stationary``) the
+router and the expert products take each data rank's slice of D, and
+``w_down``'s columns are gathered over "data": each data rank multiplies
+1/dp of every expert weight, and capacity, top-k order and drops are
+unchanged.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -79,17 +85,14 @@ def moe_apply(x, p, cfg: ArchConfig, compute_dtype, return_aux: bool = False):
     sharded = spmd.rows_sharded()
     per_shard = bool(ctx.batch_axes()) and sharded and not return_aux \
         and B * S >= PER_SHARD_MIN_TOKENS
-    wspec, dspec, split = _expert_specs(cfg)
+    experts = _expert_specs(cfg)
+    split = experts.split
     h = norm_apply(x, spmd.use(p["norm"]), cfg).to(compute_dtype)
     if split:
         h = spmd.enter_model(h)
     hf = h if per_shard or not sharded else spmd.gather_rows(h, partial=True)
-    wg, wu = (spmd.use(p[n], *wspec) for n in ("w_gate", "w_up"))
-    wd = spmd.use(p["w_down"], *dspec)
-    expert0 = spmd.rank("model") * wg.shape[0] if wg.shape[0] != E else 0
-    y, probs, gate_idx = _dispatch(hf.reshape(-1, D),
-                                   spmd.use(p["router"], model_partial=split),
-                                   wg, wu, wd, cfg, compute_dtype, expert0)
+    with spmd.rows(per_shard):               # global dispatch: every rank's rows, whole
+        y, probs, gate_idx = _dispatch(hf.reshape(-1, D), p, cfg, compute_dtype, experts)
     y = y.reshape(-1, S, D)
     if not per_shard and sharded:            # global dispatch: keep this rank's rows
         y = y[spmd.dp_rank() * B:(spmd.dp_rank() + 1) * B]
@@ -107,28 +110,28 @@ def moe_apply(x, p, cfg: ArchConfig, compute_dtype, return_aux: bool = False):
     hx = norm_apply(x, spmd.use(p["norm"], **whole), cfg).to(compute_dtype)
     if sharded:
         hx = spmd.gather_rows(hx, partial=False)
-    logits = (hx.reshape(-1, D) @ spmd.use(p["router"], **whole).to(compute_dtype)).float()
+    logits = spmd.dot(hx.reshape(-1, D), p["router"], **whole).float()
     probs = torch.softmax(logits, dim=-1)
     return result, _aux(probs, top_k(probs, cfg.moe.top_k)[1], E)
 
 
-def _experts(buf, wg, wu, wd, compute_dtype):
-    """The expert products on an (E, cap, D) buffer."""
-    a = F.silu(torch.bmm(buf, wg.to(compute_dtype)))
-    u = torch.bmm(buf, wu.to(compute_dtype))
-    return torch.bmm(a * u, wd.to(compute_dtype))           # (E, cap, D)
+def _experts(buf, p, experts: _Experts):
+    """The expert products on an (E, cap, D) buffer (this rank's experts)."""
+    a = F.silu(spmd.dot(buf, p["w_gate"], *experts.wspec))
+    u = spmd.dot(buf, p["w_up"], *experts.wspec)
+    return spmd.dot(a * u, p["w_down"], *experts.dspec)         # (E, cap, D)
 
 
-def _dispatch(hf, router, wg, wu, wd, cfg: ArchConfig, compute_dtype, expert0: int = 0):
-    """The flat dispatch of the tokens ``hf`` (Nt, D): returns the combined
-    expert output y (Nt, D) in fp32, the router probabilities and the top-k
-    indices.  The expert weights may hold a slice of the experts, from
-    ``expert0`` on (EP), or of the hidden dim (TP): y is then this slice's
-    part of the output."""
+def _dispatch(hf, p, cfg: ArchConfig, compute_dtype, experts: _Experts):
+    """The flat dispatch of the tokens ``hf`` (Nt, D) through the router and
+    expert weights of ``p``: returns the combined expert output y (Nt, D)
+    in fp32, the router probabilities and the top-k indices.  ``experts``
+    may give this rank a slice of the experts, from ``expert0`` on (EP), or
+    of the hidden dim (TP): y is then this slice's part of the output."""
     m = cfg.moe
     Nt, D = hf.shape
     E, K = m.n_experts, m.top_k
-    logits = (hf @ router.to(compute_dtype)).float()
+    logits = spmd.dot(hf, p["router"], model_partial=experts.split).float()
     probs = torch.softmax(logits, dim=-1)                  # (Nt, E)
     gate_vals, gate_idx = top_k(probs, K)                  # (Nt, K)
     gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
@@ -146,11 +149,11 @@ def _dispatch(hf, router, wg, wu, wd, cfg: ArchConfig, compute_dtype, expert0: i
     buf.index_copy_(0, dst, src_rows)                      # overflow row = drop
     buf = buf[:-1].reshape(E, cap, D)
 
-    n_local = wg.shape[0]
-    out = _experts(buf[expert0:expert0 + n_local], wg, wu, wd, compute_dtype)
+    e0, n_local = experts.expert0, experts.n_local
+    out = _experts(buf[e0:e0 + n_local], p, experts)
     if n_local != E:                                       # EP: the other experts are 0 here
-        out = torch.cat([out.new_zeros((expert0, cap, D)), out,
-                         out.new_zeros((E - expert0 - n_local, cap, D))])
+        out = torch.cat([out.new_zeros((e0, cap, D)), out,
+                         out.new_zeros((E - e0 - n_local, cap, D))])
     out_flat = torch.cat([out.reshape(E * cap, D),
                           torch.zeros((1, D), dtype=compute_dtype, device=hf.device)])
     gathered = out_flat[dst]                               # (Nt*K, D)
@@ -179,8 +182,7 @@ def _moe_apply_global(x, p, cfg: ArchConfig, compute_dtype, return_aux: bool = F
     if Nt % groups:
         raise ValueError(f"{Nt} tokens do not split into {groups} groups")
     hf = norm_apply(x, p["norm"], cfg).to(compute_dtype).reshape(Nt, D)
-    parts = [_dispatch(h, p["router"], p["w_gate"], p["w_up"], p["w_down"], cfg,
-                       compute_dtype) for h in hf.chunk(groups)]
+    parts = [_dispatch(h, p, cfg, compute_dtype, _expert_specs(cfg)) for h in hf.chunk(groups)]
     y = torch.cat([t[0] for t in parts]).reshape(B, S, D)
     result = _finish(x, y, p, cfg)
     if return_aux:
@@ -189,14 +191,27 @@ def _moe_apply_global(x, p, cfg: ArchConfig, compute_dtype, return_aux: bool = F
     return result
 
 
-def _expert_specs(cfg: ArchConfig):
-    """Per-period expert-weight specs for use (FSDP gathered): EP over
-    ``model`` when the expert count divides it, else TP over the hidden dim
-    when that divides it, else whole.  Returns (w_gate/w_up spec, w_down
-    spec, split)."""
+class _Experts(NamedTuple):
+    """How this rank holds the expert weights: the specs of w_gate / w_up
+    and of w_down for ``spmd.dot``, whether the work splits over "model",
+    and its experts' range [expert0, expert0 + n_local)."""
+    wspec: tuple
+    dspec: tuple
+    split: bool
+    expert0: int
+    n_local: int
+
+
+def _expert_specs(cfg: ArchConfig) -> _Experts:
+    """Per-period expert-weight layout: EP over ``model`` when the expert
+    count divides it, else TP over the hidden dim when that divides it, else
+    whole."""
     m = cfg.moe
-    if ctx.div_axis(m.n_experts):
-        return ("model", None, None), ("model", None, None), True
+    E = m.n_experts
+    if ctx.div_axis(E):
+        n = E // ctx.axis_size("model")
+        return _Experts(("model", None, None), ("model", None, None), True,
+                        spmd.rank("model") * n, n)
     if ctx.div_axis(m.d_ff_expert):
-        return (None, None, "model"), (None, "model", None), True
-    return (None, None, None), (None, None, None), False
+        return _Experts((None, None, "model"), (None, "model", None), True, 0, E)
+    return _Experts((None, None, None), (None, None, None), False, 0, E)

@@ -74,7 +74,7 @@ def _project(x, p, cfg: ArchConfig, compute_dtype):
     h = norm_apply(x, spmd.use(p["norm"]), cfg).to(compute_dtype)
     if split:
         h = spmd.enter_model(h)
-    proj = h @ spmd.use(p["in_proj"], model_partial=split).to(compute_dtype)
+    proj = spmd.dot(h, p["in_proj"], model_partial=split)
     z, xv, Bv, Cv, dt = _split_proj(proj, cfg)
     n = H // ctx.axis_size("model") if split else H
     h0 = spmd.rank("model") * n if split else 0
@@ -117,7 +117,7 @@ def _out(x, y, xh, z, p, cfg: ArchConfig, split, chans, compute_dtype):
         ms = (g * g).mean(dim=-1, keepdim=True)
     g = g * torch.rsqrt(ms + cfg.norm_eps)
     y = (g * spmd.use(p["gate_norm"], ax).float()).to(compute_dtype)
-    out = y @ spmd.use(p["out_proj"], ax, None).to(compute_dtype)
+    out = spmd.dot(y, p["out_proj"], ax, None)
     return x + (spmd.sum_model(out) if split else out).to(x.dtype)
 
 

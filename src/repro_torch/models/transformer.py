@@ -204,19 +204,14 @@ def _run_stack(params_stack, x, cfg: ArchConfig, pattern, *, causal, compute_dty
 def _embed(params, cfg: ArchConfig, tokens, prefix_embeds=None,
            compute_dtype=torch.bfloat16):
     # gather, then cast: the same values as the JAX package's cast-then-
-    # gather, without a copy of the whole table
-    x = _table(params)[tokens].to(compute_dtype)
+    # gather, without a copy of the whole table (``spmd.lookup``)
+    x = spmd.lookup(params["embed"], tokens, compute_dtype)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
     if prefix_embeds is not None and cfg.n_prefix_embeds:
         P = min(cfg.n_prefix_embeds, x.shape[1])
         x[:, :P] = prefix_embeds[:, :P].to(compute_dtype)
     return x
-
-
-def _table(params):
-    """The embedding table (under a mesh: whole, gathered)."""
-    return spmd.use(params["embed"])
 
 
 def _head(params, cfg: ArchConfig, x, compute_dtype, pad_vocab: bool = False):
@@ -232,16 +227,20 @@ def _head(params, cfg: ArchConfig, x, compute_dtype, pad_vocab: bool = False):
     h = norm_apply(x, spmd.use(params["final_norm"]), cfg).to(compute_dtype)
     if v_ax:
         h = spmd.enter_model(h)
-    kw = dict(model_partial=bool(pad and v_ax))   # a slice of the whole, padded
-    if cfg.tie_embeddings:
-        w = spmd.use(params["embed"], None if pad else v_ax, None, **kw).to(compute_dtype).T
-    else:
-        w = spmd.use(params["lm_head"], None, None if pad else v_ax, **kw).to(compute_dtype)
+    tied = cfg.tie_embeddings
     n = (V + pad) // m if v_ax else V + pad
     v0 = spmd.rank("model") * n if v_ax else 0
-    if pad:
+    if pad:                      # a slice of the whole, padded (the loss path)
+        kw = dict(model_partial=bool(v_ax))
+        w = (spmd.use(params["embed"], **kw).T if tied
+             else spmd.use(params["lm_head"], **kw)).to(compute_dtype)
         w = torch.cat([w, w.new_zeros((w.shape[0], pad))], dim=1)[:, v0:v0 + n]
-    logits = logit_softcap((h @ w).float(), cfg.logit_softcap)
+        logits = h @ w
+    elif tied:
+        logits = spmd.dot(h, params["embed"], v_ax, None, transposed=True)
+    else:
+        logits = spmd.dot(h, params["lm_head"], None, v_ax)
+    logits = logit_softcap(logits.float(), cfg.logit_softcap)
     if pad:
         cols = torch.arange(v0, v0 + n, device=logits.device)
         logits = logits + torch.where(cols >= V, -1e30, 0.0)
@@ -486,15 +485,16 @@ def decode_step(params, cfg: ArchConfig, cache, token, *,
     arrays); the returned cache is a new dict over the same tensors with
     ``pos`` advanced by one.  An attention cache whose length the mesh
     splits (``_cache_specs``; its global length is the DTensor's) decodes
-    each rank's shard and merges the ranks' partials (``attn_decode``)."""
+    each rank's shard and merges the ranks' partials (``attn_decode``).
+    Under a mesh every product multiplies this rank's shard of its weight
+    (``spmd.stationary``): no weight is gathered, and the step takes no
+    gradient."""
     B = token.shape[0]
     split = {pos: "k" in c and ctx.length_spec(B, c["k"].shape[3]) is not None
              for pos, c in cache["layers"].items()}
     token, layers = spmd.local_rows(token), _local_cache(cache["layers"])
-    with spmd.rows(spmd.batch_sharded(B)):
-        x = _table(params)[token].to(compute_dtype)
-        if cfg.scale_embeddings:
-            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
+    with spmd.rows(spmd.batch_sharded(B)), spmd.stationary():
+        x = _embed(params, cfg, token, compute_dtype=compute_dtype)
         pos = cache["pos"]
         enc_len = cache.get("enc_len", 0)
         for per, pslice in enumerate(_unstack(params["dec"], cfg.n_periods)):

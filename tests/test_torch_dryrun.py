@@ -56,8 +56,9 @@ FLOPS_REL = 0.15
 SSD_EINSUM_REL = 0.01
 # mamba2-780m decode_32k on the 256-rank mesh: the pod1 record's dot FLOPs
 # and collective bytes by kind (chip_smoke.py's dryrun phase pins the same)
-PINNED_POD1 = {"hlo_dot_flops": 9097641984.0,
-               "collective_bytes": {"all-gather": 2698985472, "all-reduce": 1181184}}
+PINNED_POD1 = {"hlo_dot_flops": 1966669824.0,
+               "collective_bytes": {"all-gather": 11392000, "all-to-all": 2408448,
+                                      "all-reduce": 36828672}}
 
 
 def _env():
@@ -259,35 +260,112 @@ print(json.dumps({"bytes": c.coll_bytes, "count": c.coll_count, "axis": c.coll_a
 def test_collectives_on_a_fake_mesh_equal_a_hand_count():
     """Reduced qwen2-7b (d_model 64, 4 Q heads and 1 KV head of 16, d_ff
     128, vocab 256, 2 layers, untied head), one decode step of batch 4 on
-    (data=2, model=2): FSDP shards every weight's other dim over "data",
-    so each use gathers it over "data" (fp32, counted at the gathered
-    size, as ``HloAnalysis`` counts an all-gather); Q heads, the MLP
-    hidden dim and the vocab split over "model"; the one KV head does not
-    divide, so wk and wv are also gathered over "model"; the embedding
-    table is gathered over both.  Each split's output is summed over
-    "model" in bf16 (2 rows x 64)."""
+    (data=2, model=2): 2 rows a rank, bf16 activations, fp32 partials.
+    Decode multiplies each weight on its shard (``spmd.dot``): FSDP shards
+    every weight's other dim over "data", so a product that contracts it
+    takes every data rank's rows of this rank's slice (an all-to-all of
+    this rank's 2 x 64 inputs) and sums the fp32 partials over "data" (an
+    all-reduce of all 4 rows), and one whose output dim it shards (wo,
+    w_down, the table) gathers the 4 rows whole and sends each rank its
+    rows of its columns (an all-to-all).  Q heads, the MLP hidden dim and
+    the vocab split over "model"; the one KV head does not divide, so wk
+    and wv gather their columns over "model"; the table's vocab rows are
+    summed over "model" (each rank reads the tokens it holds).  Each
+    split's output is summed over "model" in bf16.  No weight is
+    gathered."""
     out = subprocess.run([sys.executable, "-c", _FAKE_MESH], env=_env(), cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    f32 = 4
-    # each gather's result: the local shard with its gathered dim doubled
-    per_layer_data = f32 * (64 * 32 + 64 * 8 + 64 * 8 + 32 * 64     # wq wk wv wo
-                            + 3 * 64 * 64)                        # w_gate w_up w_down
-    per_layer_model = f32 * 2 * (64 * 16)                         # wk, wv
-    data = 2 * per_layer_data + f32 * (128 * 64 + 64 * 128)      # embed, lm_head
-    model_gather = 2 * per_layer_model + f32 * 256 * 64          # embed
-    reduce = 2 * 2 * (2 * 64 * 2)                                # attn + mlp, bf16
-    assert got["count"] == {"all-gather": 2 * 9 + 3, "all-reduce": 4}
-    assert got["bytes"] == {"all-gather": data + model_gather, "all-reduce": reduce}
-    assert got["axis"] == {"data": data, "model": model_gather + reduce}
-    # mlp_apply's sites, 2 layers each: the FSDP gathers of w_gate, w_up and
-    # w_down over "data" (one line each), the sum of its output over "model"
+    bf16, f32, rows, rank_rows = 2, 4, 4, 2
+    a2a_in = bf16 * rank_rows * 64                  # this rank's rows of a 64-wide input
+    # per layer, over "data": (all-to-all in, fp32 partials) of wq (32 Q
+    # columns a rank), wk and wv (8), w_gate and w_up (64); wo and w_down
+    # (rows gathered whole: 32 and 64 wide; this rank's 32 columns out)
+    data_a2a = 7 * a2a_in
+    data_reduce = f32 * rows * (32 + 8 + 8 + 64 + 64)
+    data_gather = bf16 * rows * (32 + 64)
+    # per layer, over "model": wk and wv's 16 columns; the attention's and
+    # the MLP's outputs summed
+    model_gather = 2 * bf16 * rank_rows * 16
+    model_reduce = 2 * bf16 * rank_rows * 64
+    # the table (ids gathered over "data", rows summed over "model", its 32
+    # columns out) and the head (256 / 2 vocab columns a rank)
+    ids, table_sum, table_out = 8 * rows, bf16 * rows * 32, a2a_in
+    head = a2a_in + f32 * rows * 128
+    assert got["count"] == {"all-gather": 1 + 2 * 4, "all-reduce": 1 + 2 * 7 + 1,
+                            "all-to-all": 1 + 2 * 7 + 1}
+    assert got["bytes"] == {
+        "all-gather": ids + 2 * (data_gather + model_gather),
+        "all-reduce": table_sum + 2 * (data_reduce + model_reduce) + f32 * rows * 128,
+        "all-to-all": table_out + 2 * data_a2a + a2a_in}
+    assert got["axis"] == {
+        "data": ids + table_out + 2 * (data_a2a + data_reduce + data_gather) + head,
+        "model": table_sum + 2 * (model_gather + model_reduce)}
+    # mlp_apply's sites, 2 layers each: w_gate and w_up (all-to-all and
+    # partials), w_down (rows gathered, columns sent back), the sum of its
+    # output over "model"; none gathers a weight
     mlp = sorted(b for site, b in got["sites"].items() if "models/layers.py" in site
                  and "mlp_apply" in site)
-    assert mlp == [reduce // 2] + [2 * f32 * 64 * 64] * 3
+    assert mlp == sorted([2 * (a2a_in + f32 * rows * 64)] * 2
+                         + [2 * bf16 * rows * 64, 2 * a2a_in, 2 * bf16 * rank_rows * 64])
     assert any("models/attention.py" in site for site in got["sites"])
+    assert not any(">use" in site or "[use" in site for site in got["sites"])
     assert not got["cuda"]
+
+
+_DECODE_RECORDS = """
+import contextlib, json
+from repro_torch.configs.base import SHAPES_BY_NAME
+from repro_torch.configs.registry import get_arch
+from repro_torch.distributed import spmd
+from repro_torch.launch import dryrun
+mesh = dryrun.production_mesh(False)
+out = {}
+for arch, cell in (("qwen2-7b", "decode_32k"), ("jamba-v0.1-52b", "long_500k")):
+    cfg, c = get_arch(arch), SHAPES_BY_NAME[cell]
+    for tag in ("shards", "gathered"):
+        scope = spmd.stationary
+        if tag == "gathered":                # every weight gathered, as prefill takes them
+            spmd.stationary = contextlib.nullcontext
+        rec = dryrun.analyze(cfg, c, dryrun.trace_cell(cfg, c, mesh), mesh)
+        spmd.stationary = scope
+        out[arch + " " + tag] = {k: rec[k] for k in ("collectives", "dominant", "hlo_dot_flops",
+                                                     "top_collective_sites", "memory")}
+print(json.dumps(out))
+"""
+# collective bytes a rank of a decode step on the 256-rank mesh, at most
+DECODE_COLLECTIVE_BOUND = {"qwen2-7b": 1e9, "jamba-v0.1-52b": 0.5e9}
+
+
+def test_decode_records_multiply_the_weight_shards():
+    """qwen2-7b decode_32k (batch 128, 8 rows a data rank, the head
+    fallback: 28 heads over model = 16) and jamba-v0.1-52b long_500k
+    (batch 1, the rows whole on every rank) at full width on the fake
+    256-rank mesh, against the same traces with every weight gathered
+    (``spmd.stationary`` off): collective bytes a rank within
+    ``DECODE_COLLECTIVE_BOUND``, the memory term dominant, dot FLOPs no
+    higher (jamba's at least 4x lower: each data rank multiplies 1/16 of
+    each weight), the live temp no higher (jamba's lower; qwen2-7b's peak
+    is the blocked attention's scratch), and no top collective site gathers
+    a product's weight or the table (``dot>use``, ``lookup>use``), as the
+    gathered trace's top three do."""
+    run = subprocess.run([sys.executable, "-c", _DECODE_RECORDS], env=_env(), cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    for arch, bound in DECODE_COLLECTIVE_BOUND.items():
+        new, old = got[arch + " shards"], got[arch + " gathered"]
+        assert new["collectives"]["total_bytes"] <= bound, (arch, new["collectives"])
+        assert old["collectives"]["total_bytes"] > 5 * bound, (arch, old["collectives"])
+        assert new["dominant"] == "memory", (arch, new)
+        assert new["hlo_dot_flops"] <= old["hlo_dot_flops"]
+        assert new["memory"]["temp_bytes"] <= old["memory"]["temp_bytes"]
+        assert not any(">use" in site for site, _ in new["top_collective_sites"]), arch
+        assert all(">use" in site for site, _ in old["top_collective_sites"][:3]), arch
+    new, old = got["jamba-v0.1-52b shards"], got["jamba-v0.1-52b gathered"]
+    assert 4 * new["hlo_dot_flops"] <= old["hlo_dot_flops"]
+    assert new["memory"]["temp_bytes"] < old["memory"]["temp_bytes"]
 
 
 # ---------------------------------------------------------------------------
