@@ -365,6 +365,13 @@ DRYRUN_PINNED = {"hlo_dot_flops": 1966669824.0,
                                      "all-reduce": 36828672}}
 DRYRUN_MEM_REL = 0.2        # train record's argument + temp bytes against the measured peak
 DRYRUN_TIMEOUT_S = 300      # the dry-run subprocess (about 60-100 s on the chip host)
+# the row split's kernel launches (each model rank's query rows, q_offset =
+# its first row): the gate loop's band [ROW_BAND_LO, 160) of its proxy
+# shapes; qwen2-7b's 16 model ranks' shards of a 4096-row sequence, checked
+# against the whole launch; and prefill_32k's rank shape (2048 rows a rank
+# of 32768), timed on the shards of ranks ROW_TIMED
+ROW_BAND_LO = 88
+ROW_SHARDS, ROW_CHECK_S, ROW_RANK_ROWS, ROW_TIMED = 16, 4096, 2048, (0, 7, 15)
 
 # bf16 kernel vs plain at full width.  Large logical blocks keep the plain
 # version's walk short at every shape; both kernel paths and both div modes
@@ -534,6 +541,123 @@ def _proxy(rng, Hkv, causal, window):
                                                             window=window)
 
 
+def _proxy_band(rng, Hkv, window, lo=ROW_BAND_LO):
+    """A proxy shape's rows [lo, 160) with ``q_offset`` = lo against all
+    160 keys, causal: a row shard as the models' row split launches one."""
+    (q, k, v), sh = _proxy(rng, Hkv, True, window)
+    return [q[:, :, lo:].contiguous(), k, v], dict(sh, q_offset=lo)
+
+
+def _row_shard_bound(B, Hq, Hkv, Sq, D, off, esize=2) -> tuple:
+    """A causal row shard: rows [off, off + Sq) against keys [0, off +
+    Sq); each row's useful QK^T and PV over its off + row + 1 keys; q and
+    o, and the K/V rows it reads, once."""
+    keys = Sq * (off + 1) + Sq * (Sq - 1) // 2           # sum over rows of off + row + 1
+    nbytes = 2 * B * Hq * Sq * D * esize + 2 * B * Hkv * (off + Sq) * D * esize
+    return _bound(nbytes, 4.0 * B * Hq * D * keys)
+
+
+def _row_shards() -> dict:
+    """The kernel's query-row offset as the models' row split launches it
+    (each model rank's rows of a sequence, q_offset = its first row).
+    Correctness at qwen2-7b's heads, bf16: q (2, 28, 4096, D) against K/V
+    (2, 4, 4096, D), causal and with a window of 1024, cut into ROW_SHARDS
+    row shards; each launched with its offset, concatenated, equal to the
+    whole launch bit for bit (every shard starts on one of the whole
+    launch's 128-row blocks) and within the bf16 bounds of the plain
+    version's whole call.  D = 128 takes the wgmma body, D = 96 the
+    mma_sync body.  Timing at ``prefill_32k``'s rank shape: q (2, 28, 2048,
+    128) against K/V (2, 4, 32768, 128), the shards of ranks ROW_TIMED,
+    each held against its plain version's output within the bf16 bounds
+    and timed beside its bound, its plain version and one SDPA call over
+    the K/V rows it reads (``causal_lower_right``)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from repro_torch.core.evals.scorer import time_cuda_ms
+    from repro_torch.kernels.flash_attention import (attention_body, bf16_agreement,
+                                                     bf16_agrees, flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ops import DEFAULT_ATTN_GENOME
+
+    g = torch.Generator(device="cuda").manual_seed(30)
+    genome = dict(DEFAULT_ATTN_GENOME, gqa_pack=False)
+    B, Hq, Hkv = 2, 28, 4
+    faults, out = [], {"checks": []}
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    S = ROW_CHECK_S
+    n = S // ROW_SHARDS
+    for D in (128, 96):
+        body = attention_body(torch.bfloat16, D)
+        q, k, v = rand(B, Hq, S, D), rand(B, Hkv, S, D), rand(B, Hkv, S, D)
+        for window in (None, 1024):
+            kw = dict(genome, causal=True, window=window)
+            by_body = flash_attention.launches_by_body[body]
+            whole = flash_attention(q, k, v, impl="kernel", **kw)
+            shards = torch.cat([flash_attention(q[:, :, r * n:(r + 1) * n].contiguous(), k, v,
+                                                impl="kernel", q_offset=r * n, **kw)
+                                for r in range(ROW_SHARDS)], dim=2)
+            launched = flash_attention.launches_by_body[body] - by_body
+            st = bf16_agreement(shards, flash_attention_plain(q, k, v, **kw),
+                                flash_attention_plain(q, k, v.abs(), **kw))
+            equal = bool(torch.equal(shards, whole))
+            row = {"phase": "kernel", "check": "row_shards_bf16", "body": body,
+                   "window": window,
+                   "shape": f"q ({B}, {Hq}, {S}, {D}), k/v ({B}, {Hkv}, {S}, {D}) bf16, causal",
+                   "shards": ROW_SHARDS, "rows_a_shard": n, "equal_to_whole_launch": equal,
+                   "launches_on_body": launched, **st}
+            emit(row)
+            out["checks"].append(row)
+            case = f"D {D} ({body}), window {window}"
+            if not equal:
+                faults.append(f"{case}: the shards differ from the whole launch by "
+                              f"{float((shards.float() - whole.float()).abs().max())}")
+            if not bf16_agrees(st):
+                faults.append(f"{case}: the shards against the plain version: {st}")
+            if launched != ROW_SHARDS + 1:
+                faults.append(f"{case}: {launched} {body} launches, not {ROW_SHARDS + 1}")
+        del q, k, v, whole, shards
+
+    Sq, Sk, D = ROW_RANK_ROWS, ROW_RANK_ROWS * ROW_SHARDS, 128
+    q, k, v = rand(B, Hq, Sq, D), rand(B, Hkv, Sk, D), rand(B, Hkv, Sk, D)
+    kw = dict(genome, causal=True)
+    times = {}
+    for r in ROW_TIMED:
+        off = r * Sq
+        b_ms, b_by = _row_shard_bound(B, Hq, Hkv, Sq, D, off)
+        ms = time_cuda_ms(lambda: flash_attention(q, k, v, impl="kernel", q_offset=off, **kw),
+                          reps=5)
+        o = flash_attention(q, k, v, impl="kernel", q_offset=off, **kw)
+        p = flash_attention_plain(q, k, v, q_offset=off, **kw)      # the timing's warm-up
+        plain_ms = time_cuda_ms(lambda: flash_attention_plain(q, k, v, q_offset=off, **kw),
+                                warmup=0, reps=1)
+        st = bf16_agreement(o, p, flash_attention_plain(q, k, v.abs(), q_offset=off, **kw))
+        del o, p
+        kr, vr = k[:, :, :off + Sq].contiguous(), v[:, :, :off + Sq].contiguous()
+        mask = causal_lower_right(Sq, off + Sq)
+        lib = time_cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kr, vr, attn_mask=mask, enable_gqa=True), reps=5)
+        del kr, vr
+        times[r] = {"rank": r, "q_offset": off, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                    "library": "sdpa, causal_lower_right, enable_gqa", **st}
+        emit({"phase": "kernel", "check": "row_shard_time",
+              "shape": f"q ({B}, {Hq}, {Sq}, {D}) bf16 at q_offset {off}, k/v ({B}, {Hkv}, "
+                       f"{Sk}, {D}), causal", **times[r]})
+        if not bf16_agrees(st):
+            faults.append(f"rank {r} (q_offset {off}) against the plain version: {st}")
+    out["timed"] = times
+    del q, k, v
+    torch.cuda.empty_cache()
+    if faults:
+        raise AssertionError("row shards: " + "; ".join(faults))
+    return out
+
+
 def _full_width_bf16() -> float:
     """The kernel against its plain version in bf16 at every mha_suite
     shape, on the inputs the measured rung times.  At the smallest shape two
@@ -652,10 +776,12 @@ def phase_kernel(state):
     rng = np.random.default_rng(0)
     shapes = [_proxy(rng, hkv, causal, w) for hkv in (4, 2)
               for causal, w in ((True, None), (True, 48), (False, None))]
+    # row shards: rows [88, 160) at q_offset 88, GQA 4 / 2, causal, windowed
+    shapes += [_proxy_band(rng, 2, w) for w in (None, 48)]
     blocks = ((16, 16), (32, 128), (128, 64))
     worst_f32 = worst_oracle = 0.0
     bf16_min_oracle = float("inf")
-    n = 0
+    n = n_offset = 0
     for rm, mm, dm, kig, gp, ad in itertools.product(
             ("branchless", "branched"), ("dense", "block_skip"),
             ("deferred", "eager"), (False, True), (False, True), ("f32", "bf16")):
@@ -670,6 +796,7 @@ def phase_kernel(state):
                 e_plain = float((o - p).abs().max())
                 e_ref = float((o - r).abs().max())
                 n += 1
+                n_offset += "q_offset" in sh
                 if ad == "f32":
                     if not (e_plain <= TOL_F32 and e_ref <= CORRECTNESS_TOL):
                         raise AssertionError(f"kernel disagrees on {kw} {sh}: "
@@ -681,12 +808,17 @@ def phase_kernel(state):
     if not bf16_min_oracle > CORRECTNESS_TOL:
         raise AssertionError("a bf16-accumulator genome passed the gate tolerance")
     emit({"phase": "kernel", "check": "gate_shapes_fp32", "cases": n,
+          "cases_with_q_offset": n_offset,
           "max_abs_err_vs_plain_f32acc": worst_f32,
           "max_abs_err_vs_oracle_f32acc": worst_oracle,
           "min_abs_err_vs_oracle_bf16acc": bf16_min_oracle,
           "tol_vs_plain": TOL_F32, "tol_vs_oracle": CORRECTNESS_TOL})
 
     worst_bf16 = max(_full_width_bf16(), _padded_head_dims())
+    state["row_shards"] = _row_shards()
+    rows = state["row_shards"]
+    worst_bf16 = max([worst_bf16] + [c["max_abs_err"] for c in rows["checks"]]
+                     + [t["max_abs_err"] for t in rows["timed"].values()])
 
     # the gate's verdicts: kernel (card) vs plain version (CPU), same genomes
     sample = random.Random(0).sample(list(full_space()), 24)
@@ -4516,6 +4648,7 @@ def phase_kernels(state):
                  "genome (DEFAULT_ATTN_GENOME); wgmma body, mma_sync body beside it",
         "served": fa_serve,
         "head_dims": state.get("head_dim_times", {}).get("flash_attention"),
+        "row_shards": state.get("row_shards"),
         "encdec": encdec_times.get("flash_attention"),
         "max_abs_err_serve_encdec_bf16": encdec.get("err", {}).get("flash_attention")}]
     for name, src, replaces, err in (

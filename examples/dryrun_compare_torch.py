@@ -14,7 +14,8 @@ A cell the reference has no record of reads "none" in its columns.  With
 ``--before`` (the port's records of an earlier tree), a second table gives,
 per cell the two trees share and each mesh, the port's dot FLOPs, argument
 bytes, collective bytes over "data" and in all, live temp bytes and
-dominant term a rank, before and after.
+dominant term a rank, before and after, and on the 256-rank mesh the dot
+FLOPs' ratio to the reference chip's before and after.
 """
 import argparse
 import os
@@ -61,21 +62,27 @@ def main(argv=None) -> None:
         print(f"| {key[0]} | {key[1]} | {terms(p)} | {terms(pod2.get(key))} "
               f"| {dot} | {jdot} | {ratio} | {coll} |")
     if args.before:
-        changes(args.before, {"pod1": pod1, "pod2": pod2})
+        changes(args.before, {"pod1": pod1, "pod2": pod2}, ref)
 
 
-def changes(before_dir: str, after: dict) -> None:
+def _over_ref(r, j) -> str:
+    return f"{r['hlo_dot_flops'] / j['hlo_dot_flops']:.2f}" if j and j["hlo_dot_flops"] else "none"
+
+
+def changes(before_dir: str, after: dict, ref: dict) -> None:
     """The port's records of an earlier tree beside these: per rank, dot
     FLOPs, argument bytes (parameters, state, batch, cache), collective
     bytes over "data" and in all, the live temp bytes, and the dominant
-    term, before -> after (and after / before)."""
+    term, before -> after (and after / before); on the 256-rank mesh the
+    dot FLOPs over the reference chip's (``ref``), before -> after."""
     print()
     print("| arch | cell | mesh | dot FLOPs before -> after | after / before "
+          "| over the reference before -> after "
           "| argument bytes before -> after | after / before "
           "| data collective bytes before -> after "
           "| collective bytes before -> after | temp bytes before -> after "
           "| dominant before -> after |")
-    print("|" + "---|" * 11)
+    print("|" + "---|" * 12)
     for tag in ("pod1", "pod2"):
         before = records(before_dir, tag)
         for key in sorted(set(before) & set(after[tag]),
@@ -85,8 +92,10 @@ def changes(before_dir: str, after: dict) -> None:
             cb, ca = (r["collectives"]["by_axis"].get("data", 0) for r in (b, a))
             tb, ta = (r["collectives"]["total_bytes"] for r in (b, a))
             mb, ma = (r["memory"]["temp_bytes"] for r in (b, a))
+            j = ref.get(key) if tag == "pod1" else None
             print(f"| {key[0]} | {key[1]} | {tag} | {b['hlo_dot_flops']:.6g} -> "
                   f"{a['hlo_dot_flops']:.6g} | {a['hlo_dot_flops'] / b['hlo_dot_flops']:.4f} "
+                  f"| {_over_ref(b, j)} -> {_over_ref(a, j)} "
                   f"| {ab:.6g} -> {aa:.6g} | {aa / ab:.4f} | {cb} -> {ca} "
                   f"| {tb:.6g} -> {ta:.6g} | {mb:.6g} -> {ma:.6g} "
                   f"| {b['dominant']} -> {a['dominant']} |")

@@ -8,6 +8,16 @@
 // (kernels/flash_attention.py) does the gqa_pack reshape, passes seq_mod and
 // picks the body: by dtype and head_dim alone, never by genome.
 //
+// Row shards.  q_offset is the absolute position of q's row 0: a launch on
+// rows [q_offset, q_offset + Sq) of a longer sequence (a model rank's query
+// rows under sequence parallelism) against all Sk keys.  Causal reads
+// key <= row + q_offset, the window key > row + q_offset - window; under
+// gqa_pack a packed row sits at row % seq_mod + q_offset.  classify, the
+// Walk's bounds and every body's per-element positions take it, so
+// block_skip skips every dead K block of a shard (rank r of m visits about
+// (r + 1) / m of a causal launch's blocks).  At q_offset 0 every launch
+// visits the blocks it visited before the offset was added.
+//
 // Three bodies.
 //   wgmma     bf16 at head_dim 64 or 128 (the measured rung at every mha_suite
 //             shape, and the served prefill).  Warp-specialised: a CTA of
@@ -119,6 +129,7 @@ struct Params {
     int seq_mod;                // 0: none
     int bq, bk, nk;             // logical blocks and the logical K block count
     int causal, window;         // window < 0: none
+    int q_off;                  // absolute position of q's row 0 (a row shard)
     float softcap, scale;
     int branched, block_skip, eager;
 };
@@ -142,6 +153,7 @@ __device__ __forceinline__ void classify(const Params& p, int i, int j,
         int hi_m = wraps ? p.seq_mod - 1 : q_hi % p.seq_mod;
         q_lo = lo_m; q_hi = hi_m;
     }
+    q_lo += p.q_off; q_hi += p.q_off;
     int k_lo = j * p.bk, k_hi = j * p.bk + p.bk - 1;
     fm = false;
     fu = k_hi < p.Sk;
@@ -351,11 +363,14 @@ struct Walk {
         i_last = r_last / p.bq;
         j_lo = 0; j_hi = p.nk;
         if (!GRID && p.block_skip && (p.causal || p.window >= 0) && !p.seq_mod) {
-            // reference _fa_body_loop bounds; lo and hi grow with i
+            // reference _fa_body_loop bounds; lo and hi grow with i.  The
+            // grid walk scans every block up to nk with classify; for a
+            // causal row shard the wrapper passes nk up to its last row's
+            // position, past which every block is dead
             if (p.causal)
-                j_hi = min(p.nk, (i_last * p.bq + p.bq + p.bk - 1) / p.bk);
+                j_hi = min(p.nk, (p.q_off + i_last * p.bq + p.bq + p.bk - 1) / p.bk);
             if (p.window >= 0)
-                j_lo = max(0, floor_div(i_first * p.bq - p.window + 1, p.bk));
+                j_lo = max(0, floor_div(p.q_off + i_first * p.bq - p.window + 1, p.bk));
         }
     }
 
@@ -588,7 +603,7 @@ fa_fwd(Params p) {
     int qpos[2];
     for (int r = 0; r < 2; ++r) {
         int row = r0 + warp * 16 + g + 8 * r;
-        qpos[r] = p.seq_mod ? row % p.seq_mod : row;
+        qpos[r] = (p.seq_mod ? row % p.seq_mod : row) + p.q_off;
     }
     const bool eager = GRID && p.eager;
     const bool branched = GRID && p.branched;
@@ -808,7 +823,7 @@ fa_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
         float m[2] = {NEG_INF2, NEG_INF2}, l[2] = {0.f, 0.f};
         int qpos[2];
         for (int r = 0; r < 2; ++r)
-            qpos[r] = p.seq_mod ? (row0 + 8 * r) % p.seq_mod : row0 + 8 * r;
+            qpos[r] = (p.seq_mod ? (row0 + 8 * r) % p.seq_mod : row0 + 8 * r) + p.q_off;
         const bool branched = GRID && p.branched;
 
         mbar_wait(q_full, 0);
@@ -919,14 +934,14 @@ extern "C" int avo_flash_attention(
         const void* q, const void* k, const void* v, void* o,
         int dtype_bf16, int acc_bf16, int kv_in_grid,
         int B, int Hq, int rep, int Sq, int Sk, int D, int seq_mod,
-        int bq, int bk, int nk, int causal, int window,
+        int bq, int bk, int nk, int causal, int window, int q_offset,
         float softcap, float scale, int branched, int block_skip, int eager,
         int body, void* stream) {
     if (D % 16 != 0 || D > MAXD || D <= 0 || rep <= 0 || Hq % rep != 0 ||
-        bq <= 0 || bk <= 0)
+        bq <= 0 || bk <= 0 || q_offset < 0)
         return (int)cudaErrorInvalidValue;
     Params p{q, k, v, o, B, Hq, rep, Sq, Sk, D, seq_mod, bq, bk, nk,
-             causal, window, softcap, scale, branched, block_skip, eager};
+             causal, window, q_offset, softcap, scale, branched, block_skip, eager};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (body == 1) {
         if (!dtype_bf16) return (int)cudaErrorInvalidValue;

@@ -41,6 +41,12 @@ scale stays 1/sqrt(D), and the output is sliced back to D.  Zero columns
 add nothing to Q K^T and give zero output columns, so this is the same
 function; 120 runs at 128 on the wgmma body.  Past 128 the kernel raises.
 
+Row shards.  ``q_offset`` is the absolute position of q's row 0: a launch
+on rows [q_offset, q_offset + Sq) of a longer sequence against all its
+keys (a model rank's query rows under the models' row split).  Every body
+and the plain version mask, classify and bound the block walk at row +
+q_offset; at 0 nothing changes.
+
 ``flash_attention`` takes the kernel for CUDA tensors and the plain version
 for CPU tensors; a CUDA tensor never falls back to the plain version.
 ``flash_attention.launches`` counts kernel launches,
@@ -115,18 +121,21 @@ def _mask_value(qpos, kpos, *, causal, window, k_limit):
     return ok
 
 
-def _block_classify(i, j, *, bq, bk, causal, window, k_limit, seq_mod=None):
+def _block_classify(i, j, *, bq, bk, causal, window, k_limit, seq_mod=None,
+                    q_offset=0):
     """(fully_masked, fully_unmasked) for K-block j against Q-block i.
 
     Under GQA packing (seq_mod set) the q rows of a tile wrap around the true
     sequence, so a tile that spans a wrap boundary covers [0, seq_mod) and is
-    treated as never fully masked / never fully unmasked."""
+    treated as never fully masked / never fully unmasked.  ``q_offset`` is
+    the absolute position of q's row 0."""
     q_lo, q_hi = i * bq, i * bq + bq - 1
     if seq_mod is not None:
         if (q_hi // seq_mod) != (q_lo // seq_mod):
             q_lo, q_hi = 0, seq_mod - 1
         else:
             q_lo, q_hi = q_lo % seq_mod, q_hi % seq_mod
+    q_lo, q_hi = q_lo + q_offset, q_hi + q_offset
     k_lo, k_hi = j * bk, j * bk + bk - 1
     fully_masked = False
     fully_unmasked = k_hi < k_limit
@@ -139,8 +148,14 @@ def _block_classify(i, j, *, bq, bk, causal, window, k_limit, seq_mod=None):
     return fully_masked, fully_unmasked
 
 
+def _q_positions(i, bq, seq_mod, q_offset, dev):
+    """The absolute positions of q-block i's rows, a column."""
+    qpos = i * bq + torch.arange(bq, device=dev)[:, None]
+    return (qpos if seq_mod is None else qpos % seq_mod) + q_offset
+
+
 def _grid_rows(qi, k, v, i, *, scale, causal, window, softcap, bq, bk, nk,
-               k_limit, rescale_mode, mask_mode, div_mode, seq_mod, adt):
+               k_limit, rescale_mode, mask_mode, div_mode, seq_mod, q_offset, adt):
     """One q-block of ``_fa_body_grid``: the K-loop of the grid, every
     (batch, head) at once.  The branched rescale is taken per (batch, head),
     as the reference's ``pl.when`` is per grid program."""
@@ -149,13 +164,11 @@ def _grid_rows(qi, k, v, i, *, scale, causal, window, softcap, bq, bk, nk,
     acc = torch.zeros((B, H, bq, qi.shape[-1]), dtype=adt, device=dev)
     m = torch.full((B, H, bq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, H, bq), dtype=torch.float32, device=dev)
-    qpos = i * bq + torch.arange(bq, device=dev)[:, None]
-    if seq_mod is not None:
-        qpos = qpos % seq_mod
+    qpos = _q_positions(i, bq, seq_mod, q_offset, dev)
     for j in range(nk):
         fully_masked, fully_unmasked = _block_classify(
             i, j, bq=bq, bk=bk, causal=causal, window=window, k_limit=k_limit,
-            seq_mod=seq_mod)
+            seq_mod=seq_mod, q_offset=q_offset)
         if mask_mode == "block_skip" and fully_masked:
             continue
         kj = k[:, :, j * bk:(j + 1) * bk].float()
@@ -199,7 +212,7 @@ def _grid_rows(qi, k, v, i, *, scale, causal, window, softcap, bq, bk, nk,
 
 
 def _loop_rows(qi, k, v, i, *, scale, causal, window, softcap, bq, bk, nk,
-               k_limit, mask_mode, seq_mod, adt):
+               k_limit, mask_mode, seq_mod, q_offset, adt):
     """One q-block of ``_fa_body_loop``.
 
     K/V staged in full; an in-kernel loop over K-blocks that always masks,
@@ -208,15 +221,13 @@ def _loop_rows(qi, k, v, i, *, scale, causal, window, softcap, bq, bk, nk,
     bounds themselves shrink for causal/windowed masks (not under packing)."""
     B, H = qi.shape[:2]
     dev = qi.device
-    qpos = i * bq + torch.arange(bq, device=dev)[:, None]
-    if seq_mod is not None:
-        qpos = qpos % seq_mod
+    qpos = _q_positions(i, bq, seq_mod, q_offset, dev)
     lo, hi = 0, nk
     if mask_mode == "block_skip" and (causal or window is not None) and seq_mod is None:
         if causal:
-            hi = min(hi, (i * bq + bq + bk - 1) // bk)
+            hi = min(hi, (q_offset + i * bq + bq + bk - 1) // bk)
         if window is not None:
-            lo = max(0, (i * bq - window + 1) // bk)
+            lo = max(0, (q_offset + i * bq - window + 1) // bk)
     acc = torch.zeros((B, H, bq, qi.shape[-1]), dtype=adt, device=dev)
     m = torch.full((B, H, bq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, H, bq), dtype=torch.float32, device=dev)
@@ -266,6 +277,7 @@ def flash_attention_plain(
     window: Optional[int] = None,
     softcap: float = 0.0,
     scale: Optional[float] = None,
+    q_offset: int = 0,
     block_q: int = 128,
     block_k: int = 128,
     rescale_mode: str = "branchless",
@@ -277,7 +289,10 @@ def flash_attention_plain(
 ) -> torch.Tensor:
     """The plain PyTorch version: a torch-eager walk over the reference's
     (q-block, k-block) loop taking every genome branch, with the same
-    padding and the same bf16-accumulator rounding points."""
+    padding and the same bf16-accumulator rounding points.  ``q_offset`` is
+    the absolute position of q's row 0 (a row shard of a longer sequence):
+    the masks and the block walk read row + q_offset."""
+    _check_offset(q_offset)
     B, Hq, Sq0, D = q.shape
     _, Hkv, Sk, _ = k.shape
     assert Hq % Hkv == 0, (Hq, Hkv)
@@ -302,7 +317,7 @@ def flash_attention_plain(
     adt = torch.float32 if acc_dtype == "f32" else torch.bfloat16
     kw = dict(scale=scale_, causal=causal, window=window, softcap=softcap,
               bq=bq, bk=bk, nk=nk, k_limit=Sk, mask_mode=mask_mode,
-              seq_mod=seq_mod, adt=adt)
+              seq_mod=seq_mod, q_offset=q_offset, adt=adt)
     out = torch.empty((B, Hq, Sq + pad_q, D), dtype=q.dtype, device=q.device)
     for i in range(nq):
         qi = q[:, :, i * bq:(i + 1) * bq].float()
@@ -318,6 +333,11 @@ def flash_attention_plain(
 _MODES = dict(rescale_mode=("branchless", "branched"),
               mask_mode=("dense", "block_skip"),
               div_mode=("deferred", "eager"), acc_dtype=("f32", "bf16"))
+
+
+def _check_offset(q_offset) -> None:
+    if isinstance(q_offset, bool) or not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"q_offset must be an int >= 0, got {q_offset!r}")
 
 
 def _check_inputs(q, k, v, genome):
@@ -379,14 +399,14 @@ def _kernel():
     from repro_torch.kernels import _build
     fn = _build.load("flash_attention.cu").avo_flash_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 16
                    + [ctypes.c_float] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     return fn
 
 
 def _launch(q, k, v, *, causal, window, softcap, scale, block_q, block_k,
             rescale_mode, mask_mode, div_mode, kv_in_grid, gqa_pack, acc_dtype,
-            body=None):
+            q_offset=0, body=None):
     """``body`` is for A/B timing only: ``"mma_sync"`` forces the mma.sync
     body on a bf16 launch; None takes :func:`attention_body`'s choice."""
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -408,20 +428,24 @@ def _launch(q, k, v, *, causal, window, softcap, scale, block_q, block_k,
     Hq, Sq = qk.shape[1], qk.shape[2]
     bq, bk = min(block_q, Sq), min(block_k, Sk)
     nk = -(-Sk // bk)
+    if causal and q_offset > 0:
+        # a row shard: the K blocks past its last row's position are dead
+        # for every row, and the walk stops before them
+        nk = min(nk, -(-(q_offset + Sq0) // bk))
     o = torch.empty_like(qk)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()(qk.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              int(q.dtype == torch.bfloat16), int(acc_dtype == "bf16"),
              int(bool(kv_in_grid)), B, Hq, rep, Sq, Sk, D, seq_mod or 0,
              bq, bk, nk, int(bool(causal)), -1 if window is None else int(window),
-             float(softcap or 0.0), float(scale),
+             int(q_offset), float(softcap or 0.0), float(scale),
              int(rescale_mode == "branched"), int(mask_mode == "block_skip"),
              int(div_mode == "eager"), int(body == "wgmma"), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({body} body, "
                            f"q {tuple(q.shape)}, k {tuple(k.shape)}, blocks {bq} x "
                            f"{bk}, kv_in_grid={kv_in_grid}, gqa_pack={gqa_pack}, "
-                           f"div_mode={div_mode}): CUDA error {err}")
+                           f"div_mode={div_mode}, q_offset={q_offset}): CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.launches_by_body[body] += 1
     rep_of_call = Hq0 // k.shape[1]
@@ -440,6 +464,7 @@ def flash_attention(
     window: Optional[int] = None,
     softcap: float = 0.0,
     scale: Optional[float] = None,
+    q_offset: int = 0,
     block_q: int = 128,
     block_k: int = 128,
     rescale_mode: str = "branchless",
@@ -452,23 +477,25 @@ def flash_attention(
 ) -> torch.Tensor:
     """Forward attention for one genome.  CUDA tensors launch the sm_90a
     kernel; CPU tensors take :func:`flash_attention_plain`.  ``impl="kernel"``
-    demands the kernel and raises on CPU tensors."""
+    demands the kernel and raises on CPU tensors.  ``q_offset``: the
+    absolute position of q's row 0, for a shard of a sequence's rows."""
     genome = dict(block_q=block_q, block_k=block_k, rescale_mode=rescale_mode,
                   mask_mode=mask_mode, div_mode=div_mode, kv_in_grid=kv_in_grid,
                   gqa_pack=gqa_pack, acc_dtype=acc_dtype)
     refuse_dtensor("flash_attention", q, k, v)
     _check_inputs(q, k, v, genome)
+    _check_offset(q_offset)
     if impl not in (None, "kernel"):
         raise ValueError(f"impl={impl!r}; expected None or 'kernel'")
     if q.device.type == "cuda":
         refuse_autograd("flash_attention", q, k, v)
         return _launch(q, k, v, causal=causal, window=window, softcap=softcap,
-                       scale=scale, **genome)
+                       scale=scale, q_offset=q_offset, **genome)
     if impl == "kernel":
         raise ValueError(f"the flash_attention kernel runs on CUDA tensors; "
                          f"got tensors on {q.device}")
     return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 softcap=softcap, scale=scale, **genome)
+                                 softcap=softcap, scale=scale, q_offset=q_offset, **genome)
 
 
 flash_attention.launches = 0

@@ -79,10 +79,9 @@ def attention(
     impl = resolve_impl(impl, q)
     g = dict(DEFAULT_ATTN_GENOME, **(genome or {}))
     if impl in ("kernel", "plain"):
-        if q_offset != 0:
-            raise ValueError("the prefill kernel assumes aligned q/k positions")
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale, **g)
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+                  q_offset=q_offset, **g)
         if impl == "plain":
             return _fa.flash_attention_plain(q, k, v, **kw)
         out = _fa.flash_attention(q, k, v, **kw)

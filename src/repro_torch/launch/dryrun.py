@@ -178,6 +178,7 @@ def analyze(cfg: ArchConfig, cell: ShapeCell, traced: Traced, mesh) -> dict:
                         "total_bytes": s["collective_total_bytes"],
                         "by_axis": by_axis, "link_bw": bw},
         "top_collective_sites": [[site[:140], b] for site, b in c.top_collective_sites(8)],
+        "top_dot_sites": [[site[:140], f] for site, f in c.top_dot_sites(8)],
         "memory": {"argument_bytes": traced.argument_bytes,
                    "output_bytes": traced.output_bytes,
                    "temp_bytes": c.peak_bytes, "generated_code_bytes": 0},

@@ -12,7 +12,10 @@ What counts as what (aten op names without overload; an in-place op counts
 as its out-of-place name):
 
 - **dot FLOPs**: ``mm`` and ``bmm``: 2·m·n·k, with k the contracted
-  length, as ``dot`` is counted from its shape and contracting dims.
+  length, as ``dot`` is counted from its shape and contracting dims; in a
+  :func:`trace_step`, also summed by site (:func:`_site`: the innermost
+  frame of the models or the launch code, and the ``spmd`` chain that
+  reached the product).
 - **elementwise FLOPs**: one per output element of each op in
   :data:`ELEMENTWISE` (arithmetic, comparisons, logical ops, ``where``,
   ``exp``, ``tanh``, clamps: HLO's elementwise opcodes).
@@ -117,9 +120,10 @@ def _tensors(tree) -> list:
 class _Counter(TorchDispatchMode):
     """Accumulates the counts of every aten and c10d op dispatched under it.
     ``axes`` maps a process group's name to its mesh axis; ``memory``
-    follows the live bytes of the storages the traced ops create."""
+    follows the live bytes of the storages the traced ops create;
+    ``dot_sites`` sums the dot FLOPs by site."""
 
-    def __init__(self, axes=None, memory: bool = False):
+    def __init__(self, axes=None, memory: bool = False, dot_sites: bool = False):
         super().__init__()
         self.dot_flops = 0.0
         self.ew_flops = 0.0
@@ -128,6 +132,8 @@ class _Counter(TorchDispatchMode):
         self.coll_count: dict = {}
         self.coll_axis_bytes: dict = {}
         self.coll_sites: dict = {}
+        self.dot_sites: dict = {}
+        self._dot_sites = dot_sites
         self._axes = axes or {}
         self._memory = memory
         self._live: dict = {}           # storage key -> bytes
@@ -148,7 +154,11 @@ class _Counter(TorchDispatchMode):
         operands = _tensors((args, kwargs))
         results = _tensors(out)
         if base in DOTS:
-            self.dot_flops += 2.0 * results[0].numel() * operands[0].shape[-1]
+            flops = 2.0 * results[0].numel() * operands[0].shape[-1]
+            self.dot_flops += flops
+            if self._dot_sites:
+                site = _site()
+                self.dot_sites[site] = self.dot_sites.get(site, 0.0) + flops
         elif base in ELEMENTWISE:
             self.ew_flops += sum(r.numel() for r in results)
         elif base in REDUCTIONS:
@@ -209,12 +219,15 @@ class _Counter(TorchDispatchMode):
     def top_collective_sites(self, n: int = 8) -> list:
         return sorted(self.coll_sites.items(), key=lambda kv: -kv[1])[:n]
 
+    def top_dot_sites(self, n: int = 8) -> list:
+        return sorted(self.dot_sites.items(), key=lambda kv: -kv[1])[:n]
+
 
 def _site() -> str:
     """``file:line function [chain]`` of the innermost frame of the models or
     the launch code on the stack (this module's own frames excluded); the
     chain names the public ``distributed.spmd`` functions between it and
-    the collective, outermost first: ``dot>use>gather`` is a weight gathered
+    the collective or product, outermost first: ``dot>use>gather`` is a weight gathered
     for a product, ``dot>gather`` the activations of a product taken on the
     weight's shard."""
     f = sys._getframe(2)
@@ -269,10 +282,10 @@ def trace_step(fn, *args, **kwargs):
     """``fn(*args, **kwargs)`` traced on the meta device with autograd as
     the caller left it, under the active mesh; returns ``(result,
     counter)``.  The counter's ``peak_bytes`` is the peak of the live bytes
-    of the storages ``fn`` created.  Tensor arguments must be on ``meta``,
-    but for 0-d CPU tensors."""
+    of the storages ``fn`` created, ``dot_sites`` its dot FLOPs by site.
+    Tensor arguments must be on ``meta``, but for 0-d CPU tensors."""
     _check_meta(args, kwargs, host_scalars=True)
-    counter = _Counter(_mesh_axes(), memory=True)
+    counter = _Counter(_mesh_axes(), memory=True, dot_sites=True)
     with counter:
         out = fn(*args, **kwargs)
     return out, counter

@@ -19,10 +19,14 @@ and launches the kernels on its local shard: Q heads over "model" when
 ``n_heads`` divides it, KV heads when ``n_kv_heads`` does
 (``_head_layout``), the output projection's parts summed over "model".
 Where Q heads divide and KV heads do not, each rank keeps all KV heads and
-reads the ones its Q heads share.  Where the Q heads do not divide, every
-model rank computes all heads: the JAX package shards the query rows over
-"model" there, which the port's kernels, with no row offset, cannot do
-(ROADMAP Queue 3).  The decode cache is held in the same layout, its head
+reads the ones its Q heads share.  Where the Q heads do not divide (qwen2-7b's 28 heads on 16
+model ranks), a self-attention in prefill and training takes the JAX
+package's sequence parallelism for Q/O where "model" divides the sequence
+(``_row_split``): model rank r projects Q from its rows [r S/m, (r + 1)
+S/m), K/V from all S, launches the kernel with ``q_offset`` = r S/m,
+multiplies its rows by ``wo`` and gathers the rows over "model".  Where the
+sequence does not divide either, and in cross-attention and decode, every
+model rank computes all heads (the head fallback).  The decode cache is held in the same layout, its head
 dim whole, its length whole too unless the data axes do not divide the
 batch and do divide the length (a batch of 1 at long context): then each
 data-parallel rank holds its shard of the length, decodes it with the
@@ -71,7 +75,8 @@ def _head_layout(cfg: ArchConfig):
     heads divide and the KV heads do not, each model rank holds every KV
     head and reads the contiguous range its Q heads share; where that range
     is uneven across the Q heads, or the Q heads do not divide, every model
-    rank computes all heads (the head fallback, ROADMAP Queue 3).  With no
+    rank holds all heads: the head fallback, or, for a self-attention over
+    a sequence "model" divides, the row split (``_row_split``).  With no
     mesh: (None, None, None), every head."""
     q_ax, kv_ax = ctx.div_axis(cfg.n_heads), ctx.div_axis(cfg.n_kv_heads)
     kv_range = None
@@ -86,22 +91,39 @@ def _head_layout(cfg: ArchConfig):
     return q_ax, kv_ax, kv_range
 
 
+# self-attentions that took the row split (``_row_split``), since the caller
+# last set it to 0
+counts = {"row_split": 0}
+
+
+def _row_split(cfg: ArchConfig, S: int):
+    """This model rank's query rows as a slice, where a self-attention of
+    ``S`` rows takes the JAX package's sequence parallelism for Q/O (its Q
+    heads do not divide "model" and "model" divides S), else None."""
+    if ctx.div_axis(cfg.n_heads) is not None or ctx.div_axis(S) is None:
+        return None
+    n = S // ctx.axis_size("model")
+    lo = spmd.rank("model") * n
+    return slice(lo, lo + n)
+
+
 def _local_heads(cfg: ArchConfig, q_ax, kv_ax) -> tuple:
     m = ctx.axis_size("model")
     return (cfg.n_heads // m if q_ax else cfg.n_heads,
             cfg.n_kv_heads // m if kv_ax else cfg.n_kv_heads)
 
 
-def _kv_partial(q_ax, kv_ax) -> dict:
+def _kv_partial(q_ax, kv_ax, rows=None) -> dict:
     """``spmd``'s keywords for K/V's weights and biases: partial over "model"
-    where each model rank holds K/V whole and reads its part."""
-    return dict(model_partial=q_ax is not None and kv_ax is None)
+    where each model rank holds K/V whole and reads its part (its Q heads',
+    or its query rows')."""
+    return dict(model_partial=rows is not None or (q_ax is not None and kv_ax is None))
 
 
-def _biases(p, q_ax, kv_ax, compute_dtype) -> dict:
+def _biases(p, q_ax, kv_ax, compute_dtype, rows=None) -> dict:
     """The self-attention's Q/K/V biases as this rank adds them."""
-    kv = _kv_partial(q_ax, kv_ax)
-    return {"bq": spmd.use(p["bq"], q_ax).to(compute_dtype),
+    kv = _kv_partial(q_ax, kv_ax, rows)
+    return {"bq": spmd.use(p["bq"], q_ax, model_partial=rows is not None).to(compute_dtype),
             "bk": spmd.use(p["bk"], kv_ax, **kv).to(compute_dtype),
             "bv": spmd.use(p["bv"], kv_ax, **kv).to(compute_dtype)}
 
@@ -120,40 +142,53 @@ def attn_apply(x, p, cfg: ArchConfig, blk: Block, *, causal: bool, compute_dtype
     the ``c_`` parameters, keys and values from the memory, no rotary
     encoding, no mask whatever ``causal`` and the block's window say.
     Under a mesh it runs on this rank's rows: the kernel on its local heads
-    (``_head_layout``), the output projection's parts summed over "model"."""
+    (``_head_layout``), the output projection's parts summed over "model";
+    or, on the row split (``_row_split``), on its query rows, the rows of
+    the output gathered over "model".  Either way the result is whole over
+    "model", as ``x`` is."""
     cross = kv_source is not None
     prefix = "c_" if cross else ""
     B, S, _ = x.shape
     Dh = cfg.head_dim
     q_ax, kv_ax, kv_range = _head_layout(cfg)
     hq, hkv = _local_heads(cfg, q_ax, kv_ax)
-    split = q_ax is not None
+    rows = None if cross else _row_split(cfg, S)
+    split = q_ax is not None or rows is not None
     h = norm_apply(x, spmd.use(p[prefix + "norm"]), cfg).to(compute_dtype)
     src = kv_source.to(compute_dtype) if cross else h
     if split:                     # each model rank's part: the backward sums them
         h = spmd.enter_model(h)
         src = spmd.enter_model(src) if cross else h
     Sk = src.shape[1]
-    # Q over this rank's heads, K and V over its KV heads or whole (spmd.dot)
-    kv = _kv_partial(q_ax, kv_ax)
-    q = spmd.dot(h, p[prefix + "wq"], None, q_ax)
+    # Q over this rank's heads or rows [q0, q0 + Sq), K and V over its KV
+    # heads or whole (spmd.dot); on the row split every weight's gradient
+    # is partial
+    hr, q0 = (h, 0) if rows is None else (h[:, rows], rows.start)
+    Sq = hr.shape[1]
+    part = dict(model_partial=rows is not None)
+    kv = _kv_partial(q_ax, kv_ax, rows)
+    q = spmd.dot(hr, p[prefix + "wq"], None, q_ax, **part)
     k = spmd.dot(src, p[prefix + "wk"], None, kv_ax, **kv)
     v = spmd.dot(src, p[prefix + "wv"], None, kv_ax, **kv)
     if not cross and cfg.qkv_bias:
-        b = _biases(p, q_ax, kv_ax, compute_dtype)
+        b = _biases(p, q_ax, kv_ax, compute_dtype, rows)
         q, k, v = q + b["bq"], k + b["bk"], v + b["bv"]
-    q, k, v = (q.reshape(B, S, hq, Dh), k.reshape(B, Sk, hkv, Dh), v.reshape(B, Sk, hkv, Dh))
+    q, k, v = (q.reshape(B, Sq, hq, Dh), k.reshape(B, Sk, hkv, Dh), v.reshape(B, Sk, hkv, Dh))
     if not cross:
-        qpos = torch.arange(S, device=x.device)
-        q = rope_apply(q, qpos, cfg.rope_theta)
-        k = rope_apply(k, qpos, cfg.rope_theta)
+        pos = torch.arange(S, device=x.device)
+        q = rope_apply(q, pos if rows is None else pos[rows], cfg.rope_theta)
+        k = rope_apply(k, pos, cfg.rope_theta)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     o = ops.attention(qt, _kv_read(kt, kv_range), _kv_read(vt, kv_range),
                       causal=causal and not cross,
                       window=None if cross else blk.window, softcap=cfg.attn_softcap,
-                      impl=impl, genome=genome)
-    out = spmd.dot(o.transpose(1, 2).reshape(B, S, hq * Dh), p[prefix + "wo"], q_ax, None)
-    if split:
+                      q_offset=q0, impl=impl, genome=genome)
+    out = spmd.dot(o.transpose(1, 2).reshape(B, Sq, hq * Dh), p[prefix + "wo"], q_ax, None,
+                   **part)
+    if rows is not None:
+        counts["row_split"] += 1
+        out = spmd.gather(out, 1, "model", partial=False)
+    elif split:
         out = spmd.sum_model(out)
     if cfg.post_norms and not cross:
         out = norm_apply(out.to(x.dtype), spmd.use(p["post_norm"]), cfg)

@@ -368,6 +368,53 @@ def test_decode_records_multiply_the_weight_shards():
     assert new["memory"]["temp_bytes"] < old["memory"]["temp_bytes"]
 
 
+_ROW_SPLIT = """
+import dataclasses, json
+from repro_torch.configs.base import SHAPES_BY_NAME
+from repro_torch.configs.registry import get_arch
+from repro_torch.launch import dryrun
+from repro_torch.models import attention
+mesh = dryrun.production_mesh(False)
+cfg, cell = dataclasses.replace(get_arch("qwen2-7b"), n_layers=2), SHAPES_BY_NAME["prefill_32k"]
+out = {}
+for tag in ("rows", "heads"):
+    if tag == "heads":                       # the head fallback: every rank all rows
+        attention._row_split = lambda cfg, S: None
+    attention.counts["row_split"] = 0
+    c = dryrun.trace_cell(cfg, cell, mesh).counter
+    out[tag] = {"sites": {s: f for s, f in c.dot_sites.items() if "models/attention.py" in s},
+                "row_split": attention.counts["row_split"]}
+print(json.dumps(out))
+"""
+
+
+def test_row_split_divides_the_attention_and_q_o_products():
+    """qwen2-7b ``prefill_32k`` at full width, 2 of 28 layers, on the fake
+    256-rank mesh: 32 rows over 16 data ranks, 2 a rank, S = 32768.  Its 28
+    Q heads do not divide model = 16, so each self-attention takes the row
+    split: each model rank's Q and O products and its blocked attention
+    (QK^T and PV over all S keys) cover S / 16 query rows, K and V are
+    projected from all S rows.  The dot FLOPs of ``models/attention.py``'s
+    sites equal that hand count, and the same trace with the row split off
+    (the head fallback) counts 16x the Q, O and attention FLOPs."""
+    run = subprocess.run([sys.executable, "-c", _ROW_SPLIT], env=_env(), cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    cfg = get_arch("qwen2-7b")
+    L, Br, S, m = 2, 2, 32768, 16
+    D, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def count(rows):            # per site: wq, wo, the attention; wk and wv
+        qo = L * 2.0 * Br * rows * D * Hq * Dh
+        attn = L * 4.0 * Br * Hq * rows * S * Dh
+        kv = L * 2.0 * Br * S * D * Hkv * Dh
+        return sorted([qo, qo, attn, kv, kv])
+    assert got["rows"]["row_split"] == L and got["heads"]["row_split"] == 0
+    assert sorted(got["rows"]["sites"].values()) == count(S // m)
+    assert sorted(got["heads"]["sites"].values()) == count(S)
+
+
 # ---------------------------------------------------------------------------
 # the CLI on the production meshes
 # ---------------------------------------------------------------------------

@@ -54,6 +54,53 @@ def test_kernel_matches_plain_on_card(kv_in_grid, mask_mode, gqa_pack):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kv_in_grid", [True, False])
+@pytest.mark.parametrize("mask_mode", ["dense", "block_skip"])
+@pytest.mark.parametrize("gqa_pack", [False, True])
+def test_kernel_offset_matches_plain_on_card(kv_in_grid, mask_mode, gqa_pack):
+    """A row band [88, 160) launched with ``q_offset`` = 88 against all 160
+    keys (fp32 body), causal with and without a window: the kernel against
+    the plain version with the same offset and against the rows of the
+    oracle's whole call."""
+    _need_card()
+    q, k, v = (torch.from_numpy(a).cuda() for a in _qkv(11, 1, 4, 2, 160, 160, 64))
+    band = q[:, :, 88:].contiguous()
+    for window in (None, 48):
+        kw = dict(causal=True, window=window, q_offset=88, block_q=32, block_k=128,
+                  kv_in_grid=kv_in_grid, mask_mode=mask_mode, gqa_pack=gqa_pack)
+        out = flash_attention(band, k, v, impl="kernel", **kw)
+        torch.testing.assert_close(out, flash_attention_plain(band, k, v, **kw),
+                                   atol=ATOL, rtol=0)
+        ref = mha_reference(q, k, v, causal=True, window=window)[:, :, 88:]
+        torch.testing.assert_close(out, ref, atol=CORRECTNESS_TOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim,body", [(128, "wgmma"), (96, "mma_sync")])
+def test_kernel_bf16_row_shards_equal_the_whole_launch(head_dim, body):
+    """qwen2-7b's heads (28 over 4 KV heads) on each bf16 body: 8 row
+    shards of 256 rows, each launched with its offset, concatenated, equal
+    the whole causal launch bit for bit (each shard's 128-row blocks are
+    the whole launch's), and hold the plain version's bf16 bounds."""
+    _need_card()
+    assert attention_body(torch.bfloat16, head_dim) == body
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn((1, 28, 2048, head_dim), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((1, 4, 2048, head_dim), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    kw = dict(causal=True, block_q=128, block_k=128, mask_mode="block_skip")
+    whole = flash_attention(q, k, v, impl="kernel", **kw)
+    shards = torch.cat([flash_attention(q[:, :, r * 256:(r + 1) * 256].contiguous(), k, v,
+                                        impl="kernel", q_offset=r * 256, **kw)
+                        for r in range(8)], dim=2)
+    assert torch.equal(shards, whole)
+    stats = bf16_agreement(shards, flash_attention_plain(q, k, v, **kw),
+                           flash_attention_plain(q, k, v.abs(), **kw))
+    assert bf16_agrees(stats), stats
+
+
+@pytest.mark.gpu
 def test_kernel_bf16_full_width_on_card():
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(0)

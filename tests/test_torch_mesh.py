@@ -15,8 +15,11 @@ port's) while the ranks run.
 Worlds:
   * 4 ranks as (data=2, model=2): Q heads, experts and vocab sharded;
   * 3 ranks as (data=1, model=3): the reduced models' 4 heads and vocab of
-    256 do not divide 3 (the head fallback, ``pad_vocab``), and an expert
-    hidden dim of 48 does (TP over the experts);
+    256 do not divide 3 (``pad_vocab``), and an expert hidden dim of 48 does
+    (TP over the experts).  At S = 16, which 3 does not divide either, every
+    self-attention takes the head fallback; at S = ``ROW_S`` = 18 it takes
+    the JAX package's row split (query rows over "model", the kernel's
+    ``q_offset``), where the reduced windows of 16 meet the offset;
   * 2 ranks as (pod=2, data=1, model=1): the compressed reduction.
 
 Tolerances (fp32 everywhere), against the JAX package: logits, train-step
@@ -43,6 +46,7 @@ ARCHS5 = ("qwen2-7b", "mixtral-8x22b", "jamba-v0.1-52b", "gemma2-27b",
           "seamless-m4t-medium")
 TRAIN_ARCHS = ("qwen2-7b", "mixtral-8x22b", "jamba-v0.1-52b")
 B, S, NEW = 4, 16, 4
+ROW_S = 18                      # a sequence 3 divides: the row split on model=3
 MOE_B, MOE_S = 4, 128           # 256 tokens a data shard: per-shard dispatch
 OPT = dict(lr=1.0, eps=1.0, warmup_steps=1, total_steps=10)   # see _train
 
@@ -75,34 +79,38 @@ def _place(params, cfg):
     return params if mesh is None else distribute_params(params, mesh, cfg)
 
 
-def _inputs(cfg):
+def _inputs(cfg, s=S):
     rng = np.random.default_rng(7)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
-    frames = (torch.from_numpy(rng.standard_normal((B, S, cfg.d_model)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, s)))
+    frames = (torch.from_numpy(rng.standard_normal((B, s, cfg.d_model)).astype(np.float32))
               if cfg.enc_dec else None)
     return toks, frames
 
 
-def _logits(arch, npw):
+def _logits(arch, npw, s=S):
     from repro_torch.models import lm_logits
     cfg = _cfg(arch)
-    toks, frames = _inputs(cfg)
+    toks, frames = _inputs(cfg, s)
     out = lm_logits(_place(_weights(cfg, npw), cfg), cfg, toks, enc_frames=frames,
                     compute_dtype=torch.float32, impl="blocked")
     return _whole(out)
 
 
-def _greedy(arch, npw):
+def _greedy(arch, npw, s=S, cache_out=None):
     """Prefill and NEW decode steps through the kernel wrappers (their plain
-    versions on CPU tensors), greedy."""
+    versions on CPU tensors), greedy.  ``cache_out`` (a list) gets the
+    leaves of the cache ``prefill`` returns, whole."""
     from repro_torch.models import decode_step, prefill
+    from repro_torch.tree import tree_leaves
     cfg = _cfg(arch)
     params = _place(_weights(cfg, npw), cfg)
-    toks, frames = _inputs(cfg)
+    toks, frames = _inputs(cfg, s)
     kw = dict(compute_dtype=torch.float32, impl="kernel")
     with torch.no_grad():
-        logits, cache = prefill(params, cfg, toks, S + NEW, enc_frames=frames,
+        logits, cache = prefill(params, cfg, toks, s + NEW, enc_frames=frames,
                                 cache_dtype=torch.float32, **kw)
+        if cache_out is not None:
+            cache_out.extend(_whole(t).clone() for t in tree_leaves(cache["layers"]))
         out = [torch.argmax(_whole(logits), -1)]
         for _ in range(NEW):
             logits, cache = decode_step(params, cfg, cache, out[-1], **kw)
@@ -110,7 +118,7 @@ def _greedy(arch, npw):
     return torch.stack(out, 1)
 
 
-def _train(arch, npw, steps=2):
+def _train(arch, npw, steps=2, s=S):
     """``steps`` train steps in 2 microbatches; the losses, gradient norms
     and the updated parameters (whole).  AdamW's eps and lr are 1.0 here:
     with the default eps of 1e-8 the update is lr * sign(g) for every
@@ -132,7 +140,7 @@ def _train(arch, npw, steps=2):
     opt = adamw_init(params)
     step = make_train_step(cfg, AdamWConfig(**OPT), n_microbatches=2,
                            compute_dtype=torch.float32)
-    pipe = TokenPipeline(cfg, S, B, seed=1)
+    pipe = TokenPipeline(cfg, s, B, seed=1)
     losses, norms = [], []
     for _ in range(steps):
         params, opt, _, m = step(params, opt, None, batch_to_device(pipe.next_batch(), "cpu"))
@@ -142,7 +150,7 @@ def _train(arch, npw, steps=2):
             "params": tree_map(lambda t: _whole(t.detach()).clone(), params)}
 
 
-def _grads(arch, npw):
+def _grads(arch, npw, s=S):
     """One backward of ``lm_loss`` (under a mesh, reduced to the parameters'
     placements): every gradient leaf, whole."""
     from repro_torch.data import TokenPipeline
@@ -155,7 +163,7 @@ def _grads(arch, npw):
     params = _place(_weights(cfg, npw), cfg)
     for p in tree_leaves(params):
         p.requires_grad_(True)
-    batch = batch_to_device(TokenPipeline(cfg, S, B, seed=1).next_batch(), "cpu")
+    batch = batch_to_device(TokenPipeline(cfg, s, B, seed=1).next_batch(), "cpu")
     lm_loss(params, cfg, batch, compute_dtype=torch.float32, impl="blocked").backward()
     grads = tree_map(lambda p: p.grad, params)
     if ctx.get_mesh() is not None:
@@ -201,18 +209,35 @@ def _moe(cfg, p: dict, x: np.ndarray, aux: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def _world_models(rank, model, moe_cases, weights):
+def _world_models(rank, model, moe_cases, weights, row_s=None):
+    """Every check at S; with ``row_s``, also the five archs' logits,
+    prefill caches and greedy tokens and qwen2-7b's gradients and train
+    step at ``row_s``, with the self-attentions that took the row split
+    counted per call (``attention.counts``)."""
     from repro_torch.distributed import context as ctx
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import attention
     mesh = make_host_mesh(model=model, device="cpu")
     ctx.set_mesh(mesh)
     out = {"mesh": {n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)}}
+    attention.counts["row_split"] = 0
     for arch in ARCHS5:
         out[("logits", arch)] = _logits(arch, weights[arch])
         out[("greedy", arch)] = _greedy(arch, weights[arch])
     for arch in TRAIN_ARCHS:
         out[("grads", arch)] = _grads(arch, weights[arch])
         out[("train", arch)] = _train(arch, weights[arch])
+    out["row_split_at_S"] = attention.counts["row_split"]
+    if row_s is not None:
+        for arch in ARCHS5:
+            attention.counts["row_split"] = 0
+            out[("logits", arch, row_s)] = _logits(arch, weights[arch], row_s)
+            out[("row_split", arch)] = attention.counts["row_split"]
+            out[("cache", arch, row_s)] = []
+            out[("greedy", arch, row_s)] = _greedy(arch, weights[arch], row_s,
+                                                   cache_out=out[("cache", arch, row_s)])
+        out[("grads", "qwen2-7b", row_s)] = _grads("qwen2-7b", weights["qwen2-7b"], row_s)
+        out[("train", "qwen2-7b", row_s)] = _train("qwen2-7b", weights["qwen2-7b"], s=row_s)
     for name, (arch, moe_kw, p, x) in moe_cases.items():
         out[("moe", name)] = _moe(_moe_cfg(arch, **moe_kw), p, x)
         out[("moe_aux", name)] = _moe(_moe_cfg(arch, **moe_kw), p, x, aux=True)
@@ -374,10 +399,11 @@ def _jax_weights(arch) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_case(arch) -> dict:
+def _jax_case(arch, s=S) -> dict:
     """The JAX package's results on the ranks' weights and inputs: logits,
-    greedy tokens, every gradient leaf of ``lm_loss`` and two train steps,
-    all fp32 through its blocked references."""
+    greedy tokens, the leaves of the cache its prefill returns, every
+    gradient leaf of ``lm_loss`` and two train steps (at ``ROW_S``, of
+    qwen2-7b only), all fp32 through its blocked references."""
     import jax
     import jax.numpy as jnp
     from repro.configs.registry import ARCHS as JAX_ARCHS
@@ -388,26 +414,27 @@ def _jax_case(arch) -> dict:
     jcfg = JAX_ARCHS[arch].reduced()
     jp = jax.tree_util.tree_map(jnp.asarray, _jax_weights(arch))
     cfg = _cfg(arch)
-    toks, frames = _inputs(cfg)
+    toks, frames = _inputs(cfg, s)
     jt = jnp.asarray(toks.numpy())
     jf = None if frames is None else jnp.asarray(frames.numpy())
     f32 = dict(compute_dtype=jnp.float32, impl="blocked")
     ref = {"logits": np.asarray(lm_logits(jp, jcfg, jt, enc_frames=jf, **f32))}
-    logits, cache = prefill(jp, jcfg, jt, S + NEW, enc_frames=jf, cache_dtype=jnp.float32,
+    logits, cache = prefill(jp, jcfg, jt, s + NEW, enc_frames=jf, cache_dtype=jnp.float32,
                             **f32)
+    ref["cache"] = [np.asarray(t) for t in jax.tree_util.tree_leaves(cache["layers"])]
     out = [np.argmax(np.asarray(logits), -1)]
     for _ in range(NEW):
         logits, cache = decode_step(jp, jcfg, cache, jnp.asarray(out[-1], jnp.int32), **f32)
         out.append(np.argmax(np.asarray(logits), -1))
     ref["greedy"] = torch.from_numpy(np.stack(out, 1))
-    if arch not in TRAIN_ARCHS:
+    if arch not in TRAIN_ARCHS or (s != S and arch != "qwen2-7b"):
         return ref
-    batch = {k: jnp.asarray(v) for k, v in TokenPipeline(cfg, S, B, seed=1).next_batch().items()}
+    batch = {k: jnp.asarray(v) for k, v in TokenPipeline(cfg, s, B, seed=1).next_batch().items()}
     # jax flattens dicts in sorted-key order, as tree_leaves does
     ref["grads"] = [np.asarray(g) for g in jax.tree_util.tree_leaves(
         jax.grad(lambda p: lm_loss(p, jcfg, batch, **f32))(jp))]
     step = jax.jit(make_train_step(jcfg, AdamWConfig(**OPT), n_microbatches=2, **f32))
-    params, opt, pipe = jp, adamw_init(jp), TokenPipeline(cfg, S, B, seed=1)
+    params, opt, pipe = jp, adamw_init(jp), TokenPipeline(cfg, s, B, seed=1)
     losses, norms = [], []
     for _ in range(2):
         jb = {k: jnp.asarray(v) for k, v in pipe.next_batch().items()}
@@ -440,17 +467,18 @@ def _jax_moe(jcfg, jp, x):
     return np.asarray(y), float(aux)
 
 
-def _references() -> dict:
+def _references(s=S, train_archs=TRAIN_ARCHS) -> dict:
     """The one-device results the ranks' are held to, beside JAX's."""
     ref = {}
     for arch in ARCHS5:
         npw = _jax_weights(arch)
-        ref[("logits", arch)] = _logits(arch, npw)
-        ref[("greedy", arch)] = _greedy(arch, npw)
-    for arch in TRAIN_ARCHS:
+        ref[("logits", arch)] = _logits(arch, npw, s)
+        ref[("cache", arch)] = []
+        ref[("greedy", arch)] = _greedy(arch, npw, s, cache_out=ref[("cache", arch)])
+    for arch in train_archs:
         npw = _jax_weights(arch)
-        ref[("grads", arch)] = _grads(arch, npw)
-        ref[("train", arch)] = _train(arch, npw)
+        ref[("grads", arch)] = _grads(arch, npw, s)
+        ref[("train", arch)] = _train(arch, npw, s=s)
     return ref
 
 
@@ -530,21 +558,36 @@ def test_mesh_data2_model2_matches_one_device(tmp_path):
     assert _rel(got, one) <= REL and abs(float(got_aux) - float(one_aux)) <= REL * aux
 
 
-def test_mesh_model3_head_fallback_and_pad_vocab(tmp_path):
-    """(data=1, model=3): 4 heads, 1-4 KV heads and a vocab of 256 divide
-    no axis of 3, so attention runs whole on every model rank and the loss
-    pads the vocab to 258; an expert hidden dim of 48 is TP over model.
-    Every result against the JAX package and the one-device port."""
-    from repro_torch.tree import tree_leaves
+@pytest.fixture(scope="module")
+def model3_world(tmp_path_factory):
+    """One spawn of 3 ranks as (data=1, model=3) for both model=3 tests:
+    every check at S and the row split's at ROW_S; the one-device and JAX
+    references at both lengths are computed while the ranks run."""
     moe_kw = dict(capacity_factor=1.0, d_ff_expert=48)
     jcfg, jp, x = _jax_moe_case("mixtral-8x22b", 4, **moe_kw)
-    finish = _spawn(tmp_path, 3, "models", model=3, weights={a: _jax_weights(a) for a in ARCHS5},
-                    moe_cases={"tp": ("mixtral-8x22b", moe_kw, jp, x)})
+    finish = _spawn(tmp_path_factory.mktemp("model3"), 3, "models", model=3,
+                    weights={a: _jax_weights(a) for a in ARCHS5},
+                    moe_cases={"tp": ("mixtral-8x22b", moe_kw, jp, x)}, row_s=ROW_S)
     ref = _references()
+    rows = _references(ROW_S, train_archs=("qwen2-7b",))
     for arch in ARCHS5:                 # the JAX package's, while the ranks run
         _jax_case(arch)
+        _jax_case(arch, ROW_S)
     res = finish()
     assert res["mesh"] == {"data": 1, "model": 3}
+    return {"res": res, "ref": ref, "rows": rows, "moe": (jcfg, jp, x, moe_kw)}
+
+
+def test_mesh_model3_head_fallback_and_pad_vocab(model3_world):
+    """(data=1, model=3) at S = 16: 4 heads, 1-4 KV heads, the sequence and
+    a vocab of 256 divide no axis of 3, so attention runs whole on every
+    model rank (no self-attention takes the row split) and the loss pads
+    the vocab to 258; an expert hidden dim of 48 is TP over model.  Every
+    result against the JAX package and the one-device port."""
+    from repro_torch.tree import tree_leaves
+    res, ref = model3_world["res"], model3_world["ref"]
+    jcfg, jp, x, moe_kw = model3_world["moe"]
+    assert res["row_split_at_S"] == 0
     _check_models(res, ref)
     want, aux = _jax_moe(jcfg, jp, x)
     one, one_aux = _moe(_moe_cfg("mixtral-8x22b", **moe_kw), jp, x, aux=True)
@@ -553,6 +596,57 @@ def test_mesh_model3_head_fallback_and_pad_vocab(tmp_path):
     assert _rel(got, want) <= REL and abs(float(got_aux) - aux) <= REL * aux
     assert abs(float(got_aux) - float(one_aux)) <= REL * aux
     assert len(tree_leaves(res[("train", "qwen2-7b")]["params"])) > 0
+
+
+def _self_attentions(cfg) -> int:
+    """The self-attentions of one ``lm_logits`` call: the decoder's and,
+    in an encoder-decoder, the encoder's (each encoder layer has one)."""
+    per = sum(1 for b in cfg.pattern if b.kind == "attn")
+    return cfg.n_periods * per + (cfg.n_enc_layers if cfg.enc_dec else 0)
+
+
+def _check_leaves(got, want, jax_ref, what):
+    assert len(got) == len(want) == len(jax_ref), what
+    for a, b, j in zip(got, want, jax_ref):
+        assert a.shape == b.shape == j.shape, what
+        assert _rel(a, j) <= REL, (what, "jax", _rel(a, j))
+        assert _rel(a, b) <= REL, (what, _rel(a, b))
+
+
+def test_mesh_model3_row_split_matches_jax_and_one_device(model3_world):
+    """(data=1, model=3) at S = ROW_S = 18: the reduced models' 4 Q heads
+    do not divide 3 and the sequence does, so every self-attention (the
+    decoder's, and seamless's non-causal encoder's over 18 frames) takes the
+    JAX package's row split: each model rank attends its 6 query rows
+    (``q_offset`` 0, 6, 12; reduced windows of 16 meet the offset) against
+    all 18 keys, and the output rows are gathered over "model".  Five
+    archs' logits, prefill caches and greedy tokens (prefill through the
+    kernel wrappers: the plain version with its offset), qwen2-7b's
+    gradient leaves and two train steps, against the JAX package and the
+    one-device port at the file's tolerances."""
+    from repro_torch.tree import tree_leaves
+    res, rows = model3_world["res"], model3_world["rows"]
+    for arch in ARCHS5:
+        cfg = _cfg(arch)
+        assert res[("row_split", arch)] == _self_attentions(cfg), arch
+        jax_ref = _jax_case(arch, ROW_S)
+        got, want = res[("logits", arch, ROW_S)], rows[("logits", arch)]
+        assert got.shape == want.shape == jax_ref["logits"].shape == (B, ROW_S, cfg.vocab_size)
+        assert _rel(got, jax_ref["logits"]) <= REL, (arch, "jax", _rel(got, jax_ref["logits"]))
+        assert _rel(got, want) <= REL, (arch, _rel(got, want))
+        _check_leaves(res[("cache", arch, ROW_S)], rows[("cache", arch)], jax_ref["cache"],
+                      (arch, "cache"))
+        assert torch.equal(res[("greedy", arch, ROW_S)], jax_ref["greedy"]), arch
+        assert torch.equal(res[("greedy", arch, ROW_S)], rows[("greedy", arch)]), arch
+    jax_ref = _jax_case("qwen2-7b", ROW_S)
+    leaves = tree_leaves(res[("grads", "qwen2-7b", ROW_S)])
+    assert len(leaves) == len(jax_ref["grads"])
+    for a, b, j in zip(leaves, tree_leaves(rows[("grads", "qwen2-7b")]), jax_ref["grads"]):
+        assert a.shape == b.shape == j.shape
+        assert _rel(a, j) <= GRAD_REL, ("jax", _rel(a, j))
+        assert _rel(a, b) <= GRAD_REL, _rel(a, b)
+    _check_train(res[("train", "qwen2-7b", ROW_S)], rows[("train", "qwen2-7b")],
+                 jax_ref["train"], "qwen2-7b row split")
 
 
 def test_pod2_compressed_reduction(tmp_path):
