@@ -7,7 +7,7 @@ Layout (``repro.core.evals``):
                      + the fidelity ladder (FIDELITIES / fidelity_key)
   scorer.py          Scorer / InlineBackend — the correctness gate on the card,
                      the perfmodel (rung 0: the TPU v5e or the H100 model),
-                     hlo (rung 1: a meta-device trace on the H100 roofline)
+                     hlo (rung 1: the full-shape launch counted per chunk)
                      and measured (rung 2) rungs, the batch path, the paper's
                      baselines and the measured commit floor, in-process
   worker.py          evaluate_genome / EvalSpec — the pure picklable worker fn

@@ -27,9 +27,9 @@ in the archipelago payload) replays identical promotion and correction
 decisions.
 
 The port (a copy of ``repro.core.evals.cascade`` with the imports re-pointed
-and the factory's ladder set by the card): rung 1 is the meta-device trace
-of the genome's block walk on the H100's roofline, rung 2 the kernel timed
-on the card (``scorer.py``), and rung 2 plans from the card's model
+and the factory's ladder set by the card): rung 1 counts the launch rung
+2 times in the kernel's physical walk, rung 2 the kernel timed on the card
+(``scorer.py``), and rung 2 plans from the card's model
 (:func:`rung_spec`).  A cascade whose spec scores on the CPU runs rungs 0-1
 only (:func:`ladder`): the measured rung refuses the CPU, and no modelled
 timer is filed under a device's name.  Rung 2 is a timing, so on the card

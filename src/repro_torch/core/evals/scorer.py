@@ -12,16 +12,24 @@ runs the kernel's plain PyTorch version.  Throughput depends on the rung:
   v5e model, verbatim, so lineages match the JAX package; ``"h100"`` is
   ``perfmodel_h100.estimate``, the model of this port's kernel on the card.
   Their TFLOP/s are a model's output, not a time on the card.
-- ``hlo`` (rung 1): the genome's block walk, ``flash_attention_plain`` with
-  the proxy's clamped blocks, traced on the meta device at the proxy shape
-  (one trace per distinct proxy mask; nothing is allocated or run) and
-  scored on the H100's roofline: the traced FLOPs over the larger of the
-  compute and memory terms plus the card's launch overhead
-  (``launch/trace_analysis.py``, :data:`LAUNCH_S`).  The counterpart of the
-  reference's HLO trace and ``HloAnalysis.summary`` roofline.  It is a pure
-  function of (genome, suite, seed): it takes no card lock and gives the
-  same values on the card and on ``device="cpu"``.  A trace that raises is
-  a fault of the port, never a 0.0 (the reference scores it 0.0).
+- ``hlo`` (rung 1): the launch rung 2 times, counted rather than run.  Per
+  suite config, at its full shape and window with the genome's own blocks,
+  the body a bf16 launch takes at that head_dim is walked in physical CTAs
+  and chunks as the kernel's ``Walk`` visits them
+  (``perfmodel_h100.walk_counts``); each chunk and each CTA's epilogue
+  counts the operations of its plain step (``chunk_step_plain``,
+  ``cta_epilogue_plain``) traced once on the meta device
+  (``launch/trace_analysis.py``).  The modelled time adds the tensor-core
+  and CUDA-core work, and the single stage's chunk loads at
+  ``kv_in_grid=False``; the ring's HBM traffic overlaps them; the card's
+  launch overhead (:data:`LAUNCH_S`) is added.  The score is
+  ``useful_flops(cfg)`` over that time, rung 2's unit.  The counterpart of
+  the reference's HLO trace and ``HloAnalysis.summary`` roofline, which
+  score the proxy launch its rung 2 times; the port's rung 2 times the full
+  shapes, so rung 1 follows it there.  It is a pure function of (genome,
+  suite): it takes no card lock and gives the same values on the card and
+  on ``device="cpu"``.  A count or trace that raises is a fault of the
+  port, never a 0.0 (the reference scores it 0.0).
 - ``measured`` (rung 2): times the kernel on the card at each suite config's
   full shape in bf16 with CUDA events (1 warm-up, median of 3) and reports
   ``useful_flops(cfg)`` / time.  It refuses ``device="cpu"``: there is no
@@ -94,7 +102,7 @@ from repro_torch.core import perfmodel, perfmodel_h100
 from repro_torch.core.perfmodel import BenchConfig, mha_suite, useful_flops
 from repro_torch.core.search_space import KernelGenome
 from repro_torch.device import card_lock, resolve_device
-from repro_torch.launch.trace_analysis import roofline_terms, trace_summary
+from repro_torch.launch.trace_analysis import trace_summary
 
 CORRECTNESS_TOL = 2e-5
 
@@ -233,8 +241,9 @@ class _CorrectnessMemo:
 
 
 _CHECK_MEMO = _CorrectnessMemo()
-# rung 1's trace counts, keyed like the gate: a trace depends only on the
-# clamped kernel kwargs and the proxy shape (no seed, no device)
+# rung 1's trace counts of one chunk step or one CTA epilogue: they depend
+# only on the body, the head_dim, the chunk-level genome axes and the mask
+# (no shape, no seed, no device)
 _TRACE_MEMO = _CorrectnessMemo()
 
 
@@ -285,6 +294,104 @@ def full_shape_inputs(cfg: BenchConfig, device: torch.device, seed: int):
     return tuple(torch.randn(s, generator=gen, device=device,
                              dtype=torch.bfloat16)
                  for s in (shape_q, shape_kv, shape_kv))
+
+
+# ---------------------------------------------------------------------------
+# rung 1: the launch rung 2 times, counted
+# ---------------------------------------------------------------------------
+
+def _chunk_axes(genome: KernelGenome) -> tuple:
+    """(rescale_mode, div_mode, acc_dtype) as a chunk step runs them: the
+    loop body (kv_in_grid=False) always rescales without a branch and
+    divides at the end, as the kernel's ``GRID &&`` guards make it."""
+    ring = genome.kv_in_grid
+    return (genome.rescale_mode if ring else "branchless",
+            genome.div_mode if ring else "deferred", genome.acc_dtype)
+
+
+def _tile_summary(body, D: int, axes: tuple, mask) -> dict:
+    """``trace_summary`` of one chunk step (``mask``: None for an unmasked
+    chunk, else (causal, windowed)) or, with ``mask="epilogue"``, of one
+    CTA's epilogue, on meta tensors at ``body``'s tile and head_dim ``D``.
+    Memoized in ``_TRACE_MEMO``: the counts depend on nothing else."""
+    from repro_torch.kernels.flash_attention import (chunk_step_plain,
+                                                     cta_epilogue_plain)
+    key = (body.name, D, axes, mask)
+    summary = _TRACE_MEMO.get(key)
+    if summary is None:
+        rescale_mode, div_mode, acc_dtype = axes
+
+        def meta(*shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+        acc, l = meta(body.rows, D), meta(body.rows)
+        if mask == "epilogue":
+            summary = trace_summary(cta_epilogue_plain, acc, l, div_mode=div_mode)
+        else:
+            q, k, v = (meta(n, D, dtype=torch.bfloat16)
+                       for n in (body.rows, body.chunk, body.chunk))
+            causal, windowed = mask or (False, False)
+            summary = trace_summary(
+                chunk_step_plain, q, k, v, acc, meta(body.rows), l,
+                meta(body.rows, 1, dtype=torch.int64), 0, scale=D ** -0.5,
+                causal=causal, window=1 if windowed else None,
+                k_limit=body.chunk, masked=mask is not None,
+                rescale_mode=rescale_mode, div_mode=div_mode, acc_dtype=acc_dtype)
+        _TRACE_MEMO.put(key, summary)
+    return summary
+
+
+def rung1_counts(genome: KernelGenome, cfg: BenchConfig) -> dict:
+    """The work of the launch rung 2 times at ``cfg``'s full shape: the
+    body a bf16 launch takes at that head_dim, walked in CTAs of
+    ``body.rows`` rows over chunks of ``body.chunk`` keys as the kernel's
+    ``Walk`` and ``classify`` visit them (``perfmodel_h100.walk_counts``,
+    packed rows under ``gqa_pack``), over every head and batch.  Each chunk
+    and each CTA's epilogue counts the operations of its traced step
+    (:func:`_tile_summary`).  ``bytes`` is the launch's compulsory traffic:
+    q and o once, K and V once per (batch, KV head).  ``stage_bytes`` is
+    the K and V of every visited chunk where the walk has one stage
+    (kv_in_grid=False), else 0."""
+    body = perfmodel_h100.body_for(cfg)
+    D = perfmodel_h100.kernel_head_dim(cfg.head_dim)
+    chunks, masked, _ = perfmodel_h100.walk_counts(genome, cfg, body)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    heads = cfg.batch * (cfg.n_kv_heads if genome.gqa_pack and rep > 1
+                         else cfg.n_heads)
+    n_chunks, n_masked = heads * int(chunks.sum()), heads * int(masked.sum())
+    n_ctas = heads * int(chunks.size)
+    axes = _chunk_axes(genome)
+    free = _tile_summary(body, D, axes, None)
+    hidden = _tile_summary(body, D, axes, (cfg.causal, cfg.window is not None))
+    epilogue = _tile_summary(body, D, axes, "epilogue")
+
+    def total(key):
+        return ((n_chunks - n_masked) * free[key] + n_masked * hidden[key]
+                + n_ctas * epilogue[key])
+    esize = perfmodel_h100.BF16_BYTES
+    return {"dot_flops": total("dot_flops"), "other_ops": total("ew_flops"),
+            "bytes": esize * D * cfg.batch * cfg.seq_len
+            * 2 * (cfg.n_heads + cfg.n_kv_heads),
+            "stage_bytes": 0 if genome.kv_in_grid
+            else n_chunks * 2 * body.chunk * D * esize}
+
+
+def rung1_seconds(counts: dict) -> float:
+    """The modelled time of a :func:`rung1_counts` launch: the tensor-core
+    and CUDA-core work added (a consumer warpgroup issues them in turn);
+    the single stage's chunk loads added too (each chunk is loaded only
+    after the consumers release the stage); the compulsory HBM traffic
+    overlapped under them, as the TMA ring streams it; plus
+    :data:`LAUNCH_S`."""
+    compute = (counts["dot_flops"] / perfmodel_h100.PEAK_FLOPS
+               + counts["other_ops"] / perfmodel_h100.FP32_OPS
+               + counts["stage_bytes"] / perfmodel_h100.HBM_BW)
+    return max(compute, counts["bytes"] / perfmodel_h100.HBM_BW) + LAUNCH_S
+
+
+def rung1_tflops(genome: KernelGenome, cfg: BenchConfig) -> float:
+    """The rung-1 score of one config: ``useful_flops(cfg)`` over the
+    modelled time, in TFLOP/s, the unit rung 2 reports."""
+    return useful_flops(cfg) / rung1_seconds(rung1_counts(genome, cfg)) / 1e12
 
 
 def time_cuda_ms(fn, warmup: int = TIMING_WARMUP, reps: int = TIMING_REPS) -> float:
@@ -592,61 +699,15 @@ class Scorer:
                            True, failure, profiles)
 
     # -- rung 1 -----------------------------------------------------------------
-    def _proxy_trace_groups(self):
-        """Suite configs grouped by the proxy shape they trace at: the proxy
-        varies only in the mask (causal x rescaled window), so a suite's
-        configs need one or two traces per genome."""
-        has_gqa = any(c.n_heads != c.n_kv_heads for c in self.suite)
-        groups: dict = {}
-        for cfg in self.suite:
-            ref_seq = max(c.seq_len for c in self.suite if c.window == cfg.window)
-            w = _proxy_window(cfg.window, ref_seq)
-            groups.setdefault((cfg.causal, w), []).append(cfg)
-        return has_gqa, groups
-
-    def _trace_hlo_summary(self, genome: KernelGenome, causal: bool,
-                           window: Optional[int], has_gqa: bool) -> dict:
-        """The genome's block walk (``flash_attention_plain``, clamped
-        blocks) traced on meta tensors at the proxy shape, fp32, with 2 KV
-        heads when the suite has GQA: ``trace_summary``'s counts.  The
-        wrapper picks its path by device, and meta is neither, so the walk
-        is traced directly.  Memoized per kernel structure and proxy shape
-        in the process-wide bounded LRU ``_TRACE_MEMO``."""
-        from repro_torch.kernels.flash_attention import flash_attention_plain
-        kw = self._clamped_kwargs(genome)
-        key = (tuple(sorted(kw.items())), causal, window, has_gqa)
-        summary = _TRACE_MEMO.get(key)
-        if summary is None:
-            hq, hkv = 4, (2 if has_gqa else 4)
-            q, k, v = (torch.empty((1, h, PROXY_SEQ, 64), device="meta")
-                       for h in (hq, hkv, hkv))
-            summary = trace_summary(flash_attention_plain, q, k, v,
-                                    causal=causal, window=window, **kw)
-            _TRACE_MEMO.put(key, summary)
-        return dict(summary)
-
-    @staticmethod
-    def roofline_tflops(summary: dict) -> float:
-        """The rung-1 score: the traced FLOPs over the binding roofline term
-        (compute, memory or collective, on the H100's constants) plus the
-        card's launch overhead :data:`LAUNCH_S`, in TFLOP/s."""
-        t = max(roofline_terms(summary).values())
-        return summary.get("flops", 0) / (t + LAUNCH_S) / 1e12
-
     def _hlo_values(self, genome: KernelGenome):
-        """Rung 1: one trace per distinct proxy mask; every config sharing it
-        shares the roofline score.  A config the card's model finds
-        infeasible scores 0.0, as at the measured rung.  Returns (values,
-        profiles attached, the card's profiles)."""
-        has_gqa, groups = self._proxy_trace_groups()
+        """Rung 1: every config's launch scored by :func:`rung1_tflops`.  A
+        config the card's model finds infeasible scores 0.0, as at the
+        measured rung.  Returns (values, profiles attached, the card's
+        profiles)."""
         profiles, card = self._card_profiles(genome)
-        by_name: dict[str, float] = {}
-        for (causal, window), cfgs in groups.items():
-            value = self.roofline_tflops(
-                self._trace_hlo_summary(genome, causal, window, has_gqa))
-            for cfg in cfgs:
-                by_name[cfg.name] = value if card[cfg.name].feasible else 0.0
-        return [by_name[c.name] for c in self.suite], profiles, card
+        values = [rung1_tflops(genome, cfg) if card[cfg.name].feasible else 0.0
+                  for cfg in self.suite]
+        return values, profiles, card
 
     def _card_profiles(self, genome: KernelGenome) -> tuple:
         """(the profiles attached for the agent, the card model's profiles

@@ -72,9 +72,9 @@ the CPU.
 
 **The evaluation cascade** (``cascade_eta``): at every epoch barrier each
 island's slate runs successive halving over the fidelity ladder (rung 0 on
-its own backend, rung 1 the meta-device trace on the H100 roofline, rung 2
-the kernel timed on the card), and rung-2 residuals calibrate rung 0's
-promotion ranking.  On the CPU a cascade runs rungs 0-1.  Lineage commits
+its own backend, rung 1 the full-shape launch counted in the kernel's
+walk, rung 2 the kernel timed on the card), and rung-2 residuals calibrate
+rung 0's promotion ranking.  On the CPU a cascade runs rungs 0-1.  Lineage commits
 are scored at rung 0, as in the reference: the cascade only decides where
 card time is bought.
 
@@ -589,7 +589,7 @@ class IslandEvolution:
         successive halving across the fidelity ladder — the whole slate at
         rung 0 (``perfmodel``, through the island's own backend, so it is
         pure cache warming), the top ``1/eta`` at rung 1 (``hlo``: the
-        block walk traced on the meta device, scored on the H100 roofline),
+        full-shape launch counted in the kernel's physical walk),
         the top ``1/eta`` of that at rung 2 (``measured``: the kernel timed
         on the card, planned from the card's model) — and measured-vs-
         predicted residuals feed a per-bottleneck-class EMA correction that

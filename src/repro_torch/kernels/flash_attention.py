@@ -330,6 +330,69 @@ def flash_attention_plain(
     return _unpack(out[:, :, :Sq], seq_mod)
 
 
+VOTE_ROWS = 16                  # rows a warp's branched-rescale vote covers
+
+
+def chunk_step_plain(q, k, v, acc, m, l, qpos, k0: int, *, scale: float,
+                     softcap: float = 0.0, causal: bool = False,
+                     window: Optional[int] = None, k_limit: int,
+                     masked: bool = True, rescale_mode: str = "branchless",
+                     div_mode: str = "deferred", acc_dtype: str = "f32"):
+    """One physical chunk step of a kernel body, for one CTA's rows: q (R,
+    D) and the chunk's k, v (C, D) in bf16, the fp32 state acc (R, D), m and
+    l (R,), qpos (R, 1) the rows' absolute positions, k0 the chunk's first
+    key.  S = Q Kᵀ (bf16 operands, exact in fp32, fp32 accumulation), scale
+    and softcap, the mask on a masked chunk only, the online-softmax update,
+    then O += P V with P rounded to bf16, as ``softmax_chunk`` and the
+    consumer loop of ``csrc/flash_attention.cu`` do it.  ``"eager"``
+    scales P by 1/l and keeps acc normalised; ``"branched"`` rescales a
+    warp's ``VOTE_ROWS`` rows only where one of them needs it; a bf16
+    accumulator is rounded after the add.  The kernel's loop body
+    (kv_in_grid=False) is this step with ``"branchless"`` and
+    ``"deferred"``.  Returns (acc, m, l)."""
+    s = q.float() @ k.float().mT
+    s = softcap * torch.tanh(s * (scale / softcap)) if softcap else s * scale
+    if masked:
+        kpos = k0 + torch.arange(k.shape[0], device=q.device)
+        ok = kpos < k_limit
+        if causal:
+            ok = ok & (kpos <= qpos)
+        if window is not None:
+            ok = ok & (kpos > qpos - window)
+        s = torch.where(ok, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[:, None])
+    l_new = l * alpha + p.sum(dim=-1)
+    if div_mode == "eager":
+        l_safe = l_new.clamp_min(1e-30)
+        fac = l * alpha / l_safe
+        p = p * l_safe.reciprocal()[:, None]
+        need = fac != 1.0
+    else:
+        fac = alpha
+        need = alpha < 1.0
+    if rescale_mode == "branched":
+        run = need.view(-1, VOTE_ROWS).any(dim=-1, keepdim=True)
+        run = run.expand(-1, VOTE_ROWS).reshape(-1, 1)
+        acc = torch.where(run, acc * fac[:, None], acc)
+    else:
+        acc = acc * fac[:, None]
+    acc = acc + p.to(torch.bfloat16).float() @ v.float()
+    if acc_dtype == "bf16":
+        acc = acc.to(torch.bfloat16).float()
+    return acc, m_new, l_new
+
+
+def cta_epilogue_plain(acc, l, *, div_mode: str = "deferred"):
+    """A CTA's epilogue after its last chunk step: the deferred division of
+    acc (R, D) by l (R,), then the bf16 store; ``"eager"`` stores acc as it
+    is."""
+    if div_mode == "deferred":
+        acc = acc / l.clamp_min(1e-30)[:, None]
+    return acc.to(torch.bfloat16)
+
+
 _MODES = dict(rescale_mode=("branchless", "branched"),
               mask_mode=("dense", "block_skip"),
               div_mode=("deferred", "eager"), acc_dtype=("f32", "bf16"))

@@ -1,7 +1,7 @@
 """The port's rung 1 and evaluation cascade against the JAX package's, on the
 CPU: the meta-device trace's counts (a hand-computed chain, the block
 pairs a walk visits, dense dot FLOPs equal to the reference's HLO count),
-rung-1 values exactly the roofline of an independent trace, the batch path,
+rung-1 values exactly those of an independently counted launch, the batch path,
 fidelity keys that never alias (also under concurrent submit and map
 through the thread, process and service backends), ``CascadeBackend``'s
 promotion and calibration (equal to the reference's on identical rung
@@ -33,11 +33,15 @@ from repro_torch.core.evals import (DEFAULT_ETA, FIDELITIES, HLO, MEASURED,
                                     ServiceBackend, fidelity_key, make_backend,
                                     set_batch_scoring)
 from repro_torch.core.evals.cascade import ladder, rung_spec
-from repro_torch.core.evals.scorer import PROXY_SEQ
+from repro_torch.core.evals.scorer import LAUNCH_S, PROXY_SEQ
+from repro_torch.core.perfmodel import useful_flops
+from repro_torch.core.perfmodel_h100 import FP32_OPS, HBM_BW, PEAK_FLOPS
 from repro_torch.core.evals.service_worker import EvalServiceWorker
 from repro_torch.core.search_space import full_space
-from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.launch.trace_analysis import roofline_terms, trace_summary
+from repro_torch.kernels.flash_attention import (chunk_step_plain,
+                                                 cta_epilogue_plain,
+                                                 flash_attention_plain)
+from repro_torch.launch.trace_analysis import trace_summary
 
 FAST = [("c4k", 8, 16, 16, 4096, True), ("n4k", 8, 16, 16, 4096, False)]
 STEPS = 4
@@ -66,13 +70,6 @@ def _slate(n, pkg=T):
 
 def _meta(*shape):
     return torch.empty(shape, device="meta")
-
-
-def _clamped(genome) -> dict:
-    kw = genome.kernel_kwargs()
-    kw["block_q"] = max(16, min(kw["block_q"], 2048) // 16)
-    kw["block_k"] = max(16, min(kw["block_k"], 2048) // 16)
-    return kw
 
 
 # -- the trace -------------------------------------------------------------------
@@ -140,18 +137,42 @@ def test_dense_dot_flops_equal_the_reference_hlo_count(kv_in_grid):
 
 
 def test_rung1_agrees_with_trace_summary_totals():
-    """The hlo rung's value is exactly the roofline formula applied to an
-    independently produced trace summary of the same proxy walk."""
-    suite = [_suite()[0]]                            # one causal config
-    g = T.seed_genome()
-    sv = Scorer(suite=suite, check_correctness=False, fidelity=HLO,
-                device="cpu")(g)
-    q = _meta(1, 4, PROXY_SEQ, 64)
-    summary = trace_summary(flash_attention_plain, q, q, q, causal=True,
-                            window=None, **_clamped(g))
-    assert summary["flops"] > 0 and summary["bytes_accessed"] > 0
-    assert sv.values[0] == Scorer.roofline_tflops(summary)
-    assert max(roofline_terms(summary).values()) > 0
+    """The hlo rung's value is exactly ``useful_flops`` over the rung-1 time
+    of an independently counted launch: at a causal config (B 8, 16 heads, S
+    4096, D 128: the wgmma body, 32 CTAs of 128 rows and 32 chunks of 128
+    keys a head), the seed's single-stage walk visits every chunk and masks
+    each; the ring with block_skip visits chunks 0..r in CTA r and masks the
+    diagonal one.  Per chunk and per CTA epilogue, independent traces."""
+    cfg = _suite()[0]
+    heads, n = cfg.batch * cfg.n_heads, cfg.seq_len // 128
+    q, kv, acc, row = (torch.empty(shape, dtype=dt, device="meta") for shape, dt in (
+        ((128, 128), torch.bfloat16), ((128, 128), torch.bfloat16),
+        ((128, 128), torch.float32), ((128,), torch.float32)))
+    pos = torch.empty((128, 1), dtype=torch.int64, device="meta")
+    compulsory = 2 * 128 * cfg.batch * cfg.seq_len * 2 * (cfg.n_heads + cfg.n_kv_heads)
+    seed = T.seed_genome()
+    for g, visited, hidden, modes, stage in (
+            (seed, heads * n * n, heads * n * n,
+             dict(rescale_mode="branchless", div_mode="deferred"), True),
+            (seed.with_(kv_in_grid=True, mask_mode="block_skip"),
+             heads * n * (n + 1) // 2, heads * n,
+             dict(rescale_mode=seed.rescale_mode, div_mode=seed.div_mode), False)):
+        step = {masked: trace_summary(
+            chunk_step_plain, q, kv, kv, acc, row, row, pos, 0, scale=0.1,
+            causal=True, k_limit=128, masked=masked, **modes) for masked in (False, True)}
+        epi = trace_summary(cta_epilogue_plain, acc, row, div_mode=modes["div_mode"])
+        assert step[True]["dot_flops"] == step[False]["dot_flops"] == 4 * 128 ** 3
+        assert step[True]["ew_flops"] > step[False]["ew_flops"] > 0
+
+        def total(key):
+            return ((visited - hidden) * step[False][key] + hidden * step[True][key]
+                    + heads * n * epi[key])
+        compute = (total("dot_flops") / PEAK_FLOPS + total("ew_flops") / FP32_OPS
+                   + (visited * 2 * 128 * 128 * 2 if stage else 0) / HBM_BW)
+        t = max(compute, compulsory / HBM_BW) + LAUNCH_S
+        sv = Scorer(suite=[cfg], check_correctness=False, fidelity=HLO,
+                    device="cpu")(g)
+        assert sv.values[0] == useful_flops(cfg) / t / 1e12
 
 
 def test_rung1_score_batch_equals_the_scalar_path():

@@ -57,12 +57,13 @@ def test_measured_on_cpu_raises():
 
 def test_hlo_rung_scores_on_cpu_through_the_trace():
     """Rung 1 scores on the CPU (it was refused before the cascade): one
-    roofline value per proxy mask, keyed apart from rung 0, and an
+    value per config at its full shape, so two causal configs of one mask
+    but different lengths score apart; keyed apart from rung 0, and an
     infeasible config (the card's model) at 0.0."""
     suite = mha_suite()[:2]
     sv = Scorer(suite=suite, fidelity=HLO, device="cpu")(seed_genome())
     assert sv.correct and all(v > 0 for v in sv.values)
-    assert len(set(sv.values)) == len({c.causal for c in suite})
+    assert len(set(sv.values)) == len(suite) and {c.causal for c in suite} == {True}
     scorer = Scorer(suite=suite, fidelity=HLO, device="cpu")
     assert key_fidelity(scorer.score_key(seed_genome())) == HLO
     wide = Scorer(suite=[BenchConfig("d256", 1, 4, 4, 4096, head_dim=256)],
