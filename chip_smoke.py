@@ -224,7 +224,9 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  rank's local shard), prefill and step ms of both paths, and
                  the decode steps' products on the weights' shards
                  (spmd.counts: every product through the route, no
-                 collective on one rank);
+                 collective on one rank) and no Mamba block on the
+                 own-columns route (ssm.counts: one model rank multiplies
+                 the whole in_proj as it is);
                  (c) checkpoint_restart: the train phase's ResilientRunner
                  (reduced TRAIN_ARCH, a checkpoint every 2 steps, one fault
                  at TRAIN_RESTART_FAULT) on the mesh, its state DTensors,
@@ -2636,7 +2638,7 @@ def _mesh_serve(faults: list, mesh) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd as sm
     from repro_torch.launch.serve import BatchedServer, Request
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, ssm
 
     cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=SERVE_LAYERS)
     torch.cuda.empty_cache()
@@ -2665,10 +2667,12 @@ def _mesh_serve(faults: list, mesh) -> dict:
             torch.cuda.synchronize()
             reset_counts(*kernels.values())
             spmd.counts.update(products=0, collectives=0)
+            ssm.counts["own_columns"] = 0
             with ops.checking(lambda name, st: checks.setdefault(name, []).append(st)):
                 server.run_group(group)
             torch.cuda.synchronize()
             route = dict(spmd.counts)
+            own = ssm.counts["own_columns"]
         finally:
             ctx.set_mesh(None)
         launches = {name: fn.launches for name, fn in kernels.items()}
@@ -2680,7 +2684,7 @@ def _mesh_serve(faults: list, mesh) -> dict:
                       "decode_by_body": dict(fd.flash_decode.launches_by_body),
                       "prefill_ms": t["prefill_ms"], "decode_ms_median": dec[len(dec) // 2],
                       "decode_steps": len(dec), "prompt_len": t["prompt_len"],
-                      "stationary_route": route}
+                      "stationary_route": route, "own_columns": own}
         runs[path]["err"] = _checked(checks, faults, phase="mesh", part="serve", path=path)
         emit({"phase": "mesh", "part": "serve", "path": path,
               **{k: v for k, v in runs[path].items() if k != "tokens"},
@@ -2693,6 +2697,10 @@ def _mesh_serve(faults: list, mesh) -> dict:
         if route != {"products": want_products, "collectives": 0}:
             faults.append(f"serve {path}: the stationary route took {route}, "
                           f"want {want_products} products and no collective")
+        # on one model rank its columns of in_proj are every column: the
+        # prefill multiplies the whole weight as it is
+        if own:
+            faults.append(f"serve {path}: {own} Mamba blocks took the own-columns route")
         if runs[path]["by_body"]["wgmma"] != launches["flash_attention"] or \
                 runs[path]["ssd_by_body"]["chunked"] != launches["ssd_chunked"] or \
                 runs[path]["decode_by_body"]["wgmma"] != launches["flash_decode"]:

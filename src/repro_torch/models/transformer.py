@@ -133,7 +133,8 @@ def _apply_block(x, p, cfg: ArchConfig, blk: Block, *, causal, compute_dtype,
             else:
                 x = out
     elif blk.kind == "mamba":
-        x, mcache = ssm_mod.mamba_apply(x, p["mamba"], cfg, compute_dtype, impl=impl)
+        x, mcache = ssm_mod.mamba_apply(x, p["mamba"], cfg, compute_dtype, impl=impl,
+                                         collect=collect)
         if collect:
             cache["mamba"] = mcache
     if blk.mlp == "moe":

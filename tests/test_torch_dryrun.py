@@ -415,6 +415,64 @@ def test_row_split_divides_the_attention_and_q_o_products():
     assert sorted(got["heads"]["sites"].values()) == count(S)
 
 
+_OWN_COLUMNS = """
+import dataclasses, json
+from repro_torch.configs.base import SHAPES_BY_NAME
+from repro_torch.configs.registry import get_arch
+from repro_torch.launch import dryrun
+from repro_torch.models import ssm
+mesh = dryrun.production_mesh(False)
+cfg, cell = dataclasses.replace(get_arch("mamba2-780m"), n_layers=2), SHAPES_BY_NAME["prefill_32k"]
+out = {}
+for tag in ("own", "whole"):
+    if tag == "whole":                       # every column on every model rank
+        ssm._own_route = lambda cfg: False
+    ssm.counts["own_columns"] = 0
+    c = dryrun.trace_cell(cfg, cell, mesh).counter
+    out[tag] = {"sites": {s: f for s, f in c.dot_sites.items() if "models/ssm.py" in s},
+                "own_columns": ssm.counts["own_columns"]}
+print(json.dumps(out))
+"""
+
+
+def test_own_columns_divide_the_mamba_input_projection():
+    """mamba2-780m ``prefill_32k`` at full width, 2 of 48 layers, on the
+    fake 256-rank mesh: 32 rows over 16 data ranks, 2 a rank, S = 32768.
+    Its 48 SSD heads split 3 a model rank, so each Mamba block projects
+    only this rank's columns of ``in_proj``: z's and x's 192 channels, B
+    and C whole (2 x 128) and dt's 3 heads, 643 of 6448.  The dot FLOPs of
+    ``models/ssm.py``'s projection site equal that hand count, and the same
+    trace with every column projected (``ssm._own_route`` off) counts the
+    whole 6448; ``out_proj``'s site reads this rank's 192 channels in both,
+    and the scan's site the same in both."""
+    run = subprocess.run([sys.executable, "-c", _OWN_COLUMNS], env=_env(), cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    cfg = get_arch("mamba2-780m")
+    L, Br, S, m, D = 2, 2, 32768, 16, cfg.d_model
+    s = cfg.ssm
+    d_in = s.expand * D
+    H = d_in // s.head_dim
+    gn, n = s.n_groups * s.d_state, H // m
+    own, whole = 2 * n * s.head_dim + 2 * gn + n, 2 * d_in + 2 * gn + H
+    assert (own, whole) == (643, 6448)
+
+    def by_function(sites):
+        found = {}
+        for site, flops in sites.items():
+            name = site.split()[1]
+            found[name] = found.get(name, 0) + flops
+        return found
+    a, b = by_function(got["own"]["sites"]), by_function(got["whole"]["sites"])
+    assert set(a) == set(b) == {"_project", "_out", "mamba_apply"}, (a, b)
+    assert got["own"]["own_columns"] == L and got["whole"]["own_columns"] == 0
+    assert a["_project"] == L * 2.0 * Br * S * D * own
+    assert b["_project"] == L * 2.0 * Br * S * D * whole
+    assert a["_out"] == b["_out"] == L * 2.0 * Br * S * n * s.head_dim * D
+    assert a["mamba_apply"] == b["mamba_apply"] > 0
+
+
 # ---------------------------------------------------------------------------
 # the CLI on the production meshes
 # ---------------------------------------------------------------------------

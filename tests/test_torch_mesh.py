@@ -210,20 +210,25 @@ def _moe(cfg, p: dict, x: np.ndarray, aux: bool = False):
 
 
 def _world_models(rank, model, moe_cases, weights, row_s=None):
-    """Every check at S; with ``row_s``, also the five archs' logits,
-    prefill caches and greedy tokens and qwen2-7b's gradients and train
-    step at ``row_s``, with the self-attentions that took the row split
-    counted per call (``attention.counts``)."""
+    """Every check at S, with the Mamba blocks of each arch's logits call
+    that projected only this rank's columns counted (``ssm.counts``); with
+    ``row_s``, also the five archs' logits, prefill caches and greedy tokens
+    and qwen2-7b's gradients and train step at ``row_s``, with the
+    self-attentions that took the row split counted per call
+    (``attention.counts``)."""
     from repro_torch.distributed import context as ctx
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import attention
+    from repro_torch.models import attention, ssm
     mesh = make_host_mesh(model=model, device="cpu")
     ctx.set_mesh(mesh)
     out = {"mesh": {n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)}}
     attention.counts["row_split"] = 0
     for arch in ARCHS5:
+        ssm.counts["own_columns"] = 0
         out[("logits", arch)] = _logits(arch, weights[arch])
-        out[("greedy", arch)] = _greedy(arch, weights[arch])
+        out[("own_columns", arch)] = ssm.counts["own_columns"]
+        out[("cache", arch)] = []
+        out[("greedy", arch)] = _greedy(arch, weights[arch], cache_out=out[("cache", arch)])
     for arch in TRAIN_ARCHS:
         out[("grads", arch)] = _grads(arch, weights[arch])
         out[("train", arch)] = _train(arch, weights[arch])
@@ -515,6 +520,8 @@ def _check_models(res, ref):
         assert got.shape == want.shape == jax_ref["logits"].shape
         assert _rel(got, jax_ref["logits"]) <= REL, (arch, "jax", _rel(got, jax_ref["logits"]))
         assert _rel(got, want) <= REL, (arch, _rel(got, want))
+        _check_leaves(res[("cache", arch)], ref[("cache", arch)], jax_ref["cache"],
+                      (arch, "cache"))
         assert torch.equal(res[("greedy", arch)], jax_ref["greedy"]), arch
         assert torch.equal(res[("greedy", arch)], ref[("greedy", arch)]), arch
     for arch in TRAIN_ARCHS:
@@ -529,9 +536,11 @@ def _check_models(res, ref):
 
 
 def test_mesh_data2_model2_matches_one_device(tmp_path):
-    """(data=2, model=2): logits of five reduced architectures, greedy
-    tokens, gradients and two train steps against the JAX package and the
-    one-device port; per-shard MoE dispatch (256 tokens a shard, capacity
+    """(data=2, model=2): logits of five reduced architectures, prefill
+    caches, greedy tokens, gradients and two train steps against the JAX
+    package and the one-device port, jamba's 14 Mamba blocks a forward
+    each projecting only its model rank's columns of ``in_proj`` (4 of 8
+    SSD heads; ``ssm.counts``); per-shard MoE dispatch (256 tokens a shard, capacity
     factor 1.0 so experts overflow) against the JAX package's
     ``_moe_apply_global(groups=2)``, with the experts EP over model."""
     import jax.numpy as jnp
@@ -544,6 +553,8 @@ def test_mesh_data2_model2_matches_one_device(tmp_path):
         _jax_case(arch)
     res = finish()
     assert res["mesh"] == {"data": 2, "model": 2}
+    for arch in ARCHS5:                 # jamba's 8 SSD heads, 4 a model rank
+        assert res[("own_columns", arch)] == _mamba_blocks(_cfg(arch)), arch
     _check_models(res, ref)
     want = np.asarray(jax_grouped(jnp.asarray(x), jp, jcfg, jnp.float32, groups=2))
     got = res[("moe", "grouped")].numpy()
@@ -588,6 +599,8 @@ def test_mesh_model3_head_fallback_and_pad_vocab(model3_world):
     res, ref = model3_world["res"], model3_world["ref"]
     jcfg, jp, x, moe_kw = model3_world["moe"]
     assert res["row_split_at_S"] == 0
+    for arch in ARCHS5:                 # jamba's 8 SSD heads do not divide 3
+        assert res[("own_columns", arch)] == 0, arch
     _check_models(res, ref)
     want, aux = _jax_moe(jcfg, jp, x)
     one, one_aux = _moe(_moe_cfg("mixtral-8x22b", **moe_kw), jp, x, aux=True)
@@ -596,6 +609,11 @@ def test_mesh_model3_head_fallback_and_pad_vocab(model3_world):
     assert _rel(got, want) <= REL and abs(float(got_aux) - aux) <= REL * aux
     assert abs(float(got_aux) - float(one_aux)) <= REL * aux
     assert len(tree_leaves(res[("train", "qwen2-7b")]["params"])) > 0
+
+
+def _mamba_blocks(cfg) -> int:
+    """The Mamba blocks of one ``lm_logits`` call."""
+    return cfg.n_periods * sum(1 for b in cfg.pattern if b.kind == "mamba")
 
 
 def _self_attentions(cfg) -> int:
