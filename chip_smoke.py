@@ -39,7 +39,16 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  LONG_VALID read o = 0, M = -1e30, l = 0, no NaN, on both
                  bodies; the whole call and one shard's timed on the card's
                  own time beside the bytes bound and SDPA over the masked
-                 cache
+                 cache; rank shape: what each model rank of qwen2-7b's
+                 decode_32k runs (28 Q heads over 4 KV heads, rep 7, on
+                 (data=16, model=16)), q (8, 28, 128) against a (8, 4,
+                 RANK_LEN, 128) bf16 cache, every key live: the whole
+                 launch, and the partial mode over RANK_SHARDS length
+                 shards (each against the plain version, merged as
+                 spmd.merge_over merges the gathered partials, against the
+                 plain version over the whole cache), again with the last
+                 shard empty; the whole launch and one shard's timed on
+                 the card's own time beside their bounds and SDPA
   ssd_kernel     ssd_chunked vs its plain version: fp32 on the serial body
                  over (P, N), chunk, ragged L and H; bf16 on the chunked body
                  over the same grid and at the served Jamba shape under its
@@ -224,9 +233,11 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  rank's local shard), prefill and step ms of both paths, and
                  the decode steps' products on the weights' shards
                  (spmd.counts: every product through the route, no
-                 collective on one rank) and no Mamba block on the
+                 collective on one rank), no Mamba block on the
                  own-columns route (ssm.counts: one model rank multiplies
-                 the whole in_proj as it is);
+                 the whole in_proj as it is) and no decode attention whose
+                 cache length splits over "model" (attention.counts: one
+                 model rank holds the whole length);
                  (c) checkpoint_restart: the train phase's ResilientRunner
                  (reduced TRAIN_ARCH, a checkpoint every 2 steps, one fault
                  at TRAIN_RESTART_FAULT) on the mesh, its state DTensors,
@@ -337,6 +348,10 @@ TEACHER_STEPS = 8                   # decode steps of the teacher-forced reading
 # length, the live keys, the equal length shards the partial mode is merged
 # over in decode_kernel, and long_decode's greedy steps
 LONG_LEN, LONG_VALID, LONG_SHARDS, LONG_STEPS = 524288, 400000, (2, 4, 16), 8
+# one model rank of qwen2-7b's decode_32k on (data=16, model=16): its 8 rows,
+# all 28 Q heads over 4 KV heads, the cache's 32 768 slots split over the 16
+# model ranks
+RANK_ROWS, RANK_LEN, RANK_SHARDS = 8, 32768, 16
 # where the served tokens of flash_decode's two bodies part: a tie is two
 # router probabilities, or a token's logit and the best one, within 4 bf16
 # ulps in both runs (two roundings of each of two values), among the top 4
@@ -1086,10 +1101,52 @@ def phase_decode_kernel(state):
     if worst_plain > TOL_F32 or worst_ref > TOL_F32:
         faults.append(f"fp32: {worst_plain} vs plain, {worst_ref} vs reference")
     state["decode_shards"] = _decode_shards(faults)
+    state["decode_rank_shape"] = _decode_rank_shape(faults)
     if faults:
         raise AssertionError("flash_decode: " + "; ".join(faults))
     state["decode_err"] = max(worst_plain, worst_bf16)
     state["decode_splits"] = auto
+
+
+def _partial_shards(q, k, v, vl, n: int, faults: list, what: str, body=None) -> tuple:
+    """flash_decode's partial mode over ``n`` equal length shards of the
+    cache (k, v), as the ranks of a length-sharded cache run it: each
+    shard's (o, M, l) held against the plain version's on it, a shard with
+    no live key in any row held to o = 0, M = -1e30, l = 0 exactly.
+    Returns the shards merged in shard order (``merge_partials``, as
+    ``spmd.merge_over`` merges the partials it gathered), the empty
+    shards and the worst statistics' errors."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+
+    Lr = k.shape[2] // n
+    parts, empty, stat_worst = [], [], {"stat_m_err": 0.0, "stat_l_rel": 0.0}
+    for r in range(n):
+        ks, vs = (t[:, :, r * Lr:(r + 1) * Lr].contiguous() for t in (k, v))
+        vr = (vl - r * Lr).clamp(0, Lr).to(torch.int32)
+        part = fd.flash_decode(q, ks, vs, vr, body=body, partial=True)
+        sp = fd.kernel_splits(q, ks)
+        st = fd.partial_agreement(part, fd.flash_decode_plain(q, ks, vs, vr, splits=sp,
+                                                              partial=True),
+                                  fd.flash_decode_plain(q, ks, vs.abs(), vr, splits=sp,
+                                                        partial=True)[0])
+        for key in stat_worst:
+            stat_worst[key] = max(stat_worst[key], st[key])
+        if not fd.bf16_agrees(st):
+            faults.append(f"{what} partial, shard {r} of {n}: {st}")
+        if int(vr.max()) == 0:
+            empty.append(r)
+            o, M, l = part
+            if not (torch.equal(o, torch.zeros_like(o)) and bool((M == -1e30).all())
+                    and bool((l == 0).all())):
+                faults.append(f"{what}: empty shard {r} of {n} reads |o| "
+                              f"{float(o.abs().max())}, M {M.flatten()[:2].tolist()}, "
+                              f"l {float(l.abs().max())}")
+        parts.append(part)
+        del ks, vs
+    merged = fd.merge_partials(*(torch.stack(t) for t in zip(*parts)))
+    return merged, empty, stat_worst
 
 
 def _decode_shards(faults: list) -> dict:
@@ -1130,32 +1187,10 @@ def _decode_shards(faults: list) -> dict:
         faults.append(f"long context, whole cache: {whole}")
     worst, merged_stats, empties, calls = whole["max_abs_err"], {}, {}, {"wgmma": 1, "simt": 0}
     for n, body in [(n, "wgmma") for n in LONG_SHARDS] + [(LONG_SHARDS[-1], "simt")]:
-        Lr, parts, stat_worst, empty = L // n, [], {"stat_m_err": 0.0, "stat_l_rel": 0.0}, []
-        for r in range(n):
-            ks, vs = (t[:, :, r * Lr:(r + 1) * Lr].contiguous() for t in (k, v))
-            vr = (vl - r * Lr).clamp(0, Lr).to(torch.int32)
-            part = fd.flash_decode(q, ks, vs, vr, body=body, partial=True)
-            calls[body] += 1
-            sp = fd.kernel_splits(q, ks)
-            st = fd.partial_agreement(part, fd.flash_decode_plain(q, ks, vs, vr, splits=sp,
-                                                                  partial=True),
-                                      fd.flash_decode_plain(q, ks, vs.abs(), vr, splits=sp,
-                                                            partial=True)[0])
-            for key in stat_worst:
-                stat_worst[key] = max(stat_worst[key], st[key])
-            if not fd.bf16_agrees(st):
-                faults.append(f"long context, {body} partial, shard {r} of {n}: {st}")
-            if int(vr) == 0:
-                empty.append(r)
-                o, M, l = part
-                if not (torch.equal(o, torch.zeros_like(o)) and bool((M == -1e30).all())
-                        and bool((l == 0).all())):
-                    faults.append(f"long context, {body}: empty shard {r} of {n} reads "
-                                  f"|o| {float(o.abs().max())}, M {M.flatten()[:2].tolist()}, "
-                                  f"l {float(l.abs().max())}")
-            parts.append(part)
-            del ks, vs
-        merged = fd.merge_partials(*(torch.stack(t) for t in zip(*parts)))
+        Lr = L // n
+        merged, empty, stat_worst = _partial_shards(q, k, v, vl, n, faults,
+                                                    f"long context, {body}", body)
+        calls[body] += n
         st = fd.bf16_agreement(merged.to(torch.bfloat16), plain, mag)
         emit({"phase": "decode_kernel", "check": "long_context_shards_merged", "body": body,
               "shards": n, "keys_a_shard": Lr, "empty_shards": empty,
@@ -1199,6 +1234,96 @@ def _decode_shards(faults: list) -> dict:
     emit({"phase": "decode_kernel", "check": "long_context_times", "gate": False,
           "nvidia_smi": nvidia_smi(), **row})
     del q, k, v, ks, vs, plain, mag
+    torch.cuda.empty_cache()
+    return row
+
+
+def _decode_rank_shape(faults: list) -> dict:
+    """flash_decode at the shape each model rank of qwen2-7b's decode_32k
+    runs on (data=16, model=16): q (RANK_ROWS, 28, 128) against a
+    (RANK_ROWS, 4, RANK_LEN, 128) bf16 cache, every key live (the cell
+    decodes at position RANK_LEN - 1), rep 7.  The whole launch (each rank
+    before the cache length split over "model"), then the partial mode
+    over RANK_SHARDS length shards (each rank's since), each shard's (o,
+    M, l) against the plain version's, the shards merged as
+    ``spmd.merge_over`` merges the partials it gathered over "model"
+    (``merge_partials`` in rank order) and held against the plain version
+    over the whole cache under the bf16 bounds; then the same with
+    valid_len RANK_LEN - RANK_LEN / RANK_SHARDS, where the last shard is
+    empty (o = 0, M = -1e30, l = 0).  Times on the card's own time and
+    host-inclusive, L2 flushed: the whole launch and one shard's partial
+    launch, each beside its bound, the plain version's whole walk (one
+    reading) and SDPA over the whole cache (enable_gqa, no mask)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.evals.scorer import time_cuda_ms
+    from repro_torch.kernels import flash_decode as fd
+
+    B, Hq, Hkv, D, L, n = RANK_ROWS, 28, 4, 128, RANK_LEN, RANK_SHARDS
+    Lr = L // n
+    g = torch.Generator(device="cuda").manual_seed(14)
+    q = torch.randn((B, Hq, D), generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((B, Hkv, L, D), generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    shape = f"q ({B}, {Hq}, {D}), cache ({B}, {Hkv}, {L}, {D}) bf16, rep {Hq // Hkv}"
+    before = dict(fd.flash_decode.launches_by_body)
+    calls, worst, out_row = 0, 0.0, {}
+    for valid in (L, L - Lr):
+        vl = torch.full((B,), valid, dtype=torch.int32, device="cuda")
+        splits = fd.kernel_splits(q, k)
+        plain = fd.flash_decode_plain(q, k, v, vl, splits=splits)
+        mag = fd.flash_decode_plain(q, k, v.abs(), vl, splits=splits)
+        whole = fd.bf16_agreement(fd.flash_decode(q, k, v, vl), plain, mag)
+        calls += 1
+        if not fd.bf16_agrees(whole):
+            faults.append(f"rank shape, valid_len {valid}, whole launch: {whole}")
+        merged, empty, stat_worst = _partial_shards(q, k, v, vl, n, faults,
+                                                    f"rank shape, valid_len {valid}")
+        calls += n
+        st = fd.bf16_agreement(merged.to(torch.bfloat16), plain, mag)
+        emit({"phase": "decode_kernel", "check": "rank_shape", "shape": shape,
+              "valid_len": valid, "splits": splits, "whole": whole, "shards": n,
+              "keys_a_shard": Lr, "empty_shards": empty, "shard_stats_worst": stat_worst,
+              "stat_rel_bound": fd.STAT_REL, "merged": st})
+        if not fd.bf16_agrees(st):
+            faults.append(f"rank shape, valid_len {valid}, {n} shards merged: {st}")
+        if (valid < L) != (empty == [n - 1]):
+            faults.append(f"rank shape, valid_len {valid}: empty shards {empty}")
+        worst = max(worst, whole["max_abs_err"], st["max_abs_err"])
+        out_row[f"merged_rel_rms_valid_{valid}"] = st["rel_rms"]
+        del plain, mag
+    took = {b: fd.flash_decode.launches_by_body[b] - before[b] for b in fd.BODIES}
+    if took != {"wgmma": calls, "simt": 0}:
+        faults.append(f"rank shape: launches by body {took}, {calls} calls on wgmma")
+
+    vl = torch.full((B,), L, dtype=torch.int32, device="cuda")
+    ks, vs = (t[:, :, :Lr].contiguous() for t in (k, v))
+    vr = torch.full((B,), Lr, dtype=torch.int32, device="cuda")
+    b_ms, b_by = decode_bound(B, Hq, Hkv, D, [L] * B)
+    s_ms, s_by = decode_bound(B, Hq, Hkv, D, [Lr] * B)
+    row = {"shape": shape, "splits": fd.kernel_splits(q, k),
+           "ms": time_cold_ms(lambda: fd.flash_decode(q, k, v, vl)),
+           "device_ms": time_cold_ms(lambda: fd.flash_decode(q, k, v, vl), cushion=True),
+           "shard_keys": Lr, "shard_splits": fd.kernel_splits(q, ks),
+           "shard_ms": time_cold_ms(lambda: fd.flash_decode(q, ks, vs, vr, partial=True)),
+           "shard_device_ms": time_cold_ms(lambda: fd.flash_decode(q, ks, vs, vr, partial=True),
+                                           cushion=True),
+           "plain_ms": time_cuda_ms(lambda: fd.flash_decode_plain(q, k, v, vl), warmup=1,
+                                    reps=1),
+           "bound_ms": b_ms, "bound_by": b_by, "shard_bound_ms": s_ms, "shard_bound_by": s_by,
+           "library_ms": None, "library": "sdpa over the whole cache, enable_gqa, L2 flushed",
+           "max_abs_err": worst, **out_row}
+    try:
+        sdpa = lambda: F.scaled_dot_product_attention(q[:, :, None], k, v,  # noqa: E731
+                                                      enable_gqa=True)
+        row.update(library_ms=time_cold_ms(sdpa), library_device_ms=time_cold_ms(
+            sdpa, cushion=True))
+    except (RuntimeError, TypeError) as e:            # recorded, not hidden
+        row["library_error"] = str(e)[:160]
+    emit({"phase": "decode_kernel", "check": "rank_shape_times", "gate": False,
+          "nvidia_smi": nvidia_smi(), **row})
+    del q, k, v, ks, vs
     torch.cuda.empty_cache()
     return row
 
@@ -2638,7 +2763,7 @@ def _mesh_serve(faults: list, mesh) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd as sm
     from repro_torch.launch.serve import BatchedServer, Request
-    from repro_torch.models import init_params, ssm
+    from repro_torch.models import attention, init_params, ssm
 
     cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=SERVE_LAYERS)
     torch.cuda.empty_cache()
@@ -2668,11 +2793,13 @@ def _mesh_serve(faults: list, mesh) -> dict:
             reset_counts(*kernels.values())
             spmd.counts.update(products=0, collectives=0)
             ssm.counts["own_columns"] = 0
+            attention.counts["length_model"] = 0
             with ops.checking(lambda name, st: checks.setdefault(name, []).append(st)):
                 server.run_group(group)
             torch.cuda.synchronize()
             route = dict(spmd.counts)
             own = ssm.counts["own_columns"]
+            length_model = attention.counts["length_model"]
         finally:
             ctx.set_mesh(None)
         launches = {name: fn.launches for name, fn in kernels.items()}
@@ -2684,7 +2811,8 @@ def _mesh_serve(faults: list, mesh) -> dict:
                       "decode_by_body": dict(fd.flash_decode.launches_by_body),
                       "prefill_ms": t["prefill_ms"], "decode_ms_median": dec[len(dec) // 2],
                       "decode_steps": len(dec), "prompt_len": t["prompt_len"],
-                      "stationary_route": route, "own_columns": own}
+                      "stationary_route": route, "own_columns": own,
+                      "length_model": length_model}
         runs[path]["err"] = _checked(checks, faults, phase="mesh", part="serve", path=path)
         emit({"phase": "mesh", "part": "serve", "path": path,
               **{k: v for k, v in runs[path].items() if k != "tokens"},
@@ -2701,6 +2829,10 @@ def _mesh_serve(faults: list, mesh) -> dict:
         # prefill multiplies the whole weight as it is
         if own:
             faults.append(f"serve {path}: {own} Mamba blocks took the own-columns route")
+        # on one model rank the cache length stays whole
+        if length_model:
+            faults.append(f"serve {path}: {length_model} decode attentions split the cache "
+                          f"length over model")
         if runs[path]["by_body"]["wgmma"] != launches["flash_attention"] or \
                 runs[path]["ssd_by_body"]["chunked"] != launches["ssd_chunked"] or \
                 runs[path]["decode_by_body"]["wgmma"] != launches["flash_decode"]:
@@ -4723,6 +4855,7 @@ def phase_kernels(state):
                                            .get("decode_by_body")},
                          head_dims=state.get("head_dim_times", {}).get("flash_decode"),
                          long_context=state.get("decode_shards"),
+                         rank_shape=state.get("decode_rank_shape"),
                          long_decode={k: long_decode.get(k) for k in (
                              "ms_per_step_median", "tokens_per_s", "peak_gib",
                              "launches_checked", "max_abs_err")} if long_decode else None,

@@ -73,6 +73,20 @@ def length_spec(batch: int, length: int):
     return ba if length % math.prod(axis_size(a) for a in ba) == 0 else None
 
 
+def length_axes(batch: int, length: int, heads_whole: bool):
+    """The axes a self-attention's decode cache of ``length`` keys splits its
+    length over: the batch axes where ``length_spec`` puts it there (a
+    batch of 1); else "model" where every model rank holds all the heads
+    (``heads_whole``: the head fallback) and "model", of more than one
+    rank, divides the length; else None.  The reference puts the batch over
+    "model" and the length over the data axes there; the port keeps the
+    batch over the data axes, and a rank holds and reads the same share."""
+    ba = length_spec(batch, length)
+    if ba is not None or not heads_whole or axis_size("model") == 1:
+        return ba
+    return div_axis(length)
+
+
 def local(x) -> torch.Tensor:
     """This rank's shard of a DTensor as it is placed; a plain tensor as it
     is."""

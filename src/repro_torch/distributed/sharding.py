@@ -23,8 +23,9 @@ batch takes ``spmd.local_rows`` (the batch rule's layout), and the executed
 cache ``models.transformer._cache_specs``, the kernels' layout: rows over
 the data axes where they divide the batch, else (a batch of 1 at long
 context) the attention cache's length over them where they divide it, as
-``cache_shardings`` puts the largest dim there (``context.length_spec``).
-The dry run traces the same layout (``launch.specs``).
+``cache_shardings`` puts the largest dim there; on the head fallback the
+length over "model" (``context.length_axes``).  The dry run traces the
+same layout (``launch.specs``).
 """
 from __future__ import annotations
 

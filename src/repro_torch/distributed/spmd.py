@@ -6,12 +6,14 @@ model block has one body for one device and for a mesh.
 Under a mesh (``context.set_mesh``) the activations are plain tensors, each
 rank's batch shard (the rows of its data-parallel index, pod-major; the
 whole batch where the data-parallel size does not divide it), whole over
-the "model" axis.  Where the batch does not split and the decode cache's
-length does (``context.length_spec``), each rank holds its shard of the
-cache's length and the attention's partials are merged across the ranks
-(``merge_over_data``).  Parameters are DTensors placed by ``sharding``; a block
-takes each as a local tensor in the layout it computes with (``use``),
-gathering the dims the rules shard and the block does not.  Where a block
+the "model" axis.  Where a decode cache's length splits
+(``context.length_axes``: over the data axes where the batch does not
+split, over "model" where the attention keeps every head on every model
+rank), each rank holds its shard of the cache's length and the attention's
+partials are merged across the ranks (``merge_over``).  Parameters are
+DTensors placed by ``sharding``; a block takes each as a local tensor in
+the layout it computes with (``use``), gathering the dims the rules shard
+and the block does not.  Where a block
 splits its work over "model" (heads, experts, the expert or MLP hidden dim,
 the vocab), its input enters through ``enter_model`` (identity; the
 backward sums the ranks' partial gradients) and its output leaves through
@@ -137,19 +139,37 @@ def gather(t: torch.Tensor, dim: int, axis: str, partial: bool) -> torch.Tensor:
     return _Gather.apply(t, dim, _group(axis), partial)
 
 
-def dp_size() -> int:
+def _names(axes) -> tuple:
+    """A spec entry (an axis name, a tuple of them or None) as a tuple."""
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def axes_size(axes) -> int:
+    """The number of ranks over ``axes`` (a spec entry) together."""
     n = 1
-    for a in ctx.batch_axes():
+    for a in _names(axes):
         n *= ctx.axis_size(a)
     return n
 
 
-def dp_rank() -> int:
-    """This rank's index among the data-parallel shards, pod-major."""
+def axes_rank(axes) -> int:
+    """This rank's index over ``axes`` (a spec entry), the first axis
+    major."""
     r = 0
-    for a in ctx.batch_axes():
+    for a in _names(axes):
         r = r * ctx.axis_size(a) + rank(a)
     return r
+
+
+def dp_size() -> int:
+    return axes_size(ctx.batch_axes())
+
+
+def dp_rank() -> int:
+    """This rank's index among the data-parallel shards, pod-major."""
+    return axes_rank(ctx.batch_axes())
 
 
 def batch_sharded(n: int) -> bool:
@@ -193,16 +213,17 @@ def gather_rows(t: torch.Tensor, partial: bool) -> torch.Tensor:
     return t
 
 
-def merge_over_data(o: torch.Tensor, M: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
-    """One decode output from every data-parallel rank's partial over its
-    shard of a length-sharded cache: ``o`` (B, Hq, D), ``M`` and ``l`` (B,
-    Hq), fp32, as the partial decode returns them.  The ranks' partials are
-    gathered in ``dp_rank`` order (one all-gather of B x Hq x (D + 2)
-    floats over "data", then over "pod") and merged there
-    (``merge_partials``); every rank holds the same result."""
+def merge_over(axes, o: torch.Tensor, M: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """One decode output from the partials of every rank over ``axes`` (the
+    data axes, or "model"), each over its shard of a length-sharded cache:
+    ``o`` (B, Hq, D), ``M`` and ``l`` (B, Hq), fp32, as the partial decode
+    returns them.  The ranks' partials are gathered in ``axes_rank`` order
+    (one all-gather of B x Hq x (D + 2) floats over each axis, the minor
+    first: "data", then "pod") and merged there (``merge_partials``);
+    every rank holds the same result."""
     D = o.shape[-1]
     t = torch.cat([o, M[..., None], l[..., None]], dim=-1)[None]
-    for a in reversed(ctx.batch_axes()):          # minor first: data, then pod
+    for a in reversed(_names(axes)):
         t = gather(t, 0, a, partial=False)
     return merge_partials(t[..., :D], t[..., D], t[..., D + 1])
 

@@ -45,7 +45,7 @@ Source note.
             merged statistics M and l (fp32, (B, Hq)) and the output in
             fp32, so that a decode over a cache whose length is sharded
             over ranks merges the ranks' results (:func:`merge_partials`,
-            ``distributed.spmd.merge_over_data``) from no bf16 rounding.  A
+            ``distributed.spmd.merge_over``) from no bf16 rounding.  A
             shard with no live key gives o = 0, M = -1e30, l = 0.
   Later     fp8 K/V; a persistent grid; a cluster merge; CUDA graphs over
             the host-bound decode step.

@@ -120,7 +120,7 @@ def decode_attention(
     """One query token per sequence against its cache.  With ``partial``
     (the route of a cache whose length is sharded over ranks): ``(out, M,
     l)``, the output in fp32 and each query row's softmax statistics (B,
-    Hq), which ``spmd.merge_over_data`` merges across the ranks; the
+    Hq), which ``spmd.merge_over`` merges across the ranks; the
     checking hook holds the statistics against the plain version's too."""
     impl = resolve_impl(impl, q)
     if impl in ("kernel", "plain"):

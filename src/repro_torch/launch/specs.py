@@ -10,7 +10,8 @@ the layout the port executes with (``models.init_decode_cache``: rows over
 the data axes, KV or Mamba heads over "model"; where the data axes do not
 divide the batch, an attention cache's length over them, as the JAX
 package's ``cache_shardings`` puts it for the ``long_500k`` cell's batch of
-1; the head dim, and the Mamba state over the data axes, stay whole).  The
+1, and on the head fallback the length over "model"; the head dim, and the
+Mamba state over the data axes, stay whole).  The
 batch and the decode tokens are the global ones:
 the port's entry points take the global batch on every rank and cut this
 rank's rows themselves (``spmd.local_rows``).

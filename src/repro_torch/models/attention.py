@@ -26,12 +26,18 @@ package's sequence parallelism for Q/O where "model" divides the sequence
 S/m), K/V from all S, launches the kernel with ``q_offset`` = r S/m,
 multiplies its rows by ``wo`` and gathers the rows over "model".  Where the
 sequence does not divide either, and in cross-attention and decode, every
-model rank computes all heads (the head fallback).  The decode cache is held in the same layout, its head
-dim whole, its length whole too unless the data axes do not divide the
-batch and do divide the length (a batch of 1 at long context): then each
-data-parallel rank holds its shard of the length, decodes it with the
-kernel's partial mode, and the ranks' partials are merged
-(``spmd.merge_over_data``) before the output projection.
+model rank computes all heads (the head fallback).  The decode cache is
+held in the same layout, its head dim whole, and its length split where
+``context.length_axes`` says: over the data axes where they do not divide
+the batch and do divide the length (a batch of 1 at long context), else
+over "model" where a self-attention takes the head fallback and "model"
+divides the length (qwen2-7b's 28 heads on 16 model ranks: each holds and
+reads 1/16 of its rows' keys, 1/256 of the cache on (data=16, model=16),
+as the reference's chip does with the batch over "model" and the length
+over "data"; Q and the output projection stay whole).  Each rank then
+decodes its shard with the kernel's partial mode, and the ranks' partials
+are merged (``spmd.merge_over``) before the output projection.  Otherwise
+the length stays whole, as the cross cache's always does.
 """
 from __future__ import annotations
 
@@ -91,9 +97,10 @@ def _head_layout(cfg: ArchConfig):
     return q_ax, kv_ax, kv_range
 
 
-# self-attentions that took the row split (``_row_split``), since the caller
-# last set it to 0
-counts = {"row_split": 0}
+# since the caller last set them to 0: self-attentions that took the row
+# split (``_row_split``), and decode self-attentions whose cache length is
+# split over "model" (``attn_decode``'s ``length_axes``)
+counts = {"row_split": 0, "length_model": 0}
 
 
 def _row_split(cfg: ArchConfig, S: int):
@@ -234,19 +241,22 @@ def cache_from_prefill(kt, vt, blk: Block, max_len: int):
 
 def attn_decode(x, p, cache, cfg: ArchConfig, blk: Block, *, pos: int, compute_dtype,
                 cross_cache: Optional[dict] = None, enc_len: Optional[int] = None,
-                impl: Optional[str] = None, length_split: bool = False):
+                impl: Optional[str] = None, length_axes=None):
     """Single-token attention.  x: (B, D); pos: the absolute position (one
     for the whole batch: decode runs in lockstep).  Writes the token's K/V
     into ``cache`` in place and returns the new x.  With ``cross_cache``
     ({"k", "v"}: (B, Hkv, Se, Dh)), cross-attention follows over its first
     ``enc_len`` keys; the cross cache is only read.  Under a mesh it runs on
     this rank's rows, and the caches hold this rank's shard
-    (``_head_layout``).  With ``length_split`` the self-attention cache
-    holds this data-parallel rank's shard of the length, slots [r Lr, (r +
-    1) Lr) of the whole Lc = n Lr: the rank that owns the token's slot
+    (``_head_layout``).  With ``length_axes`` (``context.length_axes``: the
+    data axes, or "model" on the head fallback) the self-attention cache
+    holds this rank's shard over those axes of the length, slots [r Lr, (r
+    + 1) Lr) of the whole Lc = n Lr: the rank that owns the token's slot
     writes it, each rank decodes its live keys (keys sit in slots [0,
-    min(pos + 1, Lc)), on a ring too) and the partials are merged across
-    the ranks."""
+    min(pos + 1, Lc)), on a ring too; a rank with none reads a partial of
+    weight 0) and the partials are merged across the ranks
+    (``spmd.merge_over``).  Q and the output projection stay whole on every
+    model rank there."""
     B = x.shape[0]
     Dh = cfg.head_dim
     q_ax, kv_ax, kv_range = _head_layout(cfg)
@@ -265,7 +275,7 @@ def attn_decode(x, p, cache, cfg: ArchConfig, blk: Block, *, pos: int, compute_d
     k = rope_apply(k.reshape(B, 1, hkv, Dh), pos, cfg.rope_theta)[:, 0]
     kc, vc = cache["k"], cache["v"]
     Lr = kc.shape[2]                                 # this rank's slots
-    n, r = (spmd.dp_size(), spmd.dp_rank()) if length_split else (1, 0)
+    n, r = spmd.axes_size(length_axes), spmd.axes_rank(length_axes)
     Lc, lo = n * Lr, r * Lr
     # the JAX package's dynamic_update_slice clamps an index past the end
     slot = pos % Lc if blk.window else min(pos, Lc - 1)
@@ -275,9 +285,11 @@ def attn_decode(x, p, cache, cfg: ArchConfig, blk: Block, *, pos: int, compute_d
     live = min(max(min(pos + 1, Lc) - lo, 0), Lr)
     valid_len = torch.full((B,), live, dtype=torch.int32, device=x.device)
     kr, vr = _kv_read(kc, kv_range), _kv_read(vc, kv_range)
-    if length_split:
-        o = spmd.merge_over_data(*ops.decode_attention(q, kr, vr, valid_len, partial=True,
-                                                       **kw)).to(q.dtype)
+    if length_axes is not None:
+        if length_axes == "model":
+            counts["length_model"] += 1
+        o = spmd.merge_over(length_axes, *ops.decode_attention(q, kr, vr, valid_len,
+                                                               partial=True, **kw)).to(q.dtype)
     else:
         o = ops.decode_attention(q, kr, vr, valid_len, **kw)
     out = spmd.dot(o.reshape(B, hq * Dh), p["wo"], q_ax, None)

@@ -32,9 +32,10 @@ the batch at every block, as the JAX package constrains the stack, or the
 whole batch where the shards do not divide it.  The logits come back as a
 DTensor sharded over "model" on the vocab where it divides (``pad_vocab``
 pads it to divide), the decode cache as DTensors in the kernels' layout
-(rows over the data axes, KV or Mamba heads over "model"; where the data
-axes do not divide the batch and do divide an attention cache's length,
-that length over them, ``_cache_specs``), and
+(rows over the data axes, KV or Mamba heads over "model"; a self-attention
+cache's length over the data axes where they do not divide the batch and
+do divide that length, else over "model" where the attention keeps every
+head on every model rank and "model" divides it, ``_cache_specs``), and
 ``lm_loss`` as this rank's value of the global loss whose gradient is this
 rank's share.
 """
@@ -391,14 +392,25 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *, prefix_embeds=None
     return logits, cache
 
 
+def _length_axes(cfg: ArchConfig, batch: int, length: int):
+    """The axes a self-attention cache of ``length`` keys splits its length
+    over (``context.length_axes``): the data axes at a batch of 1, "model"
+    on the head fallback (no Q-head and no KV-head axis), else None."""
+    q_ax, kv_ax, _ = attn_mod._head_layout(cfg)
+    return ctx.length_axes(batch, length, heads_whole=q_ax is None and kv_ax is None)
+
+
 def _cache_specs(cfg: ArchConfig, blk: Block, batch: int, max_len: int) -> dict:
     """The specs of one block position's cache leaves, as its entry of the
     cache nests them, in the kernels' layout: rows over the data axes where
     they divide them, KV heads (Mamba heads) over "model" where they divide
-    it, the head dim whole.  An attention cache's length goes over the data
-    axes where they do not divide the batch and do divide the length
-    (``context.length_spec``: the JAX package's ``cache_shardings`` for a
-    batch of 1), else stays whole, as the cross cache's always does.  The
+    it, the head dim whole.  A self-attention cache's length goes over the
+    data axes where they do not divide the batch and do divide the length
+    (the JAX package's ``cache_shardings`` for a batch of 1), else over
+    "model" where the attention keeps every head on every model rank and
+    "model" divides the length (``_length_axes``; the JAX package puts the
+    batch over "model" and the length over the data axes there: the same
+    share a rank), else stays whole, as the cross cache's always does.  The
     Mamba state stays whole over the data axes (the JAX package shards its
     largest dim over them at a batch of 1)."""
     bs = ctx.batch_spec(batch)
@@ -406,7 +418,7 @@ def _cache_specs(cfg: ArchConfig, blk: Block, batch: int, max_len: int) -> dict:
         return {"mamba": {"ssm": (None, bs, ssm_mod.head_axis(cfg), None, None),
                           "conv": (None, bs, None, None)}}
     kv_ax = attn_mod._head_layout(cfg)[1]
-    kv = (None, bs, kv_ax, ctx.length_spec(batch, attn_mod.cache_len(blk, max_len)), None)
+    kv = (None, bs, kv_ax, _length_axes(cfg, batch, attn_mod.cache_len(blk, max_len)), None)
     cross = (None, bs, kv_ax, None, None)
     return {"k": kv, "v": kv, "cross": {"k": cross, "v": cross}}
 
@@ -485,13 +497,14 @@ def decode_step(params, cfg: ArchConfig, cache, token, *,
     The cache's tensors are updated in place (the JAX package returns new
     arrays); the returned cache is a new dict over the same tensors with
     ``pos`` advanced by one.  An attention cache whose length the mesh
-    splits (``_cache_specs``; its global length is the DTensor's) decodes
-    each rank's shard and merges the ranks' partials (``attn_decode``).
-    Under a mesh every product multiplies this rank's shard of its weight
-    (``spmd.stationary``): no weight is gathered, and the step takes no
-    gradient."""
+    splits, over the data axes at a batch of 1 or over "model" on the head
+    fallback (``_length_axes``; its global length is the DTensor's),
+    decodes each rank's shard and merges the ranks' partials
+    (``attn_decode``).  Under a mesh every product multiplies this rank's
+    shard of its weight (``spmd.stationary``): no weight is gathered, and
+    the step takes no gradient."""
     B = token.shape[0]
-    split = {pos: "k" in c and ctx.length_spec(B, c["k"].shape[3]) is not None
+    split = {pos: _length_axes(cfg, B, c["k"].shape[3]) if "k" in c else None
              for pos, c in cache["layers"].items()}
     token, layers = spmd.local_rows(token), _local_cache(cache["layers"])
     with spmd.rows(spmd.batch_sharded(B)), spmd.stationary():
@@ -507,7 +520,7 @@ def decode_step(params, cfg: ArchConfig, cache, token, *,
                     x = attn_mod.attn_decode(
                         x, p["attn"], {"k": c["k"][per], "v": c["v"][per]}, cfg, blk,
                         pos=pos, compute_dtype=compute_dtype, cross_cache=cross,
-                        enc_len=enc_len, impl=impl, length_split=split[f"pos{i}"])
+                        enc_len=enc_len, impl=impl, length_axes=split[f"pos{i}"])
                 elif blk.kind == "mamba":
                     mc = c["mamba"]
                     x, new = ssm_mod.mamba_decode(

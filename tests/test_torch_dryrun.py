@@ -473,6 +473,59 @@ def test_own_columns_divide_the_mamba_input_projection():
     assert a["mamba_apply"] == b["mamba_apply"] > 0
 
 
+_LENGTH_MODEL = """
+import dataclasses, json
+from repro_torch.configs.base import SHAPES_BY_NAME
+from repro_torch.configs.registry import get_arch
+from repro_torch.launch import dryrun
+from repro_torch.models import attention, transformer
+mesh = dryrun.production_mesh(False)
+cfg, cell = dataclasses.replace(get_arch("qwen2-7b"), n_layers=2), SHAPES_BY_NAME["decode_32k"]
+out = {}
+for tag in ("split", "whole"):
+    if tag == "whole":                       # the length kept whole on every model rank
+        transformer._length_axes = lambda cfg, batch, length: None
+    attention.counts["length_model"] = 0
+    traced = dryrun.trace_cell(cfg, cell, mesh)
+    rec = dryrun.analyze(cfg, cell, traced, mesh)
+    out[tag] = {"sites": {s: f for s, f in traced.counter.dot_sites.items()
+                          if "attn_decode" in s},
+                "args": rec["memory"]["argument_bytes"],
+                "coll": rec["collectives"]["by_axis"],
+                "length_model": attention.counts["length_model"]}
+print(json.dumps(out))
+"""
+
+
+def test_decode_32k_splits_the_cache_length_over_model():
+    """qwen2-7b ``decode_32k`` at full width, 2 of 28 layers, on the fake
+    256-rank mesh: 128 rows over 16 data ranks, 8 a rank, 32 768 keys.
+    Its 28 Q heads and 4 KV heads divide no model axis of 16, so decode
+    keeps every head on every model rank and splits each cache's length
+    over "model": 2048 slots a rank.  Against the same trace with the
+    length whole (``transformer._length_axes`` off): the attention's dot
+    FLOPs (q K^T and p V over 28 heads) fall by 15/16, the cache's bytes
+    among the arguments by 15/16, and the collective bytes over "model"
+    rise by the partials' gather alone, B x Hq x (D + 2) fp32 from each of
+    the 16 ranks a layer; the projections' sites are equal."""
+    run = subprocess.run([sys.executable, "-c", _LENGTH_MODEL], env=_env(), cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    split, whole = got["split"], got["whole"]
+    L, Br, Hq, Hkv, Dh, Lc, m = 2, 8, 28, 4, 128, 32768, 16
+    attn = L * 2 * 2 * Br * Hq * Lc * Dh
+    kv = L * 2 * Br * Hkv * Lc * Dh * 2                 # bf16 K and V
+    gathered = L * m * Br * Hq * (Dh + 2) * 4
+    assert split["length_model"] == L and whole["length_model"] == 0
+    assert max(whole["sites"].values()) == attn
+    assert max(split["sites"].values()) == attn // m
+    assert sum(whole["sites"].values()) - sum(split["sites"].values()) == attn - attn // m
+    assert whole["args"] - split["args"] == kv - kv // m
+    assert split["coll"]["model"] - whole["coll"].get("model", 0) == gathered
+    assert split["coll"]["data"] == whole["coll"]["data"]
+
+
 # ---------------------------------------------------------------------------
 # the CLI on the production meshes
 # ---------------------------------------------------------------------------

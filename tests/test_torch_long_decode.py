@@ -6,12 +6,16 @@ divide an attention cache's length, the port splits that length over them
 (``context.length_spec``), as the JAX package's ``cache_shardings`` puts
 the cache's largest dim over (pod, data).  Each rank decodes its shard
 with ``flash_decode``'s partial mode, and the ranks' (o, M, l) are merged
-(``spmd.merge_over_data``, ``flash_decode.merge_partials``).
+(``spmd.merge_over``, ``flash_decode.merge_partials``).
 
 * (a) The length entry against ``cache_shardings`` on a
   ``jax.sharding.AbstractMesh``: equal for a batch-1 cache; a batch that
   divides keeps its rows over the data axes (the JAX package puts the
   length there instead: a kept difference); one data rank never splits.
+  Where no head count divides "model" (reduced and full qwen2-7b), the
+  length goes over "model" and the rows stay over "data", where
+  ``cache_shardings`` puts the length over "data" (and, at full size, the
+  batch over "model"): the kept difference, stated.
 * (b) The partial decode of 1, 2, 4 and 8 length shards (the plain
   version through the kernel wrapper, and the reference), merged, against
   the JAX package's ``ops.decode_attention`` over the whole cache, rep 4,
@@ -81,29 +85,32 @@ def _entry(e):
     return tuple(e) if isinstance(e, (tuple, list)) else (e,)
 
 
-def _port_kv_specs(arch, axes, batch):
-    """{pos: the k leaf's spec} of every attention position under ``axes``."""
+def _port_kv_specs(arch, axes, batch, max_len=64, full=False):
+    """{pos: the k leaf's spec} of every attention position under ``axes``
+    (the reduced config, or with ``full`` the registry's)."""
+    from repro_torch.configs.registry import get_arch
     from repro_torch.distributed import context as ctx
     from repro_torch.models.transformer import _cache_specs
-    cfg = _cfg(arch)
+    cfg = get_arch(arch) if full else _cfg(arch)
     ctx.set_mesh(_Mesh(**axes))
     try:
-        return {f"pos{i}": _cache_specs(cfg, blk, batch, 64)["k"]
+        return {f"pos{i}": _cache_specs(cfg, blk, batch, max_len)["k"]
                 for i, blk in enumerate(cfg.pattern) if blk.kind == "attn"}
     finally:
         ctx.set_mesh(None)
 
 
-def _jax_kv_specs(arch, axes, batch):
+def _jax_kv_specs(arch, axes, batch, max_len=64, full=False):
     import jax
     from jax.sharding import AbstractMesh
     from repro.configs.registry import ARCHS as JAX_ARCHS
     from repro.distributed.sharding import cache_shardings
     from repro.models import init_decode_cache
-    jcfg = JAX_ARCHS[arch].reduced()
-    cache = jax.eval_shape(lambda: init_decode_cache(jcfg, batch, 64))
+    jcfg = JAX_ARCHS[arch] if full else JAX_ARCHS[arch].reduced()
+    cache = jax.eval_shape(lambda: init_decode_cache(jcfg, batch, max_len))
     sh = cache_shardings(cache, AbstractMesh(tuple(axes.values()), tuple(axes)), jcfg)
-    return {pos: tuple(sh["layers"][pos]["k"].spec) for pos in _port_kv_specs(arch, axes, batch)}
+    return {pos: tuple(sh["layers"][pos]["k"].spec)
+            for pos in _port_kv_specs(arch, axes, batch, max_len, full)}
 
 
 @pytest.mark.parametrize("arch", ARCHS2)
@@ -122,6 +129,30 @@ def test_length_entry_equals_cache_shardings(arch, axes):
     for pos, spec in port4.items():
         assert _entry(spec[1]) == dp and spec[3] is None
         assert _entry(ref4[pos][3]) == dp
+
+
+def test_length_entry_over_model_where_the_heads_do_not_divide():
+    """Reduced qwen2-7b (4 Q heads, 1 KV head of 16) on (data=2, model=3)
+    at batch 4 and max_len 24: the rows go over "data", no head count
+    divides 3, so the length of 24 goes over "model".  The JAX package's
+    ``cache_shardings`` on the same mesh puts the length over "data" and
+    nothing over "model" (none of 16, 4 and 1 divides 3).  At
+    ``decode_32k``'s full size (batch 128, 32 768 keys, 4 KV heads) on
+    (data=16, model=16) the port keeps the rows over "data" and puts the
+    length over "model", the reference the length over "data" and the
+    batch over "model": the same share of the cache a rank, a kept
+    difference."""
+    axes = dict(data=2, model=3)
+    for pos, spec in _port_kv_specs("qwen2-7b", axes, 4, 24).items():
+        assert (_entry(spec[1]), spec[2], _entry(spec[3])) == (("data",), None, ("model",))
+    for pos, spec in _jax_kv_specs("qwen2-7b", axes, 4, 24).items():
+        assert [_entry(e) for e in spec[1:]] == [(), (), ("data",), ()], (pos, spec)
+    prod = dict(data=16, model=16)
+    port = _port_kv_specs("qwen2-7b", prod, 128, 32768, full=True)
+    ref = _jax_kv_specs("qwen2-7b", prod, 128, 32768, full=True)
+    for pos, spec in port.items():
+        assert [_entry(e) for e in spec[1:]] == [("data",), (), ("model",), ()], (pos, spec)
+        assert [_entry(e) for e in ref[pos][1:]] == [("model",), (), ("data",), ()], ref[pos]
 
 
 def test_one_data_rank_never_splits_the_length():

@@ -19,7 +19,10 @@ Worlds:
     (TP over the experts).  At S = 16, which 3 does not divide either, every
     self-attention takes the head fallback; at S = ``ROW_S`` = 18 it takes
     the JAX package's row split (query rows over "model", the kernel's
-    ``q_offset``), where the reduced windows of 16 meet the offset;
+    ``q_offset``), where the reduced windows of 16 meet the offset; and
+    with a cache of ``ROW_MAX`` = 30 keys, which 3 divides, decode splits
+    each full-attention cache's length over "model" (10 slots a rank;
+    windowed layers keep their 16);
   * 2 ranks as (pod=2, data=1, model=1): the compressed reduction.
 
 Tolerances (fp32 everywhere), against the JAX package: logits, train-step
@@ -47,6 +50,7 @@ ARCHS5 = ("qwen2-7b", "mixtral-8x22b", "jamba-v0.1-52b", "gemma2-27b",
 TRAIN_ARCHS = ("qwen2-7b", "mixtral-8x22b", "jamba-v0.1-52b")
 B, S, NEW = 4, 16, 4
 ROW_S = 18                      # a sequence 3 divides: the row split on model=3
+ROW_MAX = 30                    # a cache length 3 divides: decode splits it over model=3
 MOE_B, MOE_S = 4, 128           # 256 tokens a data shard: per-shard dispatch
 OPT = dict(lr=1.0, eps=1.0, warmup_steps=1, total_steps=10)   # see _train
 
@@ -96,10 +100,11 @@ def _logits(arch, npw, s=S):
     return _whole(out)
 
 
-def _greedy(arch, npw, s=S, cache_out=None):
+def _greedy(arch, npw, s=S, cache_out=None, max_len=None):
     """Prefill and NEW decode steps through the kernel wrappers (their plain
-    versions on CPU tensors), greedy.  ``cache_out`` (a list) gets the
-    leaves of the cache ``prefill`` returns, whole."""
+    versions on CPU tensors), greedy, in a cache of ``max_len`` (default
+    ``s + NEW``).  ``cache_out`` (a list) gets the leaves of the cache
+    ``prefill`` returns, whole."""
     from repro_torch.models import decode_step, prefill
     from repro_torch.tree import tree_leaves
     cfg = _cfg(arch)
@@ -107,7 +112,7 @@ def _greedy(arch, npw, s=S, cache_out=None):
     toks, frames = _inputs(cfg, s)
     kw = dict(compute_dtype=torch.float32, impl="kernel")
     with torch.no_grad():
-        logits, cache = prefill(params, cfg, toks, s + NEW, enc_frames=frames,
+        logits, cache = prefill(params, cfg, toks, max_len or s + NEW, enc_frames=frames,
                                 cache_dtype=torch.float32, **kw)
         if cache_out is not None:
             cache_out.extend(_whole(t).clone() for t in tree_leaves(cache["layers"]))
@@ -214,15 +219,17 @@ def _world_models(rank, model, moe_cases, weights, row_s=None):
     that projected only this rank's columns counted (``ssm.counts``); with
     ``row_s``, also the five archs' logits, prefill caches and greedy tokens
     and qwen2-7b's gradients and train step at ``row_s``, with the
-    self-attentions that took the row split counted per call
-    (``attention.counts``)."""
+    self-attentions that took the row split counted per call, and the five
+    archs' prefill caches, their layouts and greedy tokens at ``row_s`` in a
+    cache of ``ROW_MAX``, with the decode attentions whose cache length
+    split over "model" counted per arch (``attention.counts``)."""
     from repro_torch.distributed import context as ctx
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import attention, ssm
     mesh = make_host_mesh(model=model, device="cpu")
     ctx.set_mesh(mesh)
     out = {"mesh": {n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)}}
-    attention.counts["row_split"] = 0
+    attention.counts.update(row_split=0, length_model=0)
     for arch in ARCHS5:
         ssm.counts["own_columns"] = 0
         out[("logits", arch)] = _logits(arch, weights[arch])
@@ -233,7 +240,9 @@ def _world_models(rank, model, moe_cases, weights, row_s=None):
         out[("grads", arch)] = _grads(arch, weights[arch])
         out[("train", arch)] = _train(arch, weights[arch])
     out["row_split_at_S"] = attention.counts["row_split"]
+    out["length_model_at_S"] = attention.counts["length_model"]
     if row_s is not None:
+        attention.counts["length_model"] = 0
         for arch in ARCHS5:
             attention.counts["row_split"] = 0
             out[("logits", arch, row_s)] = _logits(arch, weights[arch], row_s)
@@ -243,6 +252,16 @@ def _world_models(rank, model, moe_cases, weights, row_s=None):
                                                    cache_out=out[("cache", arch, row_s)])
         out[("grads", "qwen2-7b", row_s)] = _grads("qwen2-7b", weights["qwen2-7b"], row_s)
         out[("train", "qwen2-7b", row_s)] = _train("qwen2-7b", weights["qwen2-7b"], s=row_s)
+        out["length_model_at_row_s"] = attention.counts["length_model"]
+        for arch in ARCHS5:
+            attention.counts["length_model"] = 0
+            out[("cache", arch, row_s, ROW_MAX)] = []
+            out[("greedy", arch, row_s, ROW_MAX)] = _greedy(
+                arch, weights[arch], row_s, cache_out=out[("cache", arch, row_s, ROW_MAX)],
+                max_len=ROW_MAX)
+            out[("length_model", arch)] = attention.counts["length_model"]
+            out[("cache_layout", arch, ROW_MAX)] = _cache_layouts(arch, weights[arch], row_s,
+                                                                  ROW_MAX)
     for name, (arch, moe_kw, p, x) in moe_cases.items():
         out[("moe", name)] = _moe(_moe_cfg(arch, **moe_kw), p, x)
         out[("moe_aux", name)] = _moe(_moe_cfg(arch, **moe_kw), p, x, aux=True)
@@ -255,25 +274,25 @@ def _world_models(rank, model, moe_cases, weights, row_s=None):
     return out
 
 
-def _cache_layouts(arch, npw):
+def _cache_layouts(arch, npw, s=S, max_len=S + NEW):
     """The placements of every leaf of the cache ``prefill`` returns and of
     the zero cache ``init_decode_cache`` makes under the mesh (equal), with
-    their global shapes."""
+    their global shapes and this rank's local ones."""
     from repro_torch.models import init_decode_cache, prefill
     from repro_torch.tree import tree_map_with_path
     cfg = _cfg(arch)
-    toks, frames = _inputs(cfg)
+    toks, frames = _inputs(cfg, s)
     with torch.no_grad():
-        _, cache = prefill(_place(_weights(cfg, npw), cfg), cfg, toks, S + NEW,
+        _, cache = prefill(_place(_weights(cfg, npw), cfg), cfg, toks, max_len,
                            enc_frames=frames, cache_dtype=torch.float32,
                            compute_dtype=torch.float32, impl="kernel")
-    zero = init_decode_cache(cfg, B, S + NEW, cache_dtype=torch.float32,
-                             enc_len=S if cfg.enc_dec else 0)
+    zero = init_decode_cache(cfg, B, max_len, cache_dtype=torch.float32,
+                             enc_len=s if cfg.enc_dec else 0)
 
     def layout(tree):
         found = {}
         tree_map_with_path(lambda p, t: found.__setitem__(
-            p, (tuple(t.placements), tuple(t.shape))), tree)
+            p, (tuple(t.placements), tuple(t.shape), tuple(t.to_local().shape))), tree)
         return found
     return layout(cache["layers"]), layout(zero["layers"])
 
@@ -403,35 +422,57 @@ def _jax_weights(arch) -> dict:
     return jax.tree_util.tree_map(np.asarray, jp)
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_case(arch, s=S) -> dict:
-    """The JAX package's results on the ranks' weights and inputs: logits,
-    greedy tokens, the leaves of the cache its prefill returns, every
-    gradient leaf of ``lm_loss`` and two train steps (at ``ROW_S``, of
-    qwen2-7b only), all fp32 through its blocked references."""
+def _jax_inputs(arch, s):
+    """The JAX package's reduced config, weights, tokens and frames."""
     import jax
     import jax.numpy as jnp
     from repro.configs.registry import ARCHS as JAX_ARCHS
-    from repro.launch.train import make_train_step
-    from repro.models import decode_step, lm_logits, lm_loss, prefill
-    from repro.optim import AdamWConfig, adamw_init
-    from repro_torch.data import TokenPipeline
-    jcfg = JAX_ARCHS[arch].reduced()
     jp = jax.tree_util.tree_map(jnp.asarray, _jax_weights(arch))
-    cfg = _cfg(arch)
-    toks, frames = _inputs(cfg, s)
-    jt = jnp.asarray(toks.numpy())
+    toks, frames = _inputs(_cfg(arch), s)
     jf = None if frames is None else jnp.asarray(frames.numpy())
+    return JAX_ARCHS[arch].reduced(), jp, jnp.asarray(toks.numpy()), jf
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_greedy(arch, s, max_len) -> dict:
+    """The JAX package's prefill of the ranks' prompts in a cache of
+    ``max_len`` and NEW greedy decode steps, fp32 through its blocked
+    references: the leaves of the cache its prefill returns and the
+    tokens."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import decode_step, prefill
+    jcfg, jp, jt, jf = _jax_inputs(arch, s)
     f32 = dict(compute_dtype=jnp.float32, impl="blocked")
-    ref = {"logits": np.asarray(lm_logits(jp, jcfg, jt, enc_frames=jf, **f32))}
-    logits, cache = prefill(jp, jcfg, jt, s + NEW, enc_frames=jf, cache_dtype=jnp.float32,
+    logits, cache = prefill(jp, jcfg, jt, max_len, enc_frames=jf, cache_dtype=jnp.float32,
                             **f32)
-    ref["cache"] = [np.asarray(t) for t in jax.tree_util.tree_leaves(cache["layers"])]
+    ref = {"cache": [np.asarray(t) for t in jax.tree_util.tree_leaves(cache["layers"])]}
     out = [np.argmax(np.asarray(logits), -1)]
     for _ in range(NEW):
         logits, cache = decode_step(jp, jcfg, cache, jnp.asarray(out[-1], jnp.int32), **f32)
         out.append(np.argmax(np.asarray(logits), -1))
     ref["greedy"] = torch.from_numpy(np.stack(out, 1))
+    return ref
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_case(arch, s=S) -> dict:
+    """The JAX package's results on the ranks' weights and inputs: logits,
+    greedy tokens, the leaves of the cache its prefill returns (in a cache
+    of s + NEW), every gradient leaf of ``lm_loss`` and two train steps (at
+    ``ROW_S``, of qwen2-7b only), all fp32 through its blocked
+    references."""
+    import jax
+    import jax.numpy as jnp
+    from repro.launch.train import make_train_step
+    from repro.models import lm_logits, lm_loss
+    from repro.optim import AdamWConfig, adamw_init
+    from repro_torch.data import TokenPipeline
+    jcfg, jp, jt, jf = _jax_inputs(arch, s)
+    cfg = _cfg(arch)
+    f32 = dict(compute_dtype=jnp.float32, impl="blocked")
+    ref = {"logits": np.asarray(lm_logits(jp, jcfg, jt, enc_frames=jf, **f32)),
+           **_jax_greedy(arch, s, s + NEW)}
     if arch not in TRAIN_ARCHS or (s != S and arch != "qwen2-7b"):
         return ref
     batch = {k: jnp.asarray(v) for k, v in TokenPipeline(cfg, s, B, seed=1).next_batch().items()}
@@ -553,6 +594,7 @@ def test_mesh_data2_model2_matches_one_device(tmp_path):
         _jax_case(arch)
     res = finish()
     assert res["mesh"] == {"data": 2, "model": 2}
+    assert res["length_model_at_S"] == 0         # the Q heads split over "model"
     for arch in ARCHS5:                 # jamba's 8 SSD heads, 4 a model rank
         assert res[("own_columns", arch)] == _mamba_blocks(_cfg(arch)), arch
     _check_models(res, ref)
@@ -571,9 +613,10 @@ def test_mesh_data2_model2_matches_one_device(tmp_path):
 
 @pytest.fixture(scope="module")
 def model3_world(tmp_path_factory):
-    """One spawn of 3 ranks as (data=1, model=3) for both model=3 tests:
-    every check at S and the row split's at ROW_S; the one-device and JAX
-    references at both lengths are computed while the ranks run."""
+    """One spawn of 3 ranks as (data=1, model=3) for the model=3 tests:
+    every check at S, the row split's at ROW_S and the decode's in a cache
+    of ROW_MAX; the one-device and JAX references of each are computed
+    while the ranks run."""
     moe_kw = dict(capacity_factor=1.0, d_ff_expert=48)
     jcfg, jp, x = _jax_moe_case("mixtral-8x22b", 4, **moe_kw)
     finish = _spawn(tmp_path_factory.mktemp("model3"), 3, "models", model=3,
@@ -581,9 +624,15 @@ def model3_world(tmp_path_factory):
                     moe_cases={"tp": ("mixtral-8x22b", moe_kw, jp, x)}, row_s=ROW_S)
     ref = _references()
     rows = _references(ROW_S, train_archs=("qwen2-7b",))
+    for arch in ARCHS5:
+        rows[("cache", arch, ROW_MAX)] = []
+        rows[("greedy", arch, ROW_MAX)] = _greedy(arch, _jax_weights(arch), ROW_S,
+                                                  cache_out=rows[("cache", arch, ROW_MAX)],
+                                                  max_len=ROW_MAX)
     for arch in ARCHS5:                 # the JAX package's, while the ranks run
         _jax_case(arch)
         _jax_case(arch, ROW_S)
+        _jax_greedy(arch, ROW_S, ROW_MAX)
     res = finish()
     assert res["mesh"] == {"data": 1, "model": 3}
     return {"res": res, "ref": ref, "rows": rows, "moe": (jcfg, jp, x, moe_kw)}
@@ -599,6 +648,7 @@ def test_mesh_model3_head_fallback_and_pad_vocab(model3_world):
     res, ref = model3_world["res"], model3_world["ref"]
     jcfg, jp, x, moe_kw = model3_world["moe"]
     assert res["row_split_at_S"] == 0
+    assert res["length_model_at_S"] == 0         # 3 divides no cache length of 20 or 16
     for arch in ARCHS5:                 # jamba's 8 SSD heads do not divide 3
         assert res[("own_columns", arch)] == 0, arch
     _check_models(res, ref)
@@ -644,6 +694,7 @@ def test_mesh_model3_row_split_matches_jax_and_one_device(model3_world):
     one-device port at the file's tolerances."""
     from repro_torch.tree import tree_leaves
     res, rows = model3_world["res"], model3_world["rows"]
+    assert res["length_model_at_row_s"] == 0     # 3 divides no cache length of 22 or 16
     for arch in ARCHS5:
         cfg = _cfg(arch)
         assert res[("row_split", arch)] == _self_attentions(cfg), arch
@@ -665,6 +716,53 @@ def test_mesh_model3_row_split_matches_jax_and_one_device(model3_world):
         assert _rel(a, b) <= GRAD_REL, _rel(a, b)
     _check_train(res[("train", "qwen2-7b", ROW_S)], rows[("train", "qwen2-7b")],
                  jax_ref["train"], "qwen2-7b row split")
+
+
+def _full_attentions(cfg) -> int:
+    """The decoder's self-attention layers without a window."""
+    return cfg.n_periods * sum(1 for b in cfg.pattern if b.kind == "attn" and not b.window)
+
+
+def test_mesh_model3_decode_splits_the_cache_length_over_model(model3_world):
+    """(data=1, model=3) at S = ROW_S = 18 with a cache of ROW_MAX = 30:
+    the reduced models' 4 Q heads and 1-4 KV heads divide no model axis of
+    3, so decode keeps all heads on every model rank, and 3 divides the 30
+    slots of each full-attention cache: each rank holds 10 of them (prefill
+    and ``init_decode_cache`` alike), the rank that owns the token's slot
+    writes it, each decodes its live keys in partial mode and the partials
+    are merged over "model".  At the first step (position 18, 19 live keys)
+    rank 2's slots [20, 30) hold none, and over the NEW = 4 steps the
+    token's slot moves from rank 1's shard to rank 2's.  Windowed layers
+    (a ring of 16, which 3 does not divide) keep their length whole:
+    mixtral's reduced layers all have a window, so none of its attentions
+    splits.  Greedy tokens equal to the JAX package's and the one-device
+    port's, the whole prefill cache within the file's tolerances of both,
+    and the split counted once a full-attention layer and step
+    (``attention.counts["length_model"]``)."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.models.attention import cache_len
+    res, rows = model3_world["res"], model3_world["rows"]
+    for arch in ARCHS5:
+        cfg = _cfg(arch)
+        assert res[("length_model", arch)] == NEW * _full_attentions(cfg), arch
+        jax_ref = _jax_greedy(arch, ROW_S, ROW_MAX)
+        _check_leaves(res[("cache", arch, ROW_S, ROW_MAX)], rows[("cache", arch, ROW_MAX)],
+                      jax_ref["cache"], (arch, "cache", ROW_MAX))
+        assert torch.equal(res[("greedy", arch, ROW_S, ROW_MAX)], jax_ref["greedy"]), arch
+        assert torch.equal(res[("greedy", arch, ROW_S, ROW_MAX)],
+                           rows[("greedy", arch, ROW_MAX)]), arch
+        got, zero = res[("cache_layout", arch, ROW_MAX)]
+        assert got == zero, arch
+        for i, blk in enumerate(cfg.pattern):
+            if blk.kind != "attn":
+                continue
+            placements, shape, local = got[("pos" + str(i), "k")]
+            Lc = cache_len(blk, ROW_MAX)
+            split = not blk.window
+            assert Lc == (ROW_MAX if split else 16) and shape[3] == Lc, (arch, i)
+            assert local[3] == (Lc // 3 if split else Lc), (arch, i, local)
+            assert (placements[-1] == Shard(3)) == split, (arch, i, placements)
+    assert sum(res[("length_model", arch)] for arch in ARCHS5) > 0
 
 
 def test_pod2_compressed_reduction(tmp_path):
