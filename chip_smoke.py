@@ -207,7 +207,9 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  its 28 layers, bf16 compute on fp32 state, remat, 8 steps
                  of 8 x 1024 tokens in 2 microbatches (every loss finite,
                  the last below the first, peak memory under 90 % of the
-                 card's; seconds per step, tokens/s, model TFLOP/s);
+                 card's, attention blocks recomputed in the backward:
+                 ref.counts["step_remat"] above 0; seconds per step,
+                 tokens/s, model TFLOP/s);
                  reduced qwen2-7b, moonshot-v1-16b-a3b and
                  seamless-m4t-medium in fp32 for 3 steps on the card and on
                  the CPU from the same weights
@@ -2328,10 +2330,12 @@ def _train_full_width(faults: list) -> dict:
     import torch
 
     from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ref
 
     full = get_arch(TRAIN_ARCH)
     cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
     n = cfg.param_count()
+    remat: list = []
     emit({"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
           "of_layers": full.n_layers, "params_b": n / 1e9,
           "full_params_b": full.param_count() / 1e9, "remat": cfg.remat,
@@ -2345,8 +2349,10 @@ def _train_full_width(faults: list) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     peak: list = []
+    ref.counts["step_remat"] = 0
     rows = _full_width_steps(cfg, torch.bfloat16, TRAIN_STEPS, after=lambda run: (
-        peak.append(torch.cuda.max_memory_allocated()), _profile_train_step(run)))
+        peak.append(torch.cuda.max_memory_allocated()),
+        remat.append(ref.counts["step_remat"]), _profile_train_step(run)))
     card = torch.cuda.get_device_properties(0).total_memory
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = _train_flops(cfg, tokens, TRAIN_SEQ)
@@ -2364,8 +2370,10 @@ def _train_full_width(faults: list) -> dict:
            "model_tflops": flops / s_step / 1e12,
            "model_flops_share_of_bf16_peak": flops / s_step / PEAK_BF16,
            "losses": [r["loss"] for r in rows], "fp32_witness": witness,
-           "nvidia_smi": nvidia_smi()}
+           "step_remat_per_step": remat[0] / TRAIN_STEPS, "nvidia_smi": nvidia_smi()}
     emit({"phase": "train", "summary": "full_width", **out})
+    if not remat[0]:
+        faults.append("full width: no attention block was recomputed in a backward")
     if not all(math.isfinite(r["loss"]) for r in rows):
         faults.append(f"full width: a loss is not finite: {out['losses']}")
     if not rows[-1]["loss"] < rows[0]["loss"]:

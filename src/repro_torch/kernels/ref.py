@@ -6,14 +6,78 @@ and banded attention references, the decode oracle and the three SSD oracles
 are the ``blocked`` / ``naive`` paths of ``ops`` and the ground truth the
 kernels' plain versions are held against.  Each follows the JAX function of
 the same name line for line (``jax.lax.scan`` becomes a Python loop).
+
+Where the JAX function wraps its loop's step in ``jax.checkpoint`` (every
+K/V block of the blocked attention, every query chunk of the banded one,
+every chunk of the chunked SSD), so does this one (:class:`_Remat`): under
+autograd a step saves only its inputs, and its backward recomputes it, as
+XLA's remat does: the products whose outputs the backward never reads (the
+step's last ones: P.V, the chunk's output and state products) are not
+recomputed.  Without autograd a step is its plain operations.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps exp()/where() NaN-free
+
+# steps recomputed in a backward (:class:`_Remat`); a caller zeroes it
+counts = {"step_remat": 0}
+
+
+class _SkipProducts(TorchDispatchMode):
+    """Matrix products dispatched under it are not computed: each returns an
+    uninitialised result of its shape.  Autograd has already recorded the
+    product with its operands, so the product's backward is the one it would
+    have had; only a value that nothing reads is skipped."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.bmm.default, torch.ops.aten.mm.default):
+            a, b = args[0], args[1]
+            return a.new_empty((*a.shape[:-1], b.shape[-1]))
+        return func(*args, **(kwargs or {}))
+
+
+def _unread_einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` whose products are recorded but not computed
+    (:class:`_SkipProducts`): a step's last product, when its backward
+    recomputes the step."""
+    with _SkipProducts():
+        return torch.einsum(eq, *operands)
+
+
+class _Remat(torch.autograd.Function):
+    """One loop step, ``body(*args, last=einsum)``, that saves only its
+    inputs: its backward runs ``body`` again under autograd with the last
+    products (those made by ``last``) skipped, and takes the gradients of
+    that graph, which are the un-checkpointed step's.  ``body`` holds no
+    tensor: every tensor is an arg, saved with ``save_for_backward``, so a
+    checkpoint around the loop (the model's remat) frees it too."""
+
+    @staticmethod
+    def forward(ctx, body, *args):
+        ctx.body = body
+        ctx.save_for_backward(*args)
+        ctx.set_materialize_grads(False)
+        return body(*args, last=torch.einsum)
+
+    @staticmethod
+    def backward(ctx, *d_outs):
+        counts["step_remat"] += 1
+        args = [t.detach().requires_grad_(need)
+                for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[1:])]
+        with torch.enable_grad():
+            outs = ctx.body(*args, last=_unread_einsum)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, d) for o, d in zip(outs, d_outs) if d is not None and o.requires_grad]
+        wrt = [t for t in args if t.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [d for _, d in pairs],
+                                       allow_unused=True) if pairs else [None] * len(wrt))
+        return (None, *(next(got) if t.requires_grad else None for t in args))
 
 
 def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -89,27 +153,38 @@ def flash_reference_blocked(
     m = torch.full((B, Hq, Sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, Hq, Sq), dtype=torch.float32, device=q.device)
     for j in range(nk):
-        kb, vb = k[:, :, j * bk:(j + 1) * bk], v[:, :, j * bk:(j + 1) * bk]
-        if rep > 1:
-            kb = kb.repeat_interleave(rep, dim=1)
-            vb = vb.repeat_interleave(rep, dim=1)
-        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb.float()) * scale_
-        s = _softcap(s, softcap)
-        kpos = j * bk + torch.arange(bk, device=q.device)[None, :]
-        mask = kpos < Sk
-        if causal:
-            mask = mask & (kpos <= qpos)
-        if window is not None:
-            mask = mask & (kpos > qpos - window)
-        s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb.float())
-        l = l * alpha + p.sum(dim=-1)
-        m = m_new
+        step = functools.partial(
+            _blocked_step, j=j, bk=bk, Sk=Sk, rep=rep, scale=scale_, softcap=softcap,
+            causal=causal, window=window)
+        acc, m, l = _Remat.apply(step, acc, m, l, qf, k[:, :, j * bk:(j + 1) * bk],
+                                 v[:, :, j * bk:(j + 1) * bk], qpos)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.to(q.dtype)
+
+
+def _blocked_step(acc, m, l, qf, kb, vb, qpos, *, j, bk, Sk, rep, scale, softcap, causal,
+                  window, last):
+    """K/V block ``j`` of :func:`flash_reference_blocked`: the carry
+    ``(acc, m, l)`` after it; ``qpos`` (Sq, 1) is each query row's
+    position."""
+    if rep > 1:
+        kb = kb.repeat_interleave(rep, dim=1)
+        vb = vb.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kb.float()) * scale
+    s = _softcap(s, softcap)
+    kpos = j * bk + torch.arange(bk, device=qf.device)[None, :]
+    mask = kpos < Sk
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    acc = acc * alpha[..., None] + last("bhqk,bhkd->bhqd", p, vb.float())
+    l = l * alpha + p.sum(dim=-1)
+    return acc, m_new, l
 
 
 def flash_reference_banded(
@@ -141,17 +216,26 @@ def flash_reference_banded(
     for i in range(S // cq):
         q_lo = i * cq
         start = max(0, q_lo + cq - band)
-        kb, vb = kr[:, :, start:start + band], vr[:, :, start:start + band]
-        s = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, q_lo:q_lo + cq],
-                         kb.float()) * scale_
-        s = _softcap(s, softcap)
-        qpos = q_lo + torch.arange(cq, device=q.device)[:, None]
-        kpos = start + torch.arange(band, device=q.device)[None, :]
-        mask = (kpos <= qpos) & (kpos > qpos - window)
-        s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
-        p = torch.softmax(s, dim=-1)
-        chunks.append(torch.einsum("bhqk,bhkd->bhqd", p, vb.float()).to(q.dtype))
+        step = functools.partial(_banded_step, q_lo=q_lo, start=start, window=window,
+                                 scale=scale_, softcap=softcap, dtype=q.dtype)
+        chunks.append(_Remat.apply(step, qf[:, :, q_lo:q_lo + cq],
+                                   kr[:, :, start:start + band], vr[:, :, start:start + band]))
     return torch.cat(chunks, dim=2)
+
+
+def _banded_step(qb, kb, vb, *, q_lo, start, window, scale, softcap, dtype, last):
+    """Query chunk ``qb`` (starting at row ``q_lo``) of
+    :func:`flash_reference_banded` against its band ``kb``, ``vb`` (starting
+    at key ``start``)."""
+    cq, band = qb.shape[2], kb.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", qb, kb.float()) * scale
+    s = _softcap(s, softcap)
+    qpos = q_lo + torch.arange(cq, device=qb.device)[:, None]
+    kpos = start + torch.arange(band, device=qb.device)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return last("bhqk,bhkd->bhqd", p, vb.float()).to(dtype)
 
 
 def decode_reference(
@@ -222,6 +306,24 @@ def ssd_reference(
     return y.to(x.dtype), h
 
 
+def _ssd_chunk_step(h, xq, dtq, Bq, Cq, Af, causal, *, last):
+    """One chunk of :func:`ssd_chunked_reference`: ``(y, h)``, the chunk's
+    output and the state after it; ``causal`` (1, Q, Q, 1) is j <= i."""
+    cum = torch.cumsum(dtq * Af[None, None, :], dim=1)               # (B, Q, H)
+    total = cum[:, -1]                                                # (B, H)
+    seg = cum[:, :, None, :] - cum[:, None, :, :]                     # (B, Qi, Qj, H)
+    # mask BEFORE exp: future entries have seg >> 0
+    decay = torch.exp(torch.where(causal, seg, torch.full_like(seg, NEG_INF)))
+    cb = torch.einsum("bihn,bjhn->bijh", Cq, Bq)
+    w = cb * decay * dtq[:, None, :, :]
+    y_intra = last("bijh,bjhp->bihp", w, xq)
+    y_inter = torch.einsum("bihn,bhpn,bih->bihp", Cq, h, torch.exp(cum))
+    w_state = torch.exp(total[:, None, :] - cum) * dtq                # (B, Q, H)
+    h = h * torch.exp(total)[..., None, None] + last(
+        "bjh,bjhp,bjhn->bhpn", w_state, xq, Bq)
+    return y_intra + y_inter, h
+
+
 def ssd_chunked_reference(x, dt, A, Bm, Cm, *, chunk: int = 64,
                           init_state=None) -> tuple:
     """Chunked SSD (the algorithm the kernel implements): an intra-chunk
@@ -240,20 +342,9 @@ def ssd_chunked_reference(x, dt, A, Bm, Cm, *, chunk: int = 64,
     ys = []
     for c in range(L // Q):
         sl = slice(c * Q, (c + 1) * Q)
-        xq, dtq, Bq, Cq = xf[:, sl], dtf[:, sl], Bh[:, sl], Ch[:, sl]
-        cum = torch.cumsum(dtq * Af[None, None, :], dim=1)           # (B, Q, H)
-        total = cum[:, -1]                                            # (B, H)
-        seg = cum[:, :, None, :] - cum[:, None, :, :]                 # (B, Qi, Qj, H)
-        # mask BEFORE exp: future entries have seg >> 0
-        decay = torch.exp(torch.where(causal, seg, torch.full_like(seg, NEG_INF)))
-        cb = torch.einsum("bihn,bjhn->bijh", Cq, Bq)
-        w = cb * decay * dtq[:, None, :, :]
-        y_intra = torch.einsum("bijh,bjhp->bihp", w, xq)
-        y_inter = torch.einsum("bihn,bhpn,bih->bihp", Cq, h, torch.exp(cum))
-        w_state = torch.exp(total[:, None, :] - cum) * dtq            # (B, Q, H)
-        h = h * torch.exp(total)[..., None, None] + torch.einsum(
-            "bjh,bjhp,bjhn->bhpn", w_state, xq, Bq)
-        ys.append(y_intra + y_inter)
+        y, h = _Remat.apply(_ssd_chunk_step, h, xf[:, sl], dtf[:, sl], Bh[:, sl], Ch[:, sl],
+                            Af, causal)
+        ys.append(y)
     y = torch.cat(ys, dim=1)
     return y.to(x.dtype), h
 
