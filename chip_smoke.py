@@ -237,9 +237,11 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  (spmd.counts: every product through the route, no
                  collective on one rank), no Mamba block on the
                  own-columns route (ssm.counts: one model rank multiplies
-                 the whole in_proj as it is) and no decode attention whose
+                 the whole in_proj as it is), no decode attention whose
                  cache length splits over "model" (attention.counts: one
-                 model rank holds the whole length);
+                 model rank holds the whole length) and no head call that
+                 splits the vocab over "model" (transformer.counts: one
+                 model rank computes every column);
                  (c) checkpoint_restart: the train phase's ResilientRunner
                  (reduced TRAIN_ARCH, a checkpoint every 2 steps, one fault
                  at TRAIN_RESTART_FAULT) on the mesh, its state DTensors,
@@ -383,9 +385,9 @@ DRYRUN_CELLS = (("mamba2-780m", "decode_32k", (False, True)),   # (arch, cell, m
                 ("qwen2-7b", "prefill_32k", (False,)), ("qwen2-7b", "train_4k", (False,)),
                 ("mixtral-8x22b", "decode_32k", (False,)))
 # mamba2-780m decode_32k on the 256-rank mesh: tests/test_torch_dryrun.py's PINNED_POD1
-DRYRUN_PINNED = {"hlo_dot_flops": 1966669824.0,
+DRYRUN_PINNED = {"hlo_dot_flops": 808230912.0,
                  "collective_bytes": {"all-gather": 11392000, "all-to-all": 2408448,
-                                     "all-reduce": 36828672}}
+                                     "all-reduce": 12694528}}
 DRYRUN_MEM_REL = 0.2        # train record's argument + temp bytes against the measured peak
 DRYRUN_TIMEOUT_S = 300      # the dry-run subprocess (about 60-100 s on the chip host)
 # the row split's kernel launches (each model rank's query rows, q_offset =
@@ -2771,7 +2773,7 @@ def _mesh_serve(faults: list, mesh) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd as sm
     from repro_torch.launch.serve import BatchedServer, Request
-    from repro_torch.models import attention, init_params, ssm
+    from repro_torch.models import attention, init_params, ssm, transformer
 
     cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=SERVE_LAYERS)
     torch.cuda.empty_cache()
@@ -2802,12 +2804,14 @@ def _mesh_serve(faults: list, mesh) -> dict:
             spmd.counts.update(products=0, collectives=0)
             ssm.counts["own_columns"] = 0
             attention.counts["length_model"] = 0
+            transformer.counts["head_columns"] = 0
             with ops.checking(lambda name, st: checks.setdefault(name, []).append(st)):
                 server.run_group(group)
             torch.cuda.synchronize()
             route = dict(spmd.counts)
             own = ssm.counts["own_columns"]
             length_model = attention.counts["length_model"]
+            head_columns = transformer.counts["head_columns"]
         finally:
             ctx.set_mesh(None)
         launches = {name: fn.launches for name, fn in kernels.items()}
@@ -2820,7 +2824,7 @@ def _mesh_serve(faults: list, mesh) -> dict:
                       "prefill_ms": t["prefill_ms"], "decode_ms_median": dec[len(dec) // 2],
                       "decode_steps": len(dec), "prompt_len": t["prompt_len"],
                       "stationary_route": route, "own_columns": own,
-                      "length_model": length_model}
+                      "length_model": length_model, "head_columns": head_columns}
         runs[path]["err"] = _checked(checks, faults, phase="mesh", part="serve", path=path)
         emit({"phase": "mesh", "part": "serve", "path": path,
               **{k: v for k, v in runs[path].items() if k != "tokens"},
@@ -2841,6 +2845,9 @@ def _mesh_serve(faults: list, mesh) -> dict:
         if length_model:
             faults.append(f"serve {path}: {length_model} decode attentions split the cache "
                           f"length over model")
+        # on one model rank the whole vocab is its own
+        if head_columns:
+            faults.append(f"serve {path}: {head_columns} head calls split the vocab over model")
         if runs[path]["by_body"]["wgmma"] != launches["flash_attention"] or \
                 runs[path]["ssd_by_body"]["chunked"] != launches["ssd_chunked"] or \
                 runs[path]["decode_by_body"]["wgmma"] != launches["flash_decode"]:

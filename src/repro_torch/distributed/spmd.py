@@ -38,6 +38,7 @@ dtype; a ``full_tensor()`` before that sums them in fp32.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import NamedTuple
 
 import torch
@@ -309,18 +310,43 @@ def use(leaf, *spec, model_partial: bool = False, rows_partial: bool = True):
         elif axis not in sharded and (partial or axis in spec):
             t = sum_grad(t, axis)
         if axis in spec and axis not in sharded:         # this rank's slice of the whole
-            t = t.chunk(ctx.axis_size(axis), spec.index(axis))[rank(axis)]
+            t = own_part(t, spec.index(axis), axis)
     return t
 
 
-def wrap(t: torch.Tensor, *spec):
+def part(n: int, m: int, r: int) -> tuple:
+    """Rank ``r``'s (start, length) of a dim of ``n`` split over ``m`` ranks
+    as DTensor's ``Shard`` splits it: ceil(n / m) a rank, the rest on the
+    last rank that has any, and an empty part on a rank past the end
+    (``torch.chunk`` returns fewer than m pieces there)."""
+    per = -(-n // m)
+    start = min(r * per, n)
+    return start, min(start + per, n) - start
+
+
+def own_part(t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    """This rank's part of ``t``'s dim ``dim`` split over ``axis``
+    (``part``): a view, split off as ``torch.chunk`` splits."""
+    m = ctx.axis_size(axis)
+    sizes = [part(t.shape[dim], m, r)[1] for r in range(m)]
+    return t.split(sizes, dim)[rank(axis)]
+
+
+def wrap(t: torch.Tensor, *spec, shape=None):
     """A local result of every rank as one DTensor placed by ``spec`` (no
-    communication); for what an entry point returns.  With no mesh, ``t``."""
+    communication); for what an entry point returns.  ``shape`` is the
+    global shape, needed where a dim splits unevenly (``part``); without
+    it each sharded dim is taken as the local one times its ranks.  With
+    no mesh, ``t``."""
     if ctx.get_mesh() is None:
         return t
     from repro_torch.distributed.sharding import placements
+    kw = {}
+    if shape is not None:              # contiguous strides, no tensor made for them
+        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        kw = dict(shape=torch.Size(shape), stride=stride)
     return DTensor.from_local(t, ctx.get_mesh(), placements(spec, ctx.get_mesh()),
-                              run_check=False)
+                              run_check=False, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -474,12 +500,13 @@ def _roles(placements, spec: tuple, by_dim: dict) -> dict:
 
 
 def _slice_named(t: torch.Tensor, placements, spec) -> torch.Tensor:
-    """``t`` sliced to this rank's part of each dim the spec names over an
-    axis that holds the weight whole there (no communication)."""
+    """``t`` sliced to this rank's part (``part``) of each dim the spec
+    names over an axis that holds the weight whole there (no
+    communication)."""
     sharded = _sharded_dims(placements)
     for dim, axis in enumerate(spec):
         if axis is not None and axis not in sharded and ctx.axis_size(axis) > 1:
-            t = t.chunk(ctx.axis_size(axis), dim)[rank(axis)]
+            t = own_part(t, dim, axis)
     return t
 
 

@@ -30,8 +30,9 @@ batch (tokens, labels, frames: the same on every rank).  Each rank runs
 the stack on its rows (``distributed.spmd``): its data-parallel shard of
 the batch at every block, as the JAX package constrains the stack, or the
 whole batch where the shards do not divide it.  The logits come back as a
-DTensor sharded over "model" on the vocab where it divides (``pad_vocab``
-pads it to divide), the decode cache as DTensors in the kernels' layout
+DTensor sharded over "model" on the vocab, in ``Shard``'s uneven layout
+where the vocab does not divide it (the loss pads it to divide,
+``pad_vocab``), the decode cache as DTensors in the kernels' layout
 (rows over the data axes, KV or Mamba heads over "model"; a self-attention
 cache's length over the data axes where they do not divide the batch and
 do divide that length, else over "model" where the attention keeps every
@@ -55,6 +56,11 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (logit_softcap, mlp_apply, mlp_init,
                                        norm_apply, norm_init, normal_init)
+
+# head calls outside the loss that computed only this model rank's columns
+# of a vocab the model axis does not divide (``_uneven_vocab``), since the
+# caller last set it to 0
+counts = {"head_columns": 0}
 
 # ---------------------------------------------------------------------------
 # init
@@ -216,23 +222,34 @@ def _embed(params, cfg: ArchConfig, tokens, prefix_embeds=None,
     return x
 
 
+def _uneven_vocab(cfg: ArchConfig) -> bool:
+    """Whether a model axis of more than one rank does not divide the vocab:
+    outside the loss the head then splits it unevenly (``_head``)."""
+    m = ctx.axis_size("model")
+    return m > 1 and cfg.vocab_size % m != 0
+
+
 def _head(params, cfg: ArchConfig, x, compute_dtype, pad_vocab: bool = False):
     """The LM head with the final softcap on this rank's rows: (fp32 logits
     of its vocab shard, the vocab's axis or None; with no mesh, all of the
     vocab and None).  ``pad_vocab`` (the loss path) pads the vocab to a
     multiple of the model axis, so the logits shard over it even where the
     vocab does not divide it; the pad columns carry logits of -1e30, which
-    softmax does not see, and the padded shape is kept through the loss."""
+    softmax does not see, and the padded shape is kept through the loss.
+    Without it a vocab that does not divide the model axis splits as
+    ``Shard`` splits it (``spmd.part``): each model rank computes only its
+    own columns, ceil(V / m) of them, fewer on the last (``counts``)."""
     V, m = cfg.vocab_size, ctx.axis_size("model")
     pad = (-V) % m if pad_vocab and m > 1 else 0
-    v_ax = ctx.div_axis(V + pad)
+    uneven = not pad_vocab and _uneven_vocab(cfg)
+    v_ax = "model" if uneven else ctx.div_axis(V + pad)
     h = norm_apply(x, spmd.use(params["final_norm"]), cfg).to(compute_dtype)
     if v_ax:
         h = spmd.enter_model(h)
     tied = cfg.tie_embeddings
-    n = (V + pad) // m if v_ax else V + pad
-    v0 = spmd.rank("model") * n if v_ax else 0
     if pad:                      # a slice of the whole, padded (the loss path)
+        n = (V + pad) // m if v_ax else V + pad
+        v0 = spmd.rank("model") * n if v_ax else 0
         kw = dict(model_partial=bool(v_ax))
         w = (spmd.use(params["embed"], **kw).T if tied
              else spmd.use(params["lm_head"], **kw)).to(compute_dtype)
@@ -242,11 +259,21 @@ def _head(params, cfg: ArchConfig, x, compute_dtype, pad_vocab: bool = False):
         logits = spmd.dot(h, params["embed"], v_ax, None, transposed=True)
     else:
         logits = spmd.dot(h, params["lm_head"], None, v_ax)
+    if uneven:
+        counts["head_columns"] += 1
     logits = logit_softcap(logits.float(), cfg.logit_softcap)
     if pad:
         cols = torch.arange(v0, v0 + n, device=logits.device)
         logits = logits + torch.where(cols >= V, -1e30, 0.0)
     return logits, v_ax
+
+
+def _wrap_logits(logits, cfg: ArchConfig, batch: int, v_ax):
+    """Every rank's logits as one DTensor: rows over the data axes where
+    they divide the batch, the vocab over ``v_ax`` (unevenly where the
+    vocab does not divide it, ``_head``)."""
+    spec = (ctx.batch_spec(batch),) + (None,) * (logits.ndim - 2) + (v_ax,)
+    return spmd.wrap(logits, *spec, shape=(batch, *logits.shape[1:-1], cfg.vocab_size))
 
 
 # ---------------------------------------------------------------------------
@@ -286,12 +313,13 @@ def _encoded(params, cfg: ArchConfig, enc_frames, **kw):
 def lm_logits(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
               enc_frames=None, compute_dtype=torch.bfloat16, impl=None, genome=None):
     """fp32 logits (B, S, V) of every position; under a mesh a DTensor, its
-    rows over the data axes and its vocab over "model" where they divide."""
+    rows over the data axes where they divide and its vocab over "model"
+    (unevenly where the vocab does not divide it)."""
     B = tokens.shape[0]
     with spmd.rows(spmd.batch_sharded(B)):
         logits, v_ax = _logits(params, cfg, tokens, prefix_embeds, enc_frames, compute_dtype,
                                impl, genome)
-    return spmd.wrap(logits, ctx.batch_spec(B), None, v_ax)
+    return _wrap_logits(logits, cfg, B, v_ax)
 
 
 def _logits(params, cfg: ArchConfig, tokens, prefix_embeds, enc_frames, compute_dtype,
@@ -365,7 +393,7 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *, prefix_embeds=None
                             compute_dtype=compute_dtype, enc_out=enc_out,
                             impl=impl, genome=genome, collect=True)
         logits, v_ax = _head(params, cfg, x[:, -1:], compute_dtype)
-        logits = spmd.wrap(logits[:, 0], ctx.batch_spec(B), v_ax)
+        logits = _wrap_logits(logits[:, 0], cfg, B, v_ax)
 
     layers = {}
     for i, blk in enumerate(cfg.pattern):
@@ -533,5 +561,5 @@ def decode_step(params, cfg: ArchConfig, cache, token, *,
                 elif blk.mlp != "none":
                     x = mlp_apply(x[:, None], p["mlp"], cfg, blk, compute_dtype)[:, 0]
         logits, v_ax = _head(params, cfg, x, compute_dtype)
-        logits = spmd.wrap(logits, ctx.batch_spec(B), v_ax)
+        logits = _wrap_logits(logits, cfg, B, v_ax)
     return logits, dict(cache, pos=pos + 1)

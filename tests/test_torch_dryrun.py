@@ -56,9 +56,9 @@ FLOPS_REL = 0.15
 SSD_EINSUM_REL = 0.01
 # mamba2-780m decode_32k on the 256-rank mesh: the pod1 record's dot FLOPs
 # and collective bytes by kind (chip_smoke.py's dryrun phase pins the same)
-PINNED_POD1 = {"hlo_dot_flops": 1966669824.0,
+PINNED_POD1 = {"hlo_dot_flops": 808230912.0,
                "collective_bytes": {"all-gather": 11392000, "all-to-all": 2408448,
-                                      "all-reduce": 36828672}}
+                                      "all-reduce": 12694528}}
 
 
 def _env():
@@ -498,6 +498,65 @@ def test_decode_32k_splits_the_cache_length_over_model():
     assert whole["args"] - split["args"] == kv - kv // m
     assert split["coll"]["model"] - whole["coll"].get("model", 0) == gathered
     assert split["coll"]["data"] == whole["coll"]["data"]
+
+
+_HEAD_COLUMNS = """
+import dataclasses, json
+from repro_torch.configs.base import SHAPES_BY_NAME
+from repro_torch.configs.registry import get_arch
+from repro_torch.launch import dryrun
+from repro_torch.models import transformer
+mesh = dryrun.production_mesh(False)
+cell = SHAPES_BY_NAME["decode_32k"]
+out = {}
+for arch in ("seamless-m4t-medium", "mamba2-780m"):
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2)
+    for tag in ("split", "whole"):
+        split = transformer._uneven_vocab
+        if tag == "whole":                   # every vocab column on every model rank
+            transformer._uneven_vocab = lambda cfg: False
+        transformer.counts["head_columns"] = 0
+        traced = dryrun.trace_cell(cfg, cell, mesh)
+        rec = dryrun.analyze(cfg, cell, traced, mesh)
+        transformer._uneven_vocab = split
+        out[arch + " " + tag] = {"sites": traced.counter.dot_sites,
+                                 "coll": rec["collectives"]["by_axis"],
+                                 "head_columns": transformer.counts["head_columns"]}
+print(json.dumps(out))
+"""
+
+
+def test_decode_32k_splits_the_head_columns_over_model():
+    """seamless-m4t-medium (untied head, V = 256 206) and mamba2-780m (tied,
+    V = 50 280) ``decode_32k`` at full width, 2 layers, on the fake
+    256-rank mesh: 128 rows over 16 data ranks.  Neither vocab divides
+    model = 16, so the head's weight keeps its vocab whole over "model"
+    and its d_model over "data" (64 and 96 rows a rank); each model rank
+    computes only its ceil(V / 16) columns (16 013 and 3 143 on rank 0).
+    Against the same trace with every column on every model rank
+    (``transformer._uneven_vocab`` off): the head's dot FLOPs fall from
+    2 x 128 x d x V to 2 x 128 x d x ceil(V / 16), the collective bytes
+    over "data" by the fp32 partial logits of the other columns, 128 x (V -
+    ceil(V / 16)) x 4, and "model"'s bytes and every other site are
+    equal."""
+    run = subprocess.run([sys.executable, "-c", _HEAD_COLUMNS], env=_env(), cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    rows, m = 128, 16
+    for arch, (d, V, own) in {"seamless-m4t-medium": (64, 256206, 16013),
+                              "mamba2-780m": (96, 50280, 3143)}.items():
+        split, whole = got[arch + " split"], got[arch + " whole"]
+        assert own == -(-V // m) and d == get_arch(arch).d_model // m
+        assert split["head_columns"] == 1 and whole["head_columns"] == 0
+        head = [s for s in split["sites"] if "_head" in s]
+        assert len(head) == 1 and set(split["sites"]) == set(whole["sites"]), arch
+        assert split["sites"][head[0]] == 2 * rows * d * own
+        assert whole["sites"][head[0]] == 2 * rows * d * V
+        assert {s: f for s, f in split["sites"].items() if s not in head} == \
+            {s: f for s, f in whole["sites"].items() if s not in head}
+        assert whole["coll"]["data"] - split["coll"]["data"] == rows * (V - own) * 4
+        assert split["coll"]["model"] == whole["coll"]["model"]
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,9 @@ port's) while the ranks run.
 Worlds:
   * 4 ranks as (data=2, model=2): Q heads, experts and vocab sharded;
   * 3 ranks as (data=1, model=3): the reduced models' 4 heads and vocab of
-    256 do not divide 3 (``pad_vocab``), and an expert hidden dim of 48 does
-    (TP over the experts).  At S = 16, which 3 does not divide either, every
+    256 do not divide 3 (the loss pads the vocab, ``pad_vocab``; elsewhere
+    each model rank computes its own 86, 86 or 84 columns), and an expert
+    hidden dim of 48 does (TP over the experts).  At S = 16, which 3 does not divide either, every
     self-attention takes the head fallback; at S = ``ROW_S`` = 18 it takes
     the JAX package's row split (query rows over "model", the kernel's
     ``q_offset``), where the reduced windows of 16 meet the offset; and
@@ -91,20 +92,35 @@ def _inputs(cfg, s=S):
     return toks, frames
 
 
-def _logits(arch, npw, s=S):
+def _head_layout(t, heads):
+    """Append to ``heads`` (a list; None: nothing) every rank's vocab
+    columns of the logits DTensor ``t`` in rank order, and its whole
+    shape.  Every rank calls it: the columns are gathered."""
+    import torch.distributed as dist
+    if heads is None:
+        return
+    cols = [None] * dist.get_world_size()
+    dist.all_gather_object(cols, t.to_local().shape[-1])
+    heads.append((tuple(cols), tuple(t.full_tensor().shape)))
+
+
+def _logits(arch, npw, s=S, heads=None):
+    """``lm_logits``, whole; ``heads`` gets their layout (``_head_layout``)."""
     from repro_torch.models import lm_logits
     cfg = _cfg(arch)
     toks, frames = _inputs(cfg, s)
     out = lm_logits(_place(_weights(cfg, npw), cfg), cfg, toks, enc_frames=frames,
                     compute_dtype=torch.float32, impl="blocked")
+    _head_layout(out, heads)
     return _whole(out)
 
 
-def _greedy(arch, npw, s=S, cache_out=None, max_len=None):
+def _greedy(arch, npw, s=S, cache_out=None, max_len=None, heads=None):
     """Prefill and NEW decode steps through the kernel wrappers (their plain
     versions on CPU tensors), greedy, in a cache of ``max_len`` (default
     ``s + NEW``).  ``cache_out`` (a list) gets the leaves of the cache
-    ``prefill`` returns, whole."""
+    ``prefill`` returns, whole; ``heads`` the layout of each call's
+    logits (``_head_layout``)."""
     from repro_torch.models import decode_step, prefill
     from repro_torch.tree import tree_leaves
     cfg = _cfg(arch)
@@ -116,9 +132,11 @@ def _greedy(arch, npw, s=S, cache_out=None, max_len=None):
                                 cache_dtype=torch.float32, **kw)
         if cache_out is not None:
             cache_out.extend(_whole(t).clone() for t in tree_leaves(cache["layers"]))
+        _head_layout(logits, heads)
         out = [torch.argmax(_whole(logits), -1)]
         for _ in range(NEW):
             logits, cache = decode_step(params, cfg, cache, out[-1], **kw)
+            _head_layout(logits, heads)
             out.append(torch.argmax(_whole(logits), -1))
     return torch.stack(out, 1)
 
@@ -225,17 +243,23 @@ def _world_models(rank, model, moe_cases, weights, row_s=None):
     split over "model" counted per arch (``attention.counts``)."""
     from repro_torch.distributed import context as ctx
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import attention, ssm
+    from repro_torch.models import attention, ssm, transformer
     mesh = make_host_mesh(model=model, device="cpu")
     ctx.set_mesh(mesh)
     out = {"mesh": {n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)}}
     attention.counts.update(row_split=0, length_model=0)
     for arch in ARCHS5:
         ssm.counts["own_columns"] = 0
-        out[("logits", arch)] = _logits(arch, weights[arch])
+        transformer.counts["head_columns"] = 0
+        out[("heads", arch)] = []
+        out[("logits", arch)] = _logits(arch, weights[arch], heads=out[("heads", arch)])
         out[("own_columns", arch)] = ssm.counts["own_columns"]
+        out[("head_columns", arch, "logits")] = transformer.counts["head_columns"]
+        transformer.counts["head_columns"] = 0
         out[("cache", arch)] = []
-        out[("greedy", arch)] = _greedy(arch, weights[arch], cache_out=out[("cache", arch)])
+        out[("greedy", arch)] = _greedy(arch, weights[arch], cache_out=out[("cache", arch)],
+                                        heads=out[("heads", arch)])
+        out[("head_columns", arch, "greedy")] = transformer.counts["head_columns"]
     for arch in TRAIN_ARCHS:
         out[("grads", arch)] = _grads(arch, weights[arch])
         out[("train", arch)] = _train(arch, weights[arch])
@@ -597,6 +621,7 @@ def test_mesh_data2_model2_matches_one_device(tmp_path):
     assert res["length_model_at_S"] == 0         # the Q heads split over "model"
     for arch in ARCHS5:                 # jamba's 8 SSD heads, 4 a model rank
         assert res[("own_columns", arch)] == _mamba_blocks(_cfg(arch)), arch
+    _check_heads(res, (128,) * 4, 0)    # a vocab of 256 divides 2: evenly
     _check_models(res, ref)
     want = np.asarray(jax_grouped(jnp.asarray(x), jp, jcfg, jnp.float32, groups=2))
     got = res[("moe", "grouped")].numpy()
@@ -659,6 +684,30 @@ def test_mesh_model3_head_fallback_and_pad_vocab(model3_world):
     assert _rel(got, want) <= REL and abs(float(got_aux) - aux) <= REL * aux
     assert abs(float(got_aux) - float(one_aux)) <= REL * aux
     assert len(tree_leaves(res[("train", "qwen2-7b")]["params"])) > 0
+
+
+def _check_heads(res, columns, per_call):
+    """Each arch's ``lm_logits`` call, then its prefill and NEW decode
+    steps: ``per_call`` head calls each took the uneven vocab split
+    (``transformer.counts["head_columns"]``), every rank held ``columns``
+    of the vocab, and the whole logits are (B, S, V), then (B, V)."""
+    for arch in ARCHS5:
+        V = _cfg(arch).vocab_size
+        assert res[("head_columns", arch, "logits")] == per_call, arch
+        assert res[("head_columns", arch, "greedy")] == per_call * (1 + NEW), arch
+        assert res[("heads", arch)] == [(columns, (B, S, V))] + [(columns, (B, V))] * (1 + NEW)
+
+
+def test_mesh_model3_head_splits_the_vocab_unevenly(model3_world):
+    """(data=1, model=3) at S = 16: a vocab of 256 does not divide 3, so
+    outside the loss each model rank computes only its own columns of the
+    head (tied and untied), as DTensor's ``Shard`` splits them: 86, 86
+    and 84.  ``lm_logits``, ``prefill`` and each decode step return the
+    logits sharded so, whole (B, S, 256) and (B, 256) through
+    ``full_tensor()``; one head call of each took the split.  Their values
+    and tokens are held to the JAX package's and the one-device port's in
+    ``test_mesh_model3_head_fallback_and_pad_vocab``."""
+    _check_heads(model3_world["res"], (86, 86, 84), 1)
 
 
 def _mamba_blocks(cfg) -> int:

@@ -11,10 +11,12 @@ exchanged first and cut back after.  Nothing gathers a weight.
 * (a) Every route of ``spmd.dot`` and ``spmd.lookup`` (contracting over
   "data", output over "data", output over "model" with the heads whole and
   named, contracting over "model", the 3-D expert weights EP and TP and
-  whole, the tied head transposed, the table lookup with the vocab over
-  "model" and whole), with the rows split (a batch of 4) and whole (a
-  batch of 1), against the same call outside the scope (``h @ use(W,
-  *spec)``).  fp32; within ``PRODUCT_REL`` = 1e-6 relative to the largest
+  whole, the tied head transposed, the head tied and untied with a vocab
+  that divides no model axis named over "model" (each rank its own
+  columns, as ``Shard`` splits them: ``spmd.part``), the table lookup
+  with the vocab over "model" and whole), with the rows split (a batch of
+  4) and whole (a batch of 1), against the same call outside the scope
+  (``h @ use(W, *spec)``).  fp32; within ``PRODUCT_REL`` = 1e-6 relative to the largest
   magnitude.  With every axis of size 1 but "pod" the route issues no
   collective.
 * (b) An unhandled placement raises: an expert dim sharded over "model"
@@ -62,6 +64,9 @@ CASES = {
     "expert_whole": ((6, 24, 12), (None, "data", None), (), False),
     "head_tied": ((36, 24), ("model", "data"), ("model", None), True),
     "head_tied_vocab_whole": ((36, 24), (None, "data"), (), True),
+    # a vocab of 35 divides no model axis of 2 or 3: each rank its own columns
+    "head_vocab_uneven": ((24, 35), ("data", None), (None, "model"), False),
+    "head_tied_vocab_uneven": ((35, 24), (None, "data"), ("model", None), True),
 }
 LOOKUPS = {"lookup": ("model", "data"), "lookup_vocab_whole": (None, "data")}
 TABLE = (36, 24)
@@ -106,10 +111,26 @@ def _local_input(shape, spec, transposed, rows, seed):
     return h
 
 
+def _columns(shape, spec, transposed) -> int:
+    """A product's output columns on this rank: ``Shard``'s part of the
+    output dim where the block's spec names "model" there, else all."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.distributed import context as ctx
+    from repro_torch.distributed import spmd
+    od = len(shape) - (2 if transposed else 1)
+    n = shape[od]
+    if (tuple(spec) + (None,) * len(shape))[od] != "model":
+        return n
+    parts, _ = Shard(0)._split_tensor(torch.empty(n), ctx.axis_size("model"),
+                                      with_padding=False)
+    return parts[spmd.rank("model")].numel()
+
+
 def _products() -> dict:
     """Every case at a batch of 4 and of 1: the largest relative error of
-    the stationary route against the same call outside the scope, and the
-    collectives the route issued."""
+    the stationary route against the same call outside the scope, the
+    collectives the route issued, and its output columns beside
+    ``_columns``."""
     from repro_torch.distributed import spmd
     out = {}
     for batch in BATCHES:
@@ -121,7 +142,9 @@ def _products() -> dict:
                 spmd.counts.update(products=0, collectives=0)
                 with torch.no_grad(), spmd.stationary():
                     got = spmd.dot(h, w, *spec, transposed=tr)
-                out[(name, batch)] = (_rel(got, want), dict(spmd.counts))
+                out[(name, batch)] = (_rel(got, want), dict(
+                    spmd.counts, columns=(got.shape[-1], want.shape[-1],
+                                          _columns(shape, spec, tr))))
             for i, (name, place) in enumerate(LOOKUPS.items()):
                 table = _weight(TABLE, place, 50 + i)
                 ids = spmd.local_rows(torch.from_numpy(
@@ -283,6 +306,21 @@ def runs(tmp_path_factory):
     return {job: finish() for job, finish in running.items()}, one, jax_ref
 
 
+@pytest.mark.parametrize("m", [2, 3, 4, 16])
+def test_part_is_shards_split(m):
+    """``spmd.part`` (a rank's part of a dim that ``m`` ranks split) on
+    every size up to 3m + 2 and every rank: the elements of DTensor's
+    ``Shard`` split, an empty part on a rank past the end, where
+    ``torch.chunk`` returns fewer than m pieces (5 over 4: 2, 2, 1, 0)."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.distributed.spmd import part
+    assert len(torch.arange(5).chunk(4)) == 3
+    for n in range(3 * m + 3):
+        pieces, _ = Shard(0)._split_tensor(torch.arange(n), m, with_padding=False)
+        for r in range(m):
+            assert torch.equal(torch.arange(n).narrow(0, *part(n, m, r)), pieces[r]), (n, m, r)
+
+
 @pytest.mark.parametrize("job", list(WORLDS))
 def test_products_on_the_shards_match_use(runs, job):
     ranks, _, _ = runs
@@ -293,6 +331,8 @@ def test_products_on_the_shards_match_use(runs, job):
         for key, (err, counts) in per_rank.items():
             assert err <= PRODUCT_REL, (job, key, err)
             assert counts["products"] == 1, (job, key, counts)
+            if "columns" in counts:            # a product's, not a lookup's
+                assert len(set(counts["columns"])) == 1, (job, key, counts)
             if res["mesh"]["data"] == res["mesh"]["model"] == 1:
                 assert counts["collectives"] == 0, (job, key, counts)
     if job == "data2_model2":            # the routes that move activations did
