@@ -226,7 +226,9 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  parameters and moments, gradients reduced to their
                  placements) and as many unsharded from the same seed: the
                  first-step losses within MESH_LOSS_REL, each step's loss,
-                 grad norm, seconds and the peak memory of both; (b)
+                 grad norm, seconds and the peak memory of both, and no
+                 loss call on the vocab shards (transformer.counts
+                 ["loss_shards"]: one model rank holds the whole vocab); (b)
                  jamba-v0.1-52b at full width (serve's depth), one group of
                  SERVE_BATCH requests of SERVE_PROMPT lengths, MESH_SERVE_NEW
                  greedy tokens through BatchedServer on the mesh and off it,
@@ -2646,13 +2648,15 @@ def _mesh_train(faults: list, mesh) -> dict:
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.distributed import context as ctx
+    from repro_torch.models import transformer
 
     cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
-    rows, peak = {}, {}
+    rows, peak, loss_shards = {}, {}, {}
     for path in ("mesh", "unsharded"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ctx.set_mesh(mesh if path == "mesh" else None)
+        transformer.counts["loss_shards"] = 0
         try:
             rows[path] = _full_width_steps(
                 cfg, torch.bfloat16, MESH_TRAIN_STEPS,
@@ -2660,8 +2664,14 @@ def _mesh_train(faults: list, mesh) -> dict:
                     path, torch.cuda.max_memory_allocated() / 2 ** 30))
         finally:
             ctx.set_mesh(None)
+        loss_shards[path] = transformer.counts["loss_shards"]
         for i, r in enumerate(rows[path]):
             emit({"phase": "mesh", "part": "train", "path": path, "step": i, **r})
+        # on one model rank the whole vocab is its own: the loss takes the
+        # log-softmax over it as off the mesh
+        if loss_shards[path]:
+            faults.append(f"train {path}: {loss_shards[path]} loss calls took the "
+                          f"log-softmax over vocab shards")
     first = [rows[p][0]["loss"] for p in ("mesh", "unsharded")]
     rel = abs(first[0] - first[1]) / abs(first[1])
     steady = {p: sorted(r["s"] for r in rows[p][1:]) or [rows[p][0]["s"]] for p in rows}
@@ -2674,7 +2684,7 @@ def _mesh_train(faults: list, mesh) -> dict:
            "first_step_loss_rel": rel, "tol": MESH_LOSS_REL,
            "s_per_step": {p: v[len(v) // 2] for p, v in steady.items()},
            "first_step_s": {p: rows[p][0]["s"] for p in rows},
-           "peak_gib": peak}
+           "peak_gib": peak, "loss_shards": loss_shards}
     emit({"phase": "mesh", "summary": "train", **out})
     if not rel <= MESH_LOSS_REL:
         faults.append(f"train: first-step losses {first} differ by {rel:.3g} relative")

@@ -229,6 +229,14 @@ def merge_over(axes, o: torch.Tensor, M: torch.Tensor, l: torch.Tensor) -> torch
     return merge_partials(t[..., :D], t[..., D], t[..., D + 1])
 
 
+def reduce_over(axis: str, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """``t`` reduced over ``axis`` by ``op`` ("sum" or "max") in place, with
+    no gradient; ``t`` as it is on one rank."""
+    if ctx.axis_size(axis) > 1:
+        dist.all_reduce(t, op=getattr(dist.ReduceOp, op.upper()), group=_group(axis))
+    return t
+
+
 def batch_axes_sum(t: torch.Tensor) -> torch.Tensor:
     """The sum over the data-parallel ranks, with no gradient (counts)."""
     t = t.detach().clone()

@@ -57,10 +57,11 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (logit_softcap, mlp_apply, mlp_init,
                                        norm_apply, norm_init, normal_init)
 
-# head calls outside the loss that computed only this model rank's columns
-# of a vocab the model axis does not divide (``_uneven_vocab``), since the
-# caller last set it to 0
-counts = {"head_columns": 0}
+# since the caller last set them to 0: head calls outside the loss that
+# computed only this model rank's columns of a vocab the model axis does not
+# divide (``_uneven_vocab``), and ``lm_loss`` calls whose log-softmax ran on
+# this model rank's vocab shard (``_ShardNLL``)
+counts = {"head_columns": 0, "loss_shards": 0}
 
 # ---------------------------------------------------------------------------
 # init
@@ -336,6 +337,37 @@ def _logits(params, cfg: ArchConfig, tokens, prefix_embeds, enc_frames, compute_
     return _head(params, cfg, x, compute_dtype, pad_vocab)
 
 
+class _ShardNLL(torch.autograd.Function):
+    """Each row's log-probability of its label from this model rank's shard
+    ``z`` (B_r, S, n) of the fp32 logits, the columns [v0, v0 + n) of the
+    padded vocab: the row max and the sum of exponentials reduced over
+    "model", and the label's logit from the one rank that holds it (0 from
+    the others), summed over "model": three (B_r, S) all-reduces.  Pad
+    columns (-1e30) add exp 0.  The backward is g · (one-hot − softmax) on
+    the shard, with no collective; the model ranks' partial gradients of
+    the head's input are summed by ``_head``'s ``enter_model``."""
+
+    @staticmethod
+    def forward(fctx, z, labels, v0):
+        n = z.shape[-1]
+        top = spmd.reduce_over("model", z.amax(-1), "max")
+        e = (z - top[..., None]).exp_()
+        total = spmd.reduce_over("model", e.sum(-1))
+        local = labels - v0
+        held = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)[..., None]
+        picked = spmd.reduce_over("model", torch.where(held, z.gather(-1, local)[..., 0], 0.0))
+        fctx.save_for_backward(e.div_(total[..., None]), local, held)
+        return picked - top - torch.log(total)
+
+    @staticmethod
+    def backward(fctx, g):
+        p, local, held = fctx.saved_tensors
+        grad = p.mul_(-g[..., None])          # p is not read again
+        grad.scatter_add_(-1, local, (g * held)[..., None])
+        return grad, None, None
+
+
 def lm_loss(params, cfg: ArchConfig, batch, *, compute_dtype=torch.bfloat16,
             impl=None, genome=None):
     """Next-token cross-entropy.  batch: {tokens, labels, [prefix_embeds],
@@ -344,22 +376,27 @@ def lm_loss(params, cfg: ArchConfig, batch, *, compute_dtype=torch.bfloat16,
     others (at least 1).  Training takes ``impl="blocked"``: the kernels
     have no backward and refuse inputs that require grad.  Under a mesh the
     batch must divide the data-parallel ranks, and the vocab is padded to a
-    multiple of the model axis (``_head``)."""
+    multiple of the model axis (``_head``); with more than one model rank
+    each takes the log-softmax over its own vocab shard (``_ShardNLL``,
+    ``counts["loss_shards"]``), the logits never gathered."""
     B = batch["tokens"].shape[0]
     if B % spmd.dp_size():
         raise ValueError(f"a batch of {B} does not split over the "
                          f"{spmd.dp_size()} data-parallel ranks")
     with spmd.rows(spmd.batch_sharded(B)):
-        logits, v_ax = _logits(params, cfg, batch["tokens"], batch.get("prefix_embeds"),
-                               batch.get("enc_frames"), compute_dtype, impl, genome,
-                               pad_vocab=True)
-    if v_ax:
-        logits = spmd.gather(logits, -1, "model", partial=False)
+        logits, _ = _logits(params, cfg, batch["tokens"], batch.get("prefix_embeds"),
+                            batch.get("enc_frames"), compute_dtype, impl, genome,
+                            pad_vocab=True)
     labels = spmd.local_rows(batch["labels"]).long()
     mask = (labels >= 0).float()
-    logp = torch.log_softmax(logits, dim=-1)
-    del logits
-    ll = torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
+    if ctx.axis_size("model") > 1:            # the padded vocab divides "model"
+        n = logits.shape[-1]
+        ll = _ShardNLL.apply(logits, labels.clamp_min(0), spmd.rank("model") * n)
+        counts["loss_shards"] += 1
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        del logits
+        ll = torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
     part = -(ll * mask).sum() / torch.clamp_min(spmd.batch_axes_sum(mask.sum()), 1.0)
     return part + (spmd.batch_axes_sum(part) - part).detach()
 

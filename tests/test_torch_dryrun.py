@@ -288,6 +288,50 @@ def test_collectives_on_a_fake_mesh_equal_a_hand_count():
     assert not got["cuda"]
 
 
+_LOSS_SHARDS = """
+import json
+from repro_torch.configs.base import ShapeCell
+from repro_torch.configs.registry import get_arch
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import transformer
+dryrun.fake_world(4)
+mesh = make_host_mesh(model=2, device="cpu")
+t = dryrun.trace_cell(get_arch("qwen2-7b").reduced(), ShapeCell("t", 16, 4, "train"), mesh)
+c = t.counter
+print(json.dumps({"axis": c.coll_axis_bytes, "sites": dict(c.coll_sites),
+                  "loss_shards": transformer.counts["loss_shards"]}))
+"""
+# the trace above with the loss's all-gather of the whole logits over
+# "model" (the tree before the sharded log-softmax): its "model" bytes
+# and that gather's, 2 rows x 16 positions x 256 fp32 logits
+MODEL_BYTES_WITH_GATHER, LOSS_GATHER_BYTES = 168740, 2 * 16 * 256 * 4
+
+
+def test_train_loss_reduces_the_vocab_shards_without_a_gather():
+    """Reduced qwen2-7b (vocab 256), one train step of batch 4 and 16
+    tokens on the fake (data=2, model=2) mesh: 2 rows a rank, 128 vocab
+    columns a model rank.  ``lm_loss`` takes the log-softmax over each
+    model rank's shard (``transformer._ShardNLL``): its only "model"
+    collectives are three (2, 16) fp32 all-reduces (the row max, the sum
+    of exponentials, the label's logit), 3 x 2 x 16 x 4 = 384 B, and none
+    in the backward, where the whole logits were gathered (32 768 B).  The
+    "model" bytes fall by that gather less those 384 B."""
+    run = subprocess.run([sys.executable, "-c", _LOSS_SHARDS], env=_env(), cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    assert got["loss_shards"] == 1                    # one microbatch, one loss call
+    loss = {site: b for site, b in got["sites"].items()
+            if "models/transformer.py" in site and site.split()[1] in ("lm_loss", "forward")}
+    assert not any("gather" in site for site in loss), loss
+    shards = {site: b for site, b in loss.items() if "[reduce_over]" in site}
+    rows, seq, f32 = 2, 16, 4
+    assert sorted(shards.values()) == [rows * seq * f32] * 3, shards
+    assert sum(shards.values()) == 384
+    assert got["axis"]["model"] == MODEL_BYTES_WITH_GATHER - LOSS_GATHER_BYTES + 384
+
+
 _DECODE_RECORDS = """
 import contextlib, json
 from repro_torch.configs.base import SHAPES_BY_NAME

@@ -232,9 +232,12 @@ def _moe(cfg, p: dict, x: np.ndarray, aux: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def _world_models(rank, model, moe_cases, weights, row_s=None):
+def _world_models(rank, model, moe_cases, weights, row_s=None, grad_archs=()):
     """Every check at S, with the Mamba blocks of each arch's logits call
-    that projected only this rank's columns counted (``ssm.counts``); with
+    that projected only this rank's columns counted (``ssm.counts``) and
+    the ``lm_loss`` calls of each gradient and train run that took the
+    log-softmax over the vocab shards (``transformer.counts``); the
+    gradients of ``grad_archs`` too; with
     ``row_s``, also the five archs' logits, prefill caches and greedy tokens
     and qwen2-7b's gradients and train step at ``row_s``, with the
     self-attentions that took the row split counted per call, and the five
@@ -260,9 +263,14 @@ def _world_models(rank, model, moe_cases, weights, row_s=None):
         out[("greedy", arch)] = _greedy(arch, weights[arch], cache_out=out[("cache", arch)],
                                         heads=out[("heads", arch)])
         out[("head_columns", arch, "greedy")] = transformer.counts["head_columns"]
-    for arch in TRAIN_ARCHS:
+    for arch in TRAIN_ARCHS + tuple(grad_archs):
+        transformer.counts["loss_shards"] = 0
         out[("grads", arch)] = _grads(arch, weights[arch])
-        out[("train", arch)] = _train(arch, weights[arch])
+        out[("loss_shards", arch, "grads")] = transformer.counts["loss_shards"]
+        if arch in TRAIN_ARCHS:
+            transformer.counts["loss_shards"] = 0
+            out[("train", arch)] = _train(arch, weights[arch])
+            out[("loss_shards", arch, "train")] = transformer.counts["loss_shards"]
     out["row_split_at_S"] = attention.counts["row_split"]
     out["length_model_at_S"] = attention.counts["length_model"]
     if row_s is not None:
@@ -274,8 +282,10 @@ def _world_models(rank, model, moe_cases, weights, row_s=None):
             out[("cache", arch, row_s)] = []
             out[("greedy", arch, row_s)] = _greedy(arch, weights[arch], row_s,
                                                    cache_out=out[("cache", arch, row_s)])
+        transformer.counts["loss_shards"] = 0
         out[("grads", "qwen2-7b", row_s)] = _grads("qwen2-7b", weights["qwen2-7b"], row_s)
         out[("train", "qwen2-7b", row_s)] = _train("qwen2-7b", weights["qwen2-7b"], s=row_s)
+        out[("loss_shards", "qwen2-7b", row_s)] = transformer.counts["loss_shards"]
         out["length_model_at_row_s"] = attention.counts["length_model"]
         for arch in ARCHS5:
             attention.counts["length_model"] = 0
@@ -489,7 +499,7 @@ def _jax_case(arch, s=S) -> dict:
     import jax
     import jax.numpy as jnp
     from repro.launch.train import make_train_step
-    from repro.models import lm_logits, lm_loss
+    from repro.models import lm_logits
     from repro.optim import AdamWConfig, adamw_init
     from repro_torch.data import TokenPipeline
     jcfg, jp, jt, jf = _jax_inputs(arch, s)
@@ -499,10 +509,7 @@ def _jax_case(arch, s=S) -> dict:
            **_jax_greedy(arch, s, s + NEW)}
     if arch not in TRAIN_ARCHS or (s != S and arch != "qwen2-7b"):
         return ref
-    batch = {k: jnp.asarray(v) for k, v in TokenPipeline(cfg, s, B, seed=1).next_batch().items()}
-    # jax flattens dicts in sorted-key order, as tree_leaves does
-    ref["grads"] = [np.asarray(g) for g in jax.tree_util.tree_leaves(
-        jax.grad(lambda p: lm_loss(p, jcfg, batch, **f32))(jp))]
+    ref["grads"] = _jax_grads(arch, s)
     step = jax.jit(make_train_step(jcfg, AdamWConfig(**OPT), n_microbatches=2, **f32))
     params, opt, pipe = jp, adamw_init(jp), TokenPipeline(cfg, s, B, seed=1)
     losses, norms = [], []
@@ -514,6 +521,23 @@ def _jax_case(arch, s=S) -> dict:
     ref["train"] = {"losses": losses, "grad_norms": norms,
                     "params": [np.asarray(t) for t in jax.tree_util.tree_leaves(params)]}
     return ref
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_grads(arch, s=S) -> list:
+    """Every gradient leaf of the JAX package's ``lm_loss`` on the ranks'
+    weights and first batch, fp32 through its blocked references."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import lm_loss
+    from repro_torch.data import TokenPipeline
+    jcfg, jp, _, _ = _jax_inputs(arch, s)
+    batch = {k: jnp.asarray(v)
+             for k, v in TokenPipeline(_cfg(arch), s, B, seed=1).next_batch().items()}
+    f32 = dict(compute_dtype=jnp.float32, impl="blocked")
+    # jax flattens dicts in sorted-key order, as tree_leaves does
+    return [np.asarray(g) for g in jax.tree_util.tree_leaves(
+        jax.grad(lambda p: lm_loss(p, jcfg, batch, **f32))(jp))]
 
 
 def _jax_moe_case(arch, seed, **moe):
@@ -537,7 +561,7 @@ def _jax_moe(jcfg, jp, x):
     return np.asarray(y), float(aux)
 
 
-def _references(s=S, train_archs=TRAIN_ARCHS) -> dict:
+def _references(s=S, train_archs=TRAIN_ARCHS, grad_archs=()) -> dict:
     """The one-device results the ranks' are held to, beside JAX's."""
     ref = {}
     for arch in ARCHS5:
@@ -545,10 +569,11 @@ def _references(s=S, train_archs=TRAIN_ARCHS) -> dict:
         ref[("logits", arch)] = _logits(arch, npw, s)
         ref[("cache", arch)] = []
         ref[("greedy", arch)] = _greedy(arch, npw, s, cache_out=ref[("cache", arch)])
-    for arch in train_archs:
+    for arch in train_archs + tuple(grad_archs):
         npw = _jax_weights(arch)
         ref[("grads", arch)] = _grads(arch, npw, s)
-        ref[("train", arch)] = _train(arch, npw, s=s)
+        if arch in train_archs:
+            ref[("train", arch)] = _train(arch, npw, s=s)
     return ref
 
 
@@ -569,7 +594,6 @@ def _check_train(got, want, jax_ref, what):
 
 def _check_models(res, ref):
     from repro_torch.launch.train import default_microbatches
-    from repro_torch.tree import tree_leaves
     mesh = res["mesh"]
     for arch, nm in res["microbatches"].items():    # read from the mesh
         cfg = _cfg(arch)
@@ -590,14 +614,23 @@ def _check_models(res, ref):
         assert torch.equal(res[("greedy", arch)], jax_ref["greedy"]), arch
         assert torch.equal(res[("greedy", arch)], ref[("greedy", arch)]), arch
     for arch in TRAIN_ARCHS:
-        jax_ref = _jax_case(arch)
-        leaves = tree_leaves(res[("grads", arch)])
-        assert len(leaves) == len(jax_ref["grads"])
-        for a, b, j in zip(leaves, tree_leaves(ref[("grads", arch)]), jax_ref["grads"]):
-            assert a.shape == b.shape == j.shape
-            assert _rel(a, j) <= GRAD_REL, (arch, "jax", _rel(a, j))
-            assert _rel(a, b) <= GRAD_REL, (arch, _rel(a, b))
-        _check_train(res[("train", arch)], ref[("train", arch)], jax_ref["train"], arch)
+        _check_grads(res[("grads", arch)], ref[("grads", arch)], _jax_grads(arch), arch)
+        _check_train(res[("train", arch)], ref[("train", arch)], _jax_case(arch)["train"], arch)
+        # every loss call took the log-softmax over the vocab shards: one
+        # backward, then _train's 2 steps of 2 microbatches
+        assert res[("loss_shards", arch, "grads")] == 1, arch
+        assert res[("loss_shards", arch, "train")] == 2 * 2, arch
+
+
+def _check_grads(got, want, jax_ref, what):
+    """Every gradient leaf against the one-device port's and JAX's."""
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(got)
+    assert len(leaves) == len(jax_ref), what
+    for a, b, j in zip(leaves, tree_leaves(want), jax_ref):
+        assert a.shape == b.shape == j.shape
+        assert _rel(a, j) <= GRAD_REL, (what, "jax", _rel(a, j))
+        assert _rel(a, b) <= GRAD_REL, (what, _rel(a, b))
 
 
 def test_mesh_data2_model2_matches_one_device(tmp_path):
@@ -605,18 +638,28 @@ def test_mesh_data2_model2_matches_one_device(tmp_path):
     caches, greedy tokens, gradients and two train steps against the JAX
     package and the one-device port, jamba's 14 Mamba blocks a forward
     each projecting only its model rank's columns of ``in_proj`` (4 of 8
-    SSD heads; ``ssm.counts``); per-shard MoE dispatch (256 tokens a shard, capacity
+    SSD heads; ``ssm.counts``); gemma2-27b's gradients too (a tied head
+    under a softcap of 30), every loss call on the vocab shards
+    (``transformer.counts["loss_shards"]``); per-shard MoE dispatch (256
+    tokens a shard, capacity
     factor 1.0 so experts overflow) against the JAX package's
     ``_moe_apply_global(groups=2)``, with the experts EP over model."""
     import jax.numpy as jnp
     from repro.models.moe import _moe_apply_global as jax_grouped
     jcfg, jp, x = _jax_moe_case("mixtral-8x22b", 3, capacity_factor=1.0)
+    grad_archs = ("gemma2-27b",)
     finish = _spawn(tmp_path, 4, "models", model=2, weights={a: _jax_weights(a) for a in ARCHS5},
-                    moe_cases={"grouped": ("mixtral-8x22b", dict(capacity_factor=1.0), jp, x)})
-    ref = _references()
+                    moe_cases={"grouped": ("mixtral-8x22b", dict(capacity_factor=1.0), jp, x)},
+                    grad_archs=grad_archs)
+    ref = _references(grad_archs=grad_archs)
     for arch in ARCHS5:                 # the JAX package's, while the ranks run
         _jax_case(arch)
+    for arch in grad_archs:
+        _jax_grads(arch)
     res = finish()
+    for arch in grad_archs:
+        _check_grads(res[("grads", arch)], ref[("grads", arch)], _jax_grads(arch), arch)
+        assert res[("loss_shards", arch, "grads")] == 1, arch
     assert res["mesh"] == {"data": 2, "model": 2}
     assert res["length_model_at_S"] == 0         # the Q heads split over "model"
     for arch in ARCHS5:                 # jamba's 8 SSD heads, 4 a model rank
@@ -740,8 +783,8 @@ def test_mesh_model3_row_split_matches_jax_and_one_device(model3_world):
     archs' logits, prefill caches and greedy tokens (prefill through the
     kernel wrappers: the plain version with its offset), qwen2-7b's
     gradient leaves and two train steps, against the JAX package and the
-    one-device port at the file's tolerances."""
-    from repro_torch.tree import tree_leaves
+    one-device port at the file's tolerances, every loss call on the vocab
+    shards (``transformer.counts["loss_shards"]``)."""
     res, rows = model3_world["res"], model3_world["rows"]
     assert res["length_model_at_row_s"] == 0     # 3 divides no cache length of 22 or 16
     for arch in ARCHS5:
@@ -757,14 +800,11 @@ def test_mesh_model3_row_split_matches_jax_and_one_device(model3_world):
         assert torch.equal(res[("greedy", arch, ROW_S)], jax_ref["greedy"]), arch
         assert torch.equal(res[("greedy", arch, ROW_S)], rows[("greedy", arch)]), arch
     jax_ref = _jax_case("qwen2-7b", ROW_S)
-    leaves = tree_leaves(res[("grads", "qwen2-7b", ROW_S)])
-    assert len(leaves) == len(jax_ref["grads"])
-    for a, b, j in zip(leaves, tree_leaves(rows[("grads", "qwen2-7b")]), jax_ref["grads"]):
-        assert a.shape == b.shape == j.shape
-        assert _rel(a, j) <= GRAD_REL, ("jax", _rel(a, j))
-        assert _rel(a, b) <= GRAD_REL, _rel(a, b)
+    _check_grads(res[("grads", "qwen2-7b", ROW_S)], rows[("grads", "qwen2-7b")],
+                 jax_ref["grads"], "qwen2-7b row split")
     _check_train(res[("train", "qwen2-7b", ROW_S)], rows[("train", "qwen2-7b")],
                  jax_ref["train"], "qwen2-7b row split")
+    assert res[("loss_shards", "qwen2-7b", ROW_S)] == 1 + 2 * 2   # every loss call
 
 
 def _full_attentions(cfg) -> int:
