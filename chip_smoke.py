@@ -226,9 +226,12 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  parameters and moments, gradients reduced to their
                  placements) and as many unsharded from the same seed: the
                  first-step losses within MESH_LOSS_REL, each step's loss,
-                 grad norm, seconds and the peak memory of both, and no
+                 grad norm, seconds and the peak memory of both, no
                  loss call on the vocab shards (transformer.counts
-                 ["loss_shards"]: one model rank holds the whole vocab); (b)
+                 ["loss_shards"]: one model rank holds the whole vocab) and
+                 no attention projecting only its KV heads
+                 (attention.counts["kv_columns"]: one model rank reads
+                 every KV head); (b)
                  jamba-v0.1-52b at full width (serve's depth), one group of
                  SERVE_BATCH requests of SERVE_PROMPT lengths, MESH_SERVE_NEW
                  greedy tokens through BatchedServer on the mesh and off it,
@@ -241,9 +244,10 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  own-columns route (ssm.counts: one model rank multiplies
                  the whole in_proj as it is), no decode attention whose
                  cache length splits over "model" (attention.counts: one
-                 model rank holds the whole length) and no head call that
+                 model rank holds the whole length), no head call that
                  splits the vocab over "model" (transformer.counts: one
-                 model rank computes every column);
+                 model rank computes every column) and no attention on the
+                 own-KV-heads route (attention.counts["kv_columns"]);
                  (c) checkpoint_restart: the train phase's ResilientRunner
                  (reduced TRAIN_ARCH, a checkpoint every 2 steps, one fault
                  at TRAIN_RESTART_FAULT) on the mesh, its state DTensors,
@@ -2648,15 +2652,16 @@ def _mesh_train(faults: list, mesh) -> dict:
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.distributed import context as ctx
-    from repro_torch.models import transformer
+    from repro_torch.models import attention, transformer
 
     cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
-    rows, peak, loss_shards = {}, {}, {}
+    rows, peak, loss_shards, kv_columns = {}, {}, {}, {}
     for path in ("mesh", "unsharded"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ctx.set_mesh(mesh if path == "mesh" else None)
         transformer.counts["loss_shards"] = 0
+        attention.counts["kv_columns"] = 0
         try:
             rows[path] = _full_width_steps(
                 cfg, torch.bfloat16, MESH_TRAIN_STEPS,
@@ -2665,6 +2670,7 @@ def _mesh_train(faults: list, mesh) -> dict:
         finally:
             ctx.set_mesh(None)
         loss_shards[path] = transformer.counts["loss_shards"]
+        kv_columns[path] = attention.counts["kv_columns"]
         for i, r in enumerate(rows[path]):
             emit({"phase": "mesh", "part": "train", "path": path, "step": i, **r})
         # on one model rank the whole vocab is its own: the loss takes the
@@ -2672,6 +2678,10 @@ def _mesh_train(faults: list, mesh) -> dict:
         if loss_shards[path]:
             faults.append(f"train {path}: {loss_shards[path]} loss calls took the "
                           f"log-softmax over vocab shards")
+        # on one model rank every KV head is its own: K/V are projected whole
+        if kv_columns[path]:
+            faults.append(f"train {path}: {kv_columns[path]} attentions projected only "
+                          f"their KV heads")
     first = [rows[p][0]["loss"] for p in ("mesh", "unsharded")]
     rel = abs(first[0] - first[1]) / abs(first[1])
     steady = {p: sorted(r["s"] for r in rows[p][1:]) or [rows[p][0]["s"]] for p in rows}
@@ -2684,7 +2694,7 @@ def _mesh_train(faults: list, mesh) -> dict:
            "first_step_loss_rel": rel, "tol": MESH_LOSS_REL,
            "s_per_step": {p: v[len(v) // 2] for p, v in steady.items()},
            "first_step_s": {p: rows[p][0]["s"] for p in rows},
-           "peak_gib": peak, "loss_shards": loss_shards}
+           "peak_gib": peak, "loss_shards": loss_shards, "kv_columns": kv_columns}
     emit({"phase": "mesh", "summary": "train", **out})
     if not rel <= MESH_LOSS_REL:
         faults.append(f"train: first-step losses {first} differ by {rel:.3g} relative")
@@ -2813,7 +2823,7 @@ def _mesh_serve(faults: list, mesh) -> dict:
             reset_counts(*kernels.values())
             spmd.counts.update(products=0, collectives=0)
             ssm.counts["own_columns"] = 0
-            attention.counts["length_model"] = 0
+            attention.counts.update(length_model=0, kv_columns=0)
             transformer.counts["head_columns"] = 0
             with ops.checking(lambda name, st: checks.setdefault(name, []).append(st)):
                 server.run_group(group)
@@ -2821,6 +2831,7 @@ def _mesh_serve(faults: list, mesh) -> dict:
             route = dict(spmd.counts)
             own = ssm.counts["own_columns"]
             length_model = attention.counts["length_model"]
+            kv_columns = attention.counts["kv_columns"]
             head_columns = transformer.counts["head_columns"]
         finally:
             ctx.set_mesh(None)
@@ -2834,7 +2845,8 @@ def _mesh_serve(faults: list, mesh) -> dict:
                       "prefill_ms": t["prefill_ms"], "decode_ms_median": dec[len(dec) // 2],
                       "decode_steps": len(dec), "prompt_len": t["prompt_len"],
                       "stationary_route": route, "own_columns": own,
-                      "length_model": length_model, "head_columns": head_columns}
+                      "length_model": length_model, "kv_columns": kv_columns,
+                      "head_columns": head_columns}
         runs[path]["err"] = _checked(checks, faults, phase="mesh", part="serve", path=path)
         emit({"phase": "mesh", "part": "serve", "path": path,
               **{k: v for k, v in runs[path].items() if k != "tokens"},
@@ -2858,6 +2870,9 @@ def _mesh_serve(faults: list, mesh) -> dict:
         # on one model rank the whole vocab is its own
         if head_columns:
             faults.append(f"serve {path}: {head_columns} head calls split the vocab over model")
+        # on one model rank prefill projects every KV head, as it does anywhere
+        if kv_columns:
+            faults.append(f"serve {path}: {kv_columns} attentions projected only their KV heads")
         if runs[path]["by_body"]["wgmma"] != launches["flash_attention"] or \
                 runs[path]["ssd_by_body"]["chunked"] != launches["ssd_chunked"] or \
                 runs[path]["decode_by_body"]["wgmma"] != launches["flash_decode"]:

@@ -19,10 +19,11 @@ and launches the kernels on its local shard: Q heads over "model" when
 ``n_heads`` divides it, KV heads when ``n_kv_heads`` does
 (``_head_layout``), the output projection's parts summed over "model".
 Where Q heads divide and KV heads do not, each rank keeps all KV heads and
-reads the ones its Q heads share.  Where the Q heads do not divide (qwen2-7b's 28 heads on 16
-model ranks), a self-attention in prefill and training takes the JAX
-package's sequence parallelism for Q/O where "model" divides the sequence
-(``_row_split``): model rank r projects Q from its rows [r S/m, (r + 1)
+reads the ones its Q heads share; where no cache is kept (training), it
+projects only those (``_own_kv``).  Where the Q heads do not divide
+(qwen2-7b's 28 heads on 16 model ranks), a self-attention in prefill and
+training takes the JAX package's sequence parallelism for Q/O where
+"model" divides the sequence (``_row_split``): model rank r projects Q from its rows [r S/m, (r + 1)
 S/m), K/V from all S, launches the kernel with ``q_offset`` = r S/m,
 multiplies its rows by ``wo`` and gathers the rows over "model".  Where the
 sequence does not divide either, and in cross-attention and decode, every
@@ -98,9 +99,18 @@ def _head_layout(cfg: ArchConfig):
 
 
 # since the caller last set them to 0: self-attentions that took the row
-# split (``_row_split``), and decode self-attentions whose cache length is
-# split over "model" (``attn_decode``'s ``length_axes``)
-counts = {"row_split": 0, "length_model": 0}
+# split (``_row_split``), decode self-attentions whose cache length is
+# split over "model" (``attn_decode``'s ``length_axes``), and attentions
+# that projected only this rank's KV heads (``_own_kv``)
+counts = {"row_split": 0, "length_model": 0, "kv_columns": 0}
+
+
+def _own_kv(kv_range, return_kv: bool) -> bool:
+    """Whether ``attn_apply`` projects only the KV heads this model rank
+    reads (``kv_range``, from ``_head_layout``): where "model" has more
+    than one rank and no K/V is kept for a cache, which holds every KV head
+    on each model rank (prefill projects them whole)."""
+    return kv_range is not None and ctx.axis_size("model") > 1 and not return_kv
 
 
 def _row_split(cfg: ArchConfig, S: int):
@@ -127,12 +137,18 @@ def _kv_partial(q_ax, kv_ax, rows=None) -> dict:
     return dict(model_partial=rows is not None or (q_ax is not None and kv_ax is None))
 
 
-def _biases(p, q_ax, kv_ax, compute_dtype, rows=None) -> dict:
-    """The self-attention's Q/K/V biases as this rank adds them."""
+def _kv_columns(t, cols: Optional[slice]):
+    """The columns ``cols`` of ``t``'s last dim (``_own_kv``), or all."""
+    return t if cols is None else t[..., cols]
+
+
+def _biases(p, q_ax, kv_ax, compute_dtype, rows=None, cols=None) -> dict:
+    """The self-attention's Q/K/V biases as this rank adds them; K's and V's
+    columns ``cols`` only, where given."""
     kv = _kv_partial(q_ax, kv_ax, rows)
     return {"bq": spmd.use(p["bq"], q_ax, model_partial=rows is not None).to(compute_dtype),
-            "bk": spmd.use(p["bk"], kv_ax, **kv).to(compute_dtype),
-            "bv": spmd.use(p["bv"], kv_ax, **kv).to(compute_dtype)}
+            "bk": _kv_columns(spmd.use(p["bk"], kv_ax, **kv), cols).to(compute_dtype),
+            "bv": _kv_columns(spmd.use(p["bv"], kv_ax, **kv), cols).to(compute_dtype)}
 
 
 def _kv_read(t, kv_range):
@@ -152,13 +168,20 @@ def attn_apply(x, p, cfg: ArchConfig, blk: Block, *, causal: bool, compute_dtype
     (``_head_layout``), the output projection's parts summed over "model";
     or, on the row split (``_row_split``), on its query rows, the rows of
     the output gathered over "model".  Either way the result is whole over
-    "model", as ``x`` is."""
+    "model", as ``x`` is.  Where the rank reads a range of KV heads and
+    keeps no K/V (``_own_kv``), it multiplies by only those heads' columns
+    of the whole ``wk`` and ``wv`` (the others' gradient 0 on this rank,
+    the parts summed over "model")."""
     cross = kv_source is not None
     prefix = "c_" if cross else ""
     B, S, _ = x.shape
     Dh = cfg.head_dim
     q_ax, kv_ax, kv_range = _head_layout(cfg)
     hq, hkv = _local_heads(cfg, q_ax, kv_ax)
+    cols = None                   # K/V's columns of this rank's KV heads, on _own_kv
+    if _own_kv(kv_range, return_kv):
+        cols, hkv = slice(kv_range[0] * Dh, kv_range[1] * Dh), kv_range[1] - kv_range[0]
+        kv_range = None           # K/V hold only the heads this rank reads
     rows = None if cross else _row_split(cfg, S)
     split = q_ax is not None or rows is not None
     h = norm_apply(x, spmd.use(p[prefix + "norm"]), cfg).to(compute_dtype)
@@ -175,10 +198,15 @@ def attn_apply(x, p, cfg: ArchConfig, blk: Block, *, causal: bool, compute_dtype
     part = dict(model_partial=rows is not None)
     kv = _kv_partial(q_ax, kv_ax, rows)
     q = spmd.dot(hr, p[prefix + "wq"], None, q_ax, **part)
-    k = spmd.dot(src, p[prefix + "wk"], None, kv_ax, **kv)
-    v = spmd.dot(src, p[prefix + "wv"], None, kv_ax, **kv)
+    if cols is None:
+        k = spmd.dot(src, p[prefix + "wk"], None, kv_ax, **kv)
+        v = spmd.dot(src, p[prefix + "wv"], None, kv_ax, **kv)
+    else:                         # the whole weights' columns, cast as dot casts
+        k = src @ _kv_columns(spmd.use(p[prefix + "wk"], **kv), cols).to(src.dtype)
+        v = src @ _kv_columns(spmd.use(p[prefix + "wv"], **kv), cols).to(src.dtype)
+        counts["kv_columns"] += 1
     if not cross and cfg.qkv_bias:
-        b = _biases(p, q_ax, kv_ax, compute_dtype, rows)
+        b = _biases(p, q_ax, kv_ax, compute_dtype, rows, cols)
         q, k, v = q + b["bq"], k + b["bk"], v + b["bv"]
     q, k, v = (q.reshape(B, Sq, hq, Dh), k.reshape(B, Sk, hkv, Dh), v.reshape(B, Sk, hkv, Dh))
     if not cross:

@@ -491,6 +491,56 @@ def test_own_columns_divide_the_mamba_input_projection():
     assert a["mamba_apply"] == b["mamba_apply"] > 0
 
 
+_KV_COLUMNS = """
+import dataclasses, json
+from repro_torch.configs.base import SHAPES_BY_NAME
+from repro_torch.configs.registry import get_arch
+from repro_torch.launch import dryrun
+from repro_torch.models import attention
+mesh = dryrun.production_mesh(False)
+cfg, cell = dataclasses.replace(get_arch("h2o-danube-3-4b"), n_layers=2), SHAPES_BY_NAME["train_4k"]
+out = {}
+for tag in ("own", "whole"):
+    if tag == "whole":                       # every KV head on every model rank
+        attention._own_kv = lambda kv_range, return_kv: False
+    attention.counts["kv_columns"] = 0
+    c = dryrun.trace_cell(cfg, cell, mesh).counter
+    out[tag] = {"sites": {s: f for s, f in c.dot_sites.items() if "models/attention.py" in s},
+                "kv_columns": attention.counts["kv_columns"]}
+print(json.dumps(out))
+"""
+
+
+def test_own_kv_heads_divide_the_k_v_projections():
+    """h2o-danube-3-4b ``train_4k`` at full width, 2 of 24 layers, on the
+    fake 256-rank mesh: 16 rows of 4096 over each of 16 data ranks.  Its 32
+    Q heads split 2 a model rank and its 8 KV heads do not divide 16, so
+    each model rank reads one KV head and, keeping no cache, projects only
+    that head's 120 columns of ``wk`` and ``wv`` (``attention._own_kv``).
+    The dot FLOPs of ``attn_apply``'s K and V sites (the forward and the
+    per-layer recompute) equal that hand count, and the same trace with
+    every KV head projected counts the whole 960 columns; the Q, O and
+    attention sites are equal in both."""
+    run = subprocess.run([sys.executable, "-c", _KV_COLUMNS], env=_env(), cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    cfg = get_arch("h2o-danube-3-4b")
+    L, passes, Br, S, m = 2, 2, 16, 4096, 16
+    D, Dh = cfg.d_model, cfg.head_dim
+
+    def count(cols):
+        return L * passes * 2.0 * Br * S * D * cols
+    own, whole = got["own"]["sites"], got["whole"]["sites"]
+    assert got["own"]["kv_columns"] == L * passes and got["whole"]["kv_columns"] == 0
+    shared = set(own) & set(whole)             # Q, O and the attention: the same lines
+    assert len(shared) == 3 and all(own[s] == whole[s] for s in shared), (own, whole)
+    assert sorted(own[s] for s in shared if "[dot]" in s) == [count(cfg.n_heads // m * Dh)] * 2
+    assert sorted(f for s, f in own.items() if s not in shared) == [count(Dh)] * 2
+    assert sorted(f for s, f in whole.items() if s not in shared) == \
+        [count(cfg.n_kv_heads * Dh)] * 2
+
+
 _LENGTH_MODEL = """
 import dataclasses, json
 from repro_torch.configs.base import SHAPES_BY_NAME

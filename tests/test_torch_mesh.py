@@ -66,9 +66,22 @@ def _whole(t):
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
+# reduced configurations with fields replaced alike in both packages, by
+# the name the ranks and the parent know them by
+VARIANTS = {"qwen2-7b kv2": ("qwen2-7b", dict(n_kv_heads=2))}
+
+
 def _cfg(arch):
     from repro_torch.configs.registry import ARCHS
-    return ARCHS[arch].reduced()
+    base, fields = VARIANTS.get(arch, (arch, {}))
+    return dataclasses.replace(ARCHS[base].reduced(), **fields)
+
+
+def _jax_cfg(arch):
+    """The JAX package's counterpart of ``_cfg``."""
+    from repro.configs.registry import ARCHS as JAX_ARCHS
+    base, fields = VARIANTS.get(arch, (arch, {}))
+    return dataclasses.replace(JAX_ARCHS[base].reduced(), **fields)
 
 
 def _weights(cfg, npw):
@@ -232,13 +245,16 @@ def _moe(cfg, p: dict, x: np.ndarray, aux: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def _world_models(rank, model, moe_cases, weights, row_s=None, grad_archs=()):
-    """Every check at S, with the Mamba blocks of each arch's logits call
-    that projected only this rank's columns counted (``ssm.counts``) and
-    the ``lm_loss`` calls of each gradient and train run that took the
-    log-softmax over the vocab shards (``transformer.counts``); the
-    gradients of ``grad_archs`` too; with
-    ``row_s``, also the five archs' logits, prefill caches and greedy tokens
+def _world_models(rank, model, moe_cases, weights, row_s=None, grad_archs=(), archs=ARCHS5,
+                  train_archs=TRAIN_ARCHS):
+    """Every check at S of ``archs`` (gradients and train steps of
+    ``train_archs``), with the Mamba blocks of each arch's logits call
+    that projected only this rank's columns counted (``ssm.counts``), the
+    attentions of each call that projected only this rank's KV heads
+    (``attention.counts["kv_columns"]``) and the ``lm_loss`` calls of
+    each gradient and train run that took the log-softmax over the vocab
+    shards (``transformer.counts``); the gradients of ``grad_archs`` too;
+    with ``row_s``, also the five archs' logits, prefill caches and greedy tokens
     and qwen2-7b's gradients and train step at ``row_s``, with the
     self-attentions that took the row split counted per call, and the five
     archs' prefill caches, their layouts and greedy tokens at ``row_s`` in a
@@ -251,25 +267,31 @@ def _world_models(rank, model, moe_cases, weights, row_s=None, grad_archs=()):
     ctx.set_mesh(mesh)
     out = {"mesh": {n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)}}
     attention.counts.update(row_split=0, length_model=0)
-    for arch in ARCHS5:
+
+    def counted(key, run):              # run(), its attentions on their own KV heads
+        attention.counts["kv_columns"] = 0
+        out[key] = run()
+        out[("kv_columns",) + key] = attention.counts["kv_columns"]
+    for arch in archs:
         ssm.counts["own_columns"] = 0
         transformer.counts["head_columns"] = 0
         out[("heads", arch)] = []
-        out[("logits", arch)] = _logits(arch, weights[arch], heads=out[("heads", arch)])
+        counted(("logits", arch), lambda: _logits(arch, weights[arch], heads=out[("heads", arch)]))
         out[("own_columns", arch)] = ssm.counts["own_columns"]
         out[("head_columns", arch, "logits")] = transformer.counts["head_columns"]
         transformer.counts["head_columns"] = 0
         out[("cache", arch)] = []
-        out[("greedy", arch)] = _greedy(arch, weights[arch], cache_out=out[("cache", arch)],
-                                        heads=out[("heads", arch)])
+        counted(("greedy", arch), lambda: _greedy(arch, weights[arch],
+                                                  cache_out=out[("cache", arch)],
+                                                  heads=out[("heads", arch)]))
         out[("head_columns", arch, "greedy")] = transformer.counts["head_columns"]
-    for arch in TRAIN_ARCHS + tuple(grad_archs):
+    for arch in train_archs + tuple(grad_archs):
         transformer.counts["loss_shards"] = 0
-        out[("grads", arch)] = _grads(arch, weights[arch])
+        counted(("grads", arch), lambda: _grads(arch, weights[arch]))
         out[("loss_shards", arch, "grads")] = transformer.counts["loss_shards"]
-        if arch in TRAIN_ARCHS:
+        if arch in train_archs:
             transformer.counts["loss_shards"] = 0
-            out[("train", arch)] = _train(arch, weights[arch])
+            counted(("train", arch), lambda: _train(arch, weights[arch]))
             out[("loss_shards", arch, "train")] = transformer.counts["loss_shards"]
     out["row_split_at_S"] = attention.counts["row_split"]
     out["length_model_at_S"] = attention.counts["length_model"]
@@ -300,7 +322,8 @@ def _world_models(rank, model, moe_cases, weights, row_s=None, grad_archs=()):
         out[("moe", name)] = _moe(_moe_cfg(arch, **moe_kw), p, x)
         out[("moe_aux", name)] = _moe(_moe_cfg(arch, **moe_kw), p, x, aux=True)
     for arch in ("jamba-v0.1-52b", "seamless-m4t-medium"):
-        out[("cache_layout", arch)] = _cache_layouts(arch, weights[arch])
+        if arch in archs:
+            out[("cache_layout", arch)] = _cache_layouts(arch, weights[arch])
     from repro_torch.launch.train import default_microbatches
     out["microbatches"] = {arch: default_microbatches(_cfg(arch), 256, 4096)
                            for arch in ("qwen2-7b", "gemma2-27b")}
@@ -450,9 +473,8 @@ def _rel(a, b) -> float:
 def _jax_weights(arch) -> dict:
     """The JAX package's weights of ``arch`` (seed 0), as numpy."""
     import jax
-    from repro.configs.registry import ARCHS as JAX_ARCHS
     from repro.models import init_params
-    jp = init_params(JAX_ARCHS[arch].reduced(), jax.random.PRNGKey(0))
+    jp = init_params(_jax_cfg(arch), jax.random.PRNGKey(0))
     return jax.tree_util.tree_map(np.asarray, jp)
 
 
@@ -460,11 +482,10 @@ def _jax_inputs(arch, s):
     """The JAX package's reduced config, weights, tokens and frames."""
     import jax
     import jax.numpy as jnp
-    from repro.configs.registry import ARCHS as JAX_ARCHS
     jp = jax.tree_util.tree_map(jnp.asarray, _jax_weights(arch))
     toks, frames = _inputs(_cfg(arch), s)
     jf = None if frames is None else jnp.asarray(frames.numpy())
-    return JAX_ARCHS[arch].reduced(), jp, jnp.asarray(toks.numpy()), jf
+    return _jax_cfg(arch), jp, jnp.asarray(toks.numpy()), jf
 
 
 @functools.lru_cache(maxsize=None)
@@ -496,31 +517,41 @@ def _jax_case(arch, s=S) -> dict:
     of s + NEW), every gradient leaf of ``lm_loss`` and two train steps (at
     ``ROW_S``, of qwen2-7b only), all fp32 through its blocked
     references."""
-    import jax
     import jax.numpy as jnp
-    from repro.launch.train import make_train_step
     from repro.models import lm_logits
-    from repro.optim import AdamWConfig, adamw_init
-    from repro_torch.data import TokenPipeline
     jcfg, jp, jt, jf = _jax_inputs(arch, s)
-    cfg = _cfg(arch)
     f32 = dict(compute_dtype=jnp.float32, impl="blocked")
     ref = {"logits": np.asarray(lm_logits(jp, jcfg, jt, enc_frames=jf, **f32)),
            **_jax_greedy(arch, s, s + NEW)}
     if arch not in TRAIN_ARCHS or (s != S and arch != "qwen2-7b"):
         return ref
     ref["grads"] = _jax_grads(arch, s)
+    ref["train"] = _jax_train(arch, s)
+    return ref
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_train(arch, s=S) -> dict:
+    """Two of the JAX package's train steps on the ranks' weights and
+    batches (``_train``'s configuration): losses, gradient norms and the
+    updated parameters' leaves."""
+    import jax
+    import jax.numpy as jnp
+    from repro.launch.train import make_train_step
+    from repro.optim import AdamWConfig, adamw_init
+    from repro_torch.data import TokenPipeline
+    jcfg, jp, _, _ = _jax_inputs(arch, s)
+    f32 = dict(compute_dtype=jnp.float32, impl="blocked")
     step = jax.jit(make_train_step(jcfg, AdamWConfig(**OPT), n_microbatches=2, **f32))
-    params, opt, pipe = jp, adamw_init(jp), TokenPipeline(cfg, s, B, seed=1)
+    params, opt, pipe = jp, adamw_init(jp), TokenPipeline(_cfg(arch), s, B, seed=1)
     losses, norms = [], []
     for _ in range(2):
         jb = {k: jnp.asarray(v) for k, v in pipe.next_batch().items()}
         params, opt, _, m = step(params, opt, None, jb)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
-    ref["train"] = {"losses": losses, "grad_norms": norms,
-                    "params": [np.asarray(t) for t in jax.tree_util.tree_leaves(params)]}
-    return ref
+    return {"losses": losses, "grad_norms": norms,
+            "params": [np.asarray(t) for t in jax.tree_util.tree_leaves(params)]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -561,10 +592,10 @@ def _jax_moe(jcfg, jp, x):
     return np.asarray(y), float(aux)
 
 
-def _references(s=S, train_archs=TRAIN_ARCHS, grad_archs=()) -> dict:
+def _references(s=S, train_archs=TRAIN_ARCHS, grad_archs=(), archs=ARCHS5) -> dict:
     """The one-device results the ranks' are held to, beside JAX's."""
     ref = {}
-    for arch in ARCHS5:
+    for arch in archs:
         npw = _jax_weights(arch)
         ref[("logits", arch)] = _logits(arch, npw, s)
         ref[("cache", arch)] = []
