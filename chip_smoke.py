@@ -161,10 +161,15 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  the kernel held to the plain version at two windowed shapes
   serve          jamba-v0.1-52b at full width, 16 of its 32 layers, bf16,
                  random weights from a seeded generator on the card: 8
-                 requests through BatchedServer (batch 4, 32 new tokens);
+                 requests through BatchedServer (batch 4, 32 new tokens), the
+                 first group eagerly, every launch held against its plain
+                 version, the others with the decode step a CUDA graph;
                  launch counts of all three kernels must equal what the path
-                 implies; every launch of the first group is held against its
-                 plain version; the teacher-forced agreement of kernel and
+                 implies; the second group eagerly and graphed in turns
+                 (eager, graphed, graphed, eager: tokens equal, launches as
+                 the path implies in each run, the graphed median below the
+                 eager one; both medians, the capture and copy ms, each
+                 mode's busy share of the step); the teacher-forced agreement of kernel and
                  plain paths is printed beside witnesses (blocked vs plain:
                  no kernel; both again with the MoE routing frozen to the
                  plain path's); every flash_decode call on the wgmma body,
@@ -180,8 +185,10 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  fp32 Mamba states, LONG_STEPS greedy steps through
                  decode_step (2 flash_decode launches a step, all on the
                  wgmma body; ms per step, peak memory), then the same steps
-                 with every launch held against its plain version, the
-                 tokens equal
+                 as a CUDA graph, graphed and eager again (tokens and
+                 launches equal, the graphed median below the eager one,
+                 both busy shares), then with every launch held against its
+                 plain version, eagerly, the tokens equal
   serve_encdec   seamless-m4t-medium at full width and full depth (12
                  encoder and 12 decoder layers), bf16, random weights from a
                  seeded generator on the card: (a) 8 requests through
@@ -191,9 +198,11 @@ Phases, each printing JSON lines (any failure exits non-zero):
                  cross-attention, all on the wgmma body), 24 flash_decode
                  calls per decode step (the self and the cross cache, all on
                  the wgmma body), no ssd_chunked, every launch of the first
-                 group held against its plain version, a torch.profiler
-                 reading of the second group (as serve's) and the tokens on
-                 the simt body (as serve's); (b) prefill and ENCDEC_STEPS
+                 group held against its plain version (eagerly; the others
+                 graphed, one capture a prompt length: the cross cache is as
+                 long as the prompt), the second group eagerly and graphed
+                 in turns (as serve's) and the tokens on the simt body (as
+                 serve's); (b) prefill and ENCDEC_STEPS
                  decode steps with seeded random frames (ENCDEC_FRAMES
                  frames, ENCDEC_PROMPT-token prompts), every launch held
                  against its plain version, the cross shapes, the plain path
@@ -1344,10 +1353,16 @@ def phase_long_decode(state):
     with seeded bf16 K/V in the slots before LONG_VALID - 1 and seeded fp32
     Mamba states, then LONG_STEPS greedy steps through decode_step, timed
     with the launch counts set to 0 just before and read just after (2
-    flash_decode launches a step, all on the wgmma body, nothing else);
-    then the same steps again from the same cache with every flash_decode
-    launch held against its plain version (tokens equal).  Takes serve's
-    weights when serve ran before it."""
+    flash_decode launches a step, all on the wgmma body, nothing else).
+    Then the same steps from the same cache in turns, as a CUDA graph
+    (``launch.serve.GraphedStep``: the first graphed run's first step warms
+    it up and the capture follows; the second replays every step), graphed
+    again and eagerly again, each run's launches as the path implies and
+    its tokens equal; both medians, the capture and each mode's busy share
+    (the profiler's kernel time a step over the step).  Last, the steps
+    again with every flash_decode launch held against its plain version
+    (eagerly; tokens equal).  Takes serve's weights when serve ran before
+    it."""
     import dataclasses
 
     import numpy as np
@@ -1358,6 +1373,7 @@ def phase_long_decode(state):
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd as sm
+    from repro_torch.launch.serve import GraphedStep, make_serve_step
     from repro_torch.models import decode_step, init_decode_cache, init_params
 
     cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=SERVE_LAYERS)
@@ -1380,30 +1396,48 @@ def phase_long_decode(state):
             entry["mamba"]["ssm"].normal_(0.0, 0.1, generator=g)
             entry["mamba"]["conv"].normal_(generator=g)
             mamba0[pos] = {n: t.clone() for n, t in entry["mamba"].items()}
-    cache["pos"] = LONG_VALID - 1
+    cache["pos"].fill_(LONG_VALID - 1)
     cache_gib = sum(t.numel() * t.element_size() for t in _leaves(cache["layers"])) / 2 ** 30
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     first = int(np.random.default_rng(13).integers(0, cfg.vocab_size))
     kernels = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
                "ssd_chunked": sm.ssd_chunked}
+    graphed = {}                                     # the captured step, once captured
 
-    def steps(timed: bool):
+    def steps(timed: bool, graph: bool = False):
+        """LONG_STEPS steps from the seeded cache: tokens, each step's ms
+        (CUDA events), whether every logits row was finite and (1, vocab)."""
         for pos, saved in mamba0.items():            # the same start every time
             for n, t in saved.items():
                 cache["layers"][pos]["mamba"][n].copy_(t)
+        cache["pos"].fill_(LONG_VALID - 1)
         c, tok, toks, marks, finite = cache, torch.tensor([first], device="cuda"), [], [], []
+        gs = graphed.get("step")
+        if graph and gs is not None:
+            gs.token.copy_(tok)
         with torch.no_grad():
             for _ in range(LONG_STEPS):
                 a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 a.record()
-                logits, c = decode_step(params, cfg, c, tok)
-                tok = torch.argmax(logits, -1)
+                if not graph:
+                    logits, c = decode_step(params, cfg, c, tok)
+                    tok = torch.argmax(logits, -1)
+                else:
+                    if gs is None:                   # the warm-up is the first step
+                        gs = GraphedStep(make_serve_step(cfg), params, cache, tok)
+                        gs.warm()
+                    else:
+                        gs.replay()
+                    logits, tok = gs.logits, gs.token.clone()
                 b.record()
                 marks.append((a, b))
                 finite.append(torch.isfinite(logits).all() if logits.shape == (
                     1, cfg.vocab_size) else torch.tensor(False))
                 toks.append(tok)
+                if graph and "step" not in graphed:  # after the warm-up's span
+                    gs.capture()
+                    graphed["step"] = gs
         torch.cuda.synchronize()
         return ([int(t) for t in toks], [a.elapsed_time(b) for a, b in marks] if timed else [],
                 all(bool(f) for f in finite))
@@ -1411,40 +1445,96 @@ def phase_long_decode(state):
     faults: list = []
     n_attn = sum(b.kind == "attn" for b in cfg.pattern) * cfg.n_periods
     expected = {"flash_attention": 0, "flash_decode": n_attn * LONG_STEPS, "ssd_chunked": 0}
-    torch.cuda.synchronize()
-    reset_counts(*kernels.values())
-    tokens, ms, finite = steps(timed=True)
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    by_body = dict(fd.flash_decode.launches_by_body)
+    turns = []
+    for graph in (False, True, True, False):
+        torch.cuda.synchronize()
+        reset_counts(*kernels.values())
+        tokens_, ms_, finite_ = steps(timed=True, graph=graph)
+        turns.append({"graphed": graph, "tokens": tokens_, "ms": ms_, "finite": finite_,
+                      "launches": {name: fn.launches for name, fn in kernels.items()},
+                      "by_body": dict(fd.flash_decode.launches_by_body)})
+    tokens, ms, finite = turns[0]["tokens"], turns[0]["ms"], turns[0]["finite"]
+    launches, by_body = turns[0]["launches"], turns[0]["by_body"]
+    busy = {}
+    for graph in (False, True):                      # the kernels' time a step, profiled
+        busy["graphed" if graph else "eager"] = _steps_busy_share(
+            lambda graph=graph: steps(timed=False, graph=graph), LONG_STEPS,
+            sorted(x for t in turns if t["graphed"] == graph for x in t["ms"]))
     checks: dict = {}
     with ops.checking(lambda name, st: checks.setdefault(name, []).append(st)):
         tokens_checked, _, finite_checked = steps(timed=False)
     err = _checked(checks, faults, phase="long_decode")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     med = sorted(ms)[len(ms) // 2]
+    by_mode = {g: sorted(x for t in turns if t["graphed"] == g for x in t["ms"])
+               for g in (False, True)}
+    med_mode = {g: v[len(v) // 2] for g, v in by_mode.items()}
+    gs = graphed.get("step")
+    emit({"phase": "long_decode", "check": "eager_vs_graphed",
+          "order": ["graphed" if t["graphed"] else "eager" for t in turns],
+          "ms_per_step_median_eager": med_mode[False],
+          "ms_per_step_median_graphed": med_mode[True],
+          "graphed_over_eager": med_mode[True] / med_mode[False],
+          "ms_by_run": [t["ms"] for t in turns], "decode_step_busy_share": busy,
+          "captures": int(gs is not None), "capture_ms": gs.capture_ms if gs else None,
+          "tokens_equal": all(t["tokens"] == tokens for t in turns),
+          "launches_by_run": [t["launches"] for t in turns], "launches_expected": expected})
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "of_layers": get_arch(SERVE_ARCH).n_layers,
            "batch": 1, "max_len": LONG_LEN, "valid_len_first_step": LONG_VALID,
            "steps": LONG_STEPS, "launches": launches, "launches_expected": expected,
            "flash_decode_launches_by_body": by_body,
            "launches_checked": len(checks.get("flash_decode", [])),
            "ms_per_step": ms, "ms_per_step_median": med, "tokens_per_s": 1e3 / med,
+           "ms_per_step_median_graphed": med_mode[True],
            "weights_gib": weights_gib, "cache_gib": cache_gib, "peak_gib": peak_gib,
            "setup_s": setup_s, "tokens": tokens, "tokens_checked_equal": tokens == tokens_checked,
            "max_abs_err": err.get("flash_decode"), "nvidia_smi": nvidia_smi()}
     emit({"phase": "long_decode", "summary": True, **out})
-    if launches != expected:
-        faults.append(f"launches {launches}, the path implies {expected}")
-    if by_body["wgmma"] != launches["flash_decode"]:
-        faults.append(f"flash_decode launches by body {by_body}: all must take wgmma")
-    if not (finite and finite_checked):
-        faults.append("logits not finite or not (1, vocab)")
+    for t in turns:
+        mode = "graphed" if t["graphed"] else "eager"
+        if t["launches"] != expected:
+            faults.append(f"{mode} run: launches {t['launches']}, the path implies {expected}")
+        if t["by_body"]["wgmma"] != t["launches"]["flash_decode"]:
+            faults.append(f"{mode} run: flash_decode launches by body {t['by_body']}: all "
+                          f"must take wgmma")
+        if not t["finite"]:
+            faults.append(f"{mode} run: logits not finite or not (1, vocab)")
+        if t["tokens"] != tokens:
+            faults.append(f"{mode} run: tokens {t['tokens']}, the first eager run's {tokens}")
+    if not finite_checked:
+        faults.append("checked run: logits not finite or not (1, vocab)")
     if tokens != tokens_checked:
         faults.append(f"tokens {tokens}, again with the checks {tokens_checked}")
+    if not med_mode[True] < med_mode[False]:
+        faults.append(f"the graphed step's median {med_mode[True]} ms is not below the "
+                      f"eager one's {med_mode[False]} ms")
     state["long_decode"] = out
-    del params, cache
+    del params, cache, graphed, gs
     torch.cuda.empty_cache()
     if faults:
         raise AssertionError("long_decode: " + "; ".join(faults))
+
+
+def _steps_busy_share(run, n_steps: int, step_ms: list) -> dict:
+    """torch.profiler over ``run()`` (``n_steps`` decode steps): the kernels'
+    device time a step and its share of the median step (``step_ms``, from
+    CUDA events).  A profiler that sees a graph's launch and not its kernels
+    reads no kernel time: "not measured"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device_ms = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
+    med = step_ms[len(step_ms) // 2]
+    if not device_ms:
+        return {"device_ms_per_step": "not measured", "busy_share": "not measured"}
+    return {"device_ms_per_step": device_ms / n_steps, "step_ms_median": med,
+            "busy_share": device_ms / n_steps / med}
 
 
 def ssd_inputs(gen, B, L, H, P, N, dtype, A=None):
@@ -1652,12 +1742,15 @@ def _teacher_forced(params, cfg, group, max_len, impl, ref_impl, freeze=False):
     return steps, routing
 
 
-def _profile_group(server, group, phase="serve"):
+def _profile_group(server, group, phase="serve") -> dict:
     """torch.profiler over two more passes of a group: the prefill alone (one
     new token) and the prefill with PROFILE_NEW - 1 decode steps.  Device
     time of the kernels (CUDA rows only), the ported kernels' share, the
     device's busy share of the pass's wall time, and by difference the
-    device time of one decode step.  A reading, not a check."""
+    device time of one decode step and its share of the step.  On a graphed
+    server the replays' spans on the card (CUDA events) stand beside it, in
+    case the profiler sees the graph's launch and not its kernels.  A
+    reading, not a check; returns the second pass's line."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1685,6 +1778,7 @@ def _profile_group(server, group, phase="serve"):
                                                     "ssd_state_pass", "ssd_chunk_scan")))}
         t = server.timings[-1]
         line = {"phase": phase, "check": "profile", "gate": False, "new_tokens": new,
+                "graphed": server.graph, "replay_ms": t.get("replay_ms"),
                 "prompt_len": t["prompt_len"], "wall_ms": wall_ms,
                 "device_ms": device_ms[new] or "not measured",
                 "device_busy_share": (device_ms[new] / wall_ms if device_ms[new]
@@ -1694,20 +1788,25 @@ def _profile_group(server, group, phase="serve"):
                 "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:12]]}
         if new > 1 and device_ms[1] and t["decode_ms"]:
             step = (device_ms[new] - device_ms[1]) / (new - 1)
-            line["decode_step_device_ms"] = step
-            line["decode_step_busy_share"] = step / (sum(t["decode_ms"]) / len(t["decode_ms"]))
+            line["decode_step_device_ms"] = step if step > 0 else "not measured"
+            line["decode_step_busy_share"] = (
+                step / (sum(t["decode_ms"]) / len(t["decode_ms"])) if step > 0
+                else "not measured")
         emit(line)
+    return line
 
 
 def _serve_traffic(cfg, params, checked, faults: list, **tags) -> dict:
     """SERVE_REQUESTS requests (prompts drawn in SERVE_PROMPT, SERVE_NEW
     greedy tokens each) through BatchedServer in bf16, batch SERVE_BATCH,
     max_len SERVE_MAX_LEN.  The three kernels' counts are set to 0 just
-    before; every launch of the first group is held against its plain
-    version (``checked``: the kernels that must have checked launches).
-    One line per group, tagged with ``tags``; a fault for a wrong number of
-    decode steps or a bad output.  Returns the server, requests, groups,
-    launch counts, decode steps, checks and wall seconds."""
+    before; the first group runs eagerly, every launch held against its
+    plain version (``checked``: the kernels that must have checked
+    launches), the others through the card's default server, whose decode
+    step is a CUDA graph.  One line per group, tagged with ``tags``; a
+    fault for a wrong number of decode steps or a bad output.  Returns the
+    graphed server, requests, groups, timings, launch counts, decode steps,
+    checks and wall seconds."""
     import numpy as np
     import torch
 
@@ -1722,8 +1821,8 @@ def _serve_traffic(cfg, params, checked, faults: list, **tags) -> dict:
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, (int(n),)), SERVE_NEW)
             for i, n in enumerate(lens)]
     groups = [reqs[i:i + SERVE_BATCH] for i in range(0, len(reqs), SERVE_BATCH)]
-    server = BatchedServer(cfg, params, batch_size=SERVE_BATCH, max_len=SERVE_MAX_LEN,
-                           compute_dtype=torch.bfloat16)
+    kw = dict(batch_size=SERVE_BATCH, max_len=SERVE_MAX_LEN, compute_dtype=torch.bfloat16)
+    eager, server = BatchedServer(cfg, params, graph=False, **kw), BatchedServer(cfg, params, **kw)
     kernels = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
                "ssd_chunked": sm.ssd_chunked}
     checks = {name: [] for name in checked}
@@ -1731,30 +1830,106 @@ def _serve_traffic(cfg, params, checked, faults: list, **tags) -> dict:
     reset_counts(*kernels.values())
     t0 = time.perf_counter()
     with ops.checking(lambda name, st: checks.setdefault(name, []).append(st)):
-        server.run_group(groups[0])              # every launch held against plain
+        eager.run_group(groups[0])               # every launch held against plain
     for grp in groups[1:]:
         server.run_group(grp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
     decode_by_body = dict(fd.flash_decode.launches_by_body)
-    steps = sum(len(t["decode_ms"]) for t in server.timings)
-    for i, t in enumerate(server.timings):
+    timings = eager.timings + server.timings
+    steps = sum(len(t["decode_ms"]) for t in timings)
+    for i, t in enumerate(timings):
         dec = sorted(t["decode_ms"])
         med = dec[len(dec) // 2]
-        emit({**tags, "group": i, "checked_against_plain": i == 0,
+        emit({**tags, "group": i, "checked_against_plain": i == 0, "graphed": i > 0,
               "batch": t["batch"], "prompt_len": t["prompt_len"],
               "prompt_lens": [len(r.prompt) for r in groups[i]],
               "prefill_ms": t["prefill_ms"], "decode_steps": len(dec),
               "decode_ms_median": med, "decode_ms_mean": sum(dec) / len(dec),
               "decode_tokens_per_s": t["batch"] / (med * 1e-3)})
+    emit({**tags, "check": "graph_captures", "captures": len(server.graph_log["capture_ms"]),
+          "capture_ms": server.graph_log["capture_ms"], "copy_ms": server.graph_log["copy_ms"]})
     if steps != len(groups) * (SERVE_NEW - 1):
         faults.append(f"{steps} decode steps, expected {len(groups) * (SERVE_NEW - 1)}")
     for r in reqs:
         if len(r.output) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in r.output):
             faults.append(f"request {r.rid} output {r.output}")
-    return dict(server=server, reqs=reqs, groups=groups, launches=launches, steps=steps,
-                checks=checks, wall=wall, decode_by_body=decode_by_body)
+    return dict(server=server, reqs=reqs, groups=groups, timings=timings, launches=launches,
+                steps=steps, checks=checks, wall=wall, decode_by_body=decode_by_body)
+
+
+def _eager_vs_graphed(cfg, params, group, expected: dict, faults: list, **tags) -> dict:
+    """``group`` through BatchedServer eagerly and with its decode step a
+    CUDA graph, in turns (eager, graphed, graphed, eager), each run from its
+    own prefill of the same prompts, the three kernels' counts set to 0 just
+    before each run and read just after: the same tokens in every run and,
+    in every run, the launches the path implies (``expected``).  The graphed
+    server is fresh: its first run captures, its second copies its prefill
+    cache into the captured one.  Prints both step medians, the captures
+    and each server's profile (``_profile_group``): the step's busy share,
+    and on the graph each replay's span on the card (CUDA events)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssd as sm
+    from repro_torch.launch.serve import BatchedServer, Request
+
+    kw = dict(batch_size=SERVE_BATCH, max_len=SERVE_MAX_LEN, compute_dtype=torch.bfloat16)
+    servers = {False: BatchedServer(cfg, params, graph=False, **kw),
+               True: BatchedServer(cfg, params, graph=True, **kw)}
+    kernels = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
+               "ssd_chunked": sm.ssd_chunked}
+    runs = []
+    for graph in (False, True, True, False):
+        reqs = [Request(r.rid, r.prompt, r.max_new_tokens) for r in group]
+        torch.cuda.synchronize()
+        reset_counts(*kernels.values())
+        servers[graph].run_group(reqs)
+        torch.cuda.synchronize()
+        t = servers[graph].timings[-1]
+        runs.append({"graphed": graph, "tokens": [r.output for r in reqs],
+                     "launches": {name: fn.launches for name, fn in kernels.items()},
+                     "decode_ms": t["decode_ms"], "replay_ms": t.get("replay_ms")})
+    ms = {g: sorted(x for r in runs if r["graphed"] == g for x in r["decode_ms"])
+          for g in (False, True)}
+    med = {g: v[len(v) // 2] for g, v in ms.items()}
+    # the graphed runs' replayed steps: all but the first run's first (the warm-up)
+    spans = [(rep, dec) for r in runs if r["graphed"]
+             for rep, dec in zip(r["replay_ms"], r["decode_ms"][len(r["decode_ms"])
+                                                                - len(r["replay_ms"]):])]
+    log = {k: list(v) for k, v in servers[True].graph_log.items()}    # the turns'
+    profiles = {g: _profile_group(servers[g], group, tags["phase"]) for g in (False, True)}
+    line = {**tags, "check": "eager_vs_graphed", "prompt_len": max(len(r.prompt) for r in group),
+            "order": ["graphed" if r["graphed"] else "eager" for r in runs],
+            "decode_ms_median_eager": med[False], "decode_ms_median_graphed": med[True],
+            "graphed_over_eager": med[True] / med[False],
+            "decode_ms_by_run": [r["decode_ms"] for r in runs],
+            "replay_ms_median": sorted(a for a, _ in spans)[len(spans) // 2],
+            "replay_busy_share": sum(a for a, _ in spans) / sum(b for _, b in spans),
+            "decode_step_busy_share": {("graphed" if g else "eager"):
+                                       p.get("decode_step_busy_share", "not measured")
+                                       for g, p in profiles.items()},
+            "captures": len(log["capture_ms"]), "capture_ms": log["capture_ms"],
+            "copy_ms": log["copy_ms"], "tokens_equal": all(r["tokens"] == runs[0]["tokens"]
+                                                           for r in runs),
+            "launches_by_run": [r["launches"] for r in runs], "launches_expected": expected,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(line)
+    if not line["tokens_equal"]:
+        faults.append(f"eager and graphed tokens differ: {[r['tokens'] for r in runs]}")
+    for r in runs:
+        if r["launches"] != expected:
+            faults.append(f"{'graphed' if r['graphed'] else 'eager'} run: launches "
+                          f"{r['launches']}, the path implies {expected}")
+    if line["captures"] != 1 or len(log["copy_ms"]) != 1:
+        faults.append(f"graphed server: {line['captures']} captures and "
+                      f"{len(log['copy_ms'])} copies, want one of each")
+    if not med[True] < med[False]:
+        faults.append(f"the graphed step's median {med[True]} ms is not below the eager "
+                      f"one's {med[False]} ms")
+    return line
 
 
 def _bf16_ulp(x: float) -> float:
@@ -1763,10 +1938,12 @@ def _bf16_ulp(x: float) -> float:
 
 
 def _decode_bodies_agree(cfg, params, run, faults: list, **tags) -> dict:
-    """The served requests again, twice, through a fresh BatchedServer: with
-    flash_decode as routed (the wgmma body) and with every call routed to
-    the simt body from this script's side.  The routed run must give the
-    served run's tokens (the kernel is deterministic).  Where a request's
+    """The served requests again, twice, through a fresh eager BatchedServer:
+    with flash_decode as routed (the wgmma body) and with every call routed
+    to the simt body from this script's side (a graph would fix the routing
+    at its capture).  The routed run must give the served run's tokens (the
+    kernel is deterministic; the served run's groups after the first ran
+    as a CUDA graph).  Where a request's
     tokens differ between the two runs, the first point where the two runs
     part must be a rounding tie: the first decode step at which one of its
     MoE layers chose other experts (the k-th and the next expert's router
@@ -1780,9 +1957,9 @@ def _decode_bodies_agree(cfg, params, run, faults: list, **tags) -> dict:
 
     own_top_k, steps_a_group = moe.top_k, SERVE_NEW - 1
     outs, tops, routes = {}, {}, {}
-    for body in ("wgmma", "simt"):
+    for body in ("wgmma", "simt"):            # eager: the routing and the reads are the host's
         server = BatchedServer(cfg, params, batch_size=SERVE_BATCH, max_len=SERVE_MAX_LEN,
-                               compute_dtype=torch.bfloat16)
+                               compute_dtype=torch.bfloat16, graph=False)
         inner, top, route, at = server._serve, [], [], {"step": None}
 
         def serve(params_, cache, token, inner=inner, top=top, at=at):
@@ -1891,7 +2068,7 @@ def phase_serve(state):
     faults: list = []
     run = _serve_traffic(cfg, params, ("flash_attention", "flash_decode", "ssd_chunked"),
                          faults, phase="serve")
-    server, reqs, groups = run["server"], run["reqs"], run["groups"]
+    reqs, groups = run["reqs"], run["groups"]
     launches, steps, wall = run["launches"], run["steps"], run["wall"]
     by_body = dict(fa.flash_attention.launches_by_body)
     ssd_by_body = dict(sm.ssd_chunked.launches_by_body)
@@ -1927,7 +2104,10 @@ def phase_serve(state):
           "flash_decode_per_step": launches["flash_decode"] / steps,
           "outputs_first_request": reqs[0].output})
 
-    _profile_group(server, groups[1])
+    state["serve_graph"] = _eager_vs_graphed(
+        cfg, params, groups[1], {"flash_attention": n_attn, "ssd_chunked": n_mamba,
+                                 "flash_decode": n_attn * (SERVE_NEW - 1)},
+        faults, phase="serve")
     _decode_bodies_agree(cfg, params, run, faults, phase="serve")
     for name, impl, ref_impl, freeze in (
             ("kernel_vs_plain", "kernel", "plain", False),
@@ -1940,11 +2120,11 @@ def phase_serve(state):
               "steps": rows, "routing": routing})
     state["serve"] = {"launches": launches, "by_body": by_body, "ssd_by_body": ssd_by_body,
                       "decode_by_body": decode_by_body,
-                      "prompt_lens": [t["prompt_len"] for t in server.timings],
-                      "timings": server.timings}
+                      "prompt_lens": [t["prompt_len"] for t in run["timings"]],
+                      "timings": run["timings"]}
     if "long_decode" in state.get("phases", ()):
         state["serve_params"] = params      # long_decode decodes on the same weights
-    del params, server
+    del params, run
     torch.cuda.empty_cache()
 
     # small inputs against the reference: reduced Jamba in fp32, the card's
@@ -2000,13 +2180,12 @@ def _encdec_served(cfg, params, faults: list) -> dict:
     """(a) The served traffic through BatchedServer as the JAX package
     drives an encoder-decoder (zero frames of each group's prompt length):
     launch counts, the first group's launches held to their plain versions,
-    timings and a profile of the second group."""
+    timings, and the second group eagerly and graphed in turns."""
     from repro_torch.kernels import flash_attention as fa
 
     run = _serve_traffic(cfg, params, ("flash_attention", "flash_decode"), faults,
                          phase="serve_encdec", part="served")
-    server, groups, launches, steps = run["server"], run["groups"], run["launches"], \
-        run["steps"]
+    groups, launches, steps = run["groups"], run["launches"], run["steps"]
     by_body = dict(fa.flash_attention.launches_by_body)
     n_attn = sum(b.kind == "attn" for b in cfg.pattern) * cfg.n_periods
     n_cross = sum(b.cross_attn for b in cfg.pattern) * cfg.n_periods
@@ -2033,9 +2212,13 @@ def _encdec_served(cfg, params, faults: list) -> dict:
           "flash_decode_per_step": launches["flash_decode"] / steps,
           "outputs_first_request": run["reqs"][0].output})
     out = {"launches": launches, "by_body": by_body, "decode_by_body": decode_by_body,
-           "err": err, "prompt_lens": [t["prompt_len"] for t in server.timings],
-           "timings": list(server.timings)}
-    _profile_group(server, groups[1], "serve_encdec")
+           "err": err, "prompt_lens": [t["prompt_len"] for t in run["timings"]],
+           "timings": run["timings"]}
+    out["graph"] = _eager_vs_graphed(
+        cfg, params, groups[1], {"flash_attention": cfg.n_enc_layers + n_attn + n_cross,
+                                 "ssd_chunked": 0,
+                                 "flash_decode": (n_attn + n_cross) * (SERVE_NEW - 1)},
+        faults, phase="serve_encdec", part="served")
     _decode_bodies_agree(cfg, params, run, faults, phase="serve_encdec", part="served")
     return out
 
@@ -3086,8 +3269,9 @@ def _card_vs_cpu_tokens(cfg, check: bool):
     """``cfg`` in fp32 with weights from seed 0 served on the card
     (impl="auto": the kernels) and on the CPU (the blocked references):
     4 prompts of 5-39 tokens, batch 2, 8 new tokens.  With ``check`` every
-    card launch is held to its plain version; returns both token lists and
-    the checked launches' stats by kernel."""
+    card launch is held to its plain version (eagerly); without, the card's
+    decode step is a CUDA graph.  Returns both token lists and the checked
+    launches' stats by kernel."""
     import numpy as np
     import torch
 
@@ -3104,7 +3288,9 @@ def _card_vs_cpu_tokens(cfg, check: bool):
     prompts = [srng.integers(0, cfg.vocab_size, (int(n),)) for n in lens]
     outs, seen = {}, {}
     for name, p in (("card", to_cuda(cpu_params)), ("cpu", cpu_params)):
-        srv = BatchedServer(cfg, p, batch_size=2, max_len=64)
+        # checked launches run eagerly; unchecked, the card replays a CUDA graph
+        srv = BatchedServer(cfg, p, batch_size=2, max_len=64,
+                            graph=False if check else None)
         hook = (ops.checking(lambda k, st: seen.setdefault(k, []).append(st))
                 if check and name == "card" else contextlib.nullcontext())
         with hook:

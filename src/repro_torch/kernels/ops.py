@@ -17,7 +17,9 @@ decoupled from the search code.
 kernel launch is followed by the kernel's plain version on the same inputs
 and ``record(name, stats)`` gets the bf16 agreement of the two.  Only
 ``chip_smoke.py`` and the card tests turn it on; nothing on the served path
-does.
+does.  The check reads values on the host, so a decode step captured in a
+CUDA graph cannot hold it: ``launch.serve.BatchedServer`` refuses a graph
+while it is on (``checking_active``).
 """
 from __future__ import annotations
 
@@ -52,6 +54,11 @@ def checking(record: Callable[[str, dict], None]):
         yield
     finally:
         _check = prev
+
+
+def checking_active() -> bool:
+    """Whether the checking hook is on (a CUDA graph cannot hold it)."""
+    return _check is not None
 
 
 def resolve_impl(impl: Optional[str], t: torch.Tensor) -> str:

@@ -28,7 +28,10 @@ as its out-of-place name):
   written, twice the result's bytes, as ``dynamic-slice`` does; an in-place
   op (``copy_``, ``fill_``, ...) writes into its first operand, which is
   counted once, so ``copy_`` costs its source and its destination region,
-  as ``dynamic-update-slice`` does; the ``*_like`` factories read nothing of
+  as ``dynamic-update-slice`` does; ``index_select`` and ``index_copy_``
+  at one index (decode's cache slot, which stays on the device) cost their
+  region read and written, as ``dynamic-slice`` and
+  ``dynamic-update-slice`` do; the ``*_like`` factories read nothing of
   their template, and ``empty`` / ``empty_like`` write nothing.
   Conversions (``_to_copy``), copies (``clone``), padding and the other
   factories move bytes and count no FLOPs, as ``convert``, ``copy``, ``pad``,
@@ -77,6 +80,8 @@ ELEMENTWISE = frozenset({
 REDUCTIONS = frozenset({"amax", "amin", "sum", "mean", "prod", "any", "all",
                         "max", "min", "logsumexp"})
 REGION_VIEWS = frozenset({"slice", "select"})   # charged as dynamic-slice
+# at one index: charged as dynamic-slice / dynamic-update-slice
+DYNAMIC_SLICES = frozenset({"index_select", "index_copy"})
 FREE = frozenset({"_unsafe_view"})              # a reshape of a fresh result
 UNREAD_TEMPLATE = frozenset({"empty_like", "zeros_like", "ones_like",
                              "full_like", "rand_like", "randn_like"})
@@ -176,6 +181,8 @@ class _Counter(TorchDispatchMode):
             return 2 * sum(_nbytes(r) for r in results)
         if func.is_view or base in FREE:
             return 0
+        if base in DYNAMIC_SLICES and operands[1].numel() == 1:   # the index
+            return 2 * _nbytes(results[0] if base == "index_select" else operands[2])
         read = [] if base in UNREAD_TEMPLATE else operands
         written = [] if (inplace or base in UNWRITTEN) else results
         return sum(_nbytes(t) for t in read) + sum(_nbytes(t) for t in written)

@@ -267,20 +267,40 @@ def cache_from_prefill(kt, vt, blk: Block, max_len: int):
     return {"k": k.contiguous(), "v": v.contiguous()}
 
 
-def attn_decode(x, p, cache, cfg: ArchConfig, blk: Block, *, pos: int, compute_dtype,
+def _write_slot(cache, at, new, masked: bool) -> None:
+    """Writes ``new`` (B, Hkv, Dh) into slot ``at`` (a 0-d tensor on the
+    device) of ``cache`` (B, Hkv, Lr, Dh), in place.  With ``masked`` the
+    slot may lie outside [0, Lr) (another rank's): the write goes to the
+    clamped slot and puts back what is there, so that no rank reads ``at``
+    on the host."""
+    idx = at.clamp(0, cache.shape[2] - 1).reshape(1).long()
+    new = new.to(cache.dtype)[:, :, None]
+    if masked:
+        own = (at >= 0) & (at < cache.shape[2])
+        new = torch.where(own, new, cache.index_select(2, idx))
+    cache.index_copy_(2, idx, new)
+
+
+def attn_decode(x, p, cache, cfg: ArchConfig, blk: Block, *, pos, compute_dtype,
                 cross_cache: Optional[dict] = None, enc_len: Optional[int] = None,
                 impl: Optional[str] = None, length_axes=None):
     """Single-token attention.  x: (B, D); pos: the absolute position (one
-    for the whole batch: decode runs in lockstep).  Writes the token's K/V
-    into ``cache`` in place and returns the new x.  With ``cross_cache``
-    ({"k", "v"}: (B, Hkv, Se, Dh)), cross-attention follows over its first
-    ``enc_len`` keys; the cross cache is only read.  Under a mesh it runs on
-    this rank's rows, and the caches hold this rank's shard
-    (``_head_layout``).  With ``length_axes`` (``context.length_axes``: the
-    data axes, or "model" on the head fallback) the self-attention cache
-    holds this rank's shard over those axes of the length, slots [r Lr, (r
-    + 1) Lr) of the whole Lc = n Lr: the rank that owns the token's slot
-    writes it, each rank decodes its live keys (keys sit in slots [0,
+    for the whole batch: decode runs in lockstep), a 0-d int32 tensor on
+    x's device, as ``decode_step`` keeps it (a Python int is moved there).
+    Everything that depends on it is computed on the device: the rotary
+    angle, the slot (pos % Lc on a window, else clamped to the last slot,
+    as the JAX package's ``dynamic_update_slice`` clamps) and the valid
+    length, so the step reads nothing on the host and can be captured in a
+    CUDA graph.  Writes the token's K/V into ``cache`` in place and returns
+    the new x.  With ``cross_cache`` ({"k", "v"}: (B, Hkv, Se, Dh)),
+    cross-attention follows over its first ``enc_len`` keys; the cross
+    cache is only read.  Under a mesh it runs on this rank's rows, and the
+    caches hold this rank's shard (``_head_layout``).  With
+    ``length_axes`` (``context.length_axes``: the data axes, or "model" on
+    the head fallback) the self-attention cache holds this rank's shard
+    over those axes of the length, slots [r Lr, (r + 1) Lr) of the whole Lc
+    = n Lr: the rank that owns the token's slot writes it (a masked write
+    on every rank), each rank decodes its live keys (keys sit in slots [0,
     min(pos + 1, Lc)), on a ring too; a rank with none reads a partial of
     weight 0) and the partials are merged across the ranks
     (``spmd.merge_over``).  Q and the output projection stay whole on every
@@ -291,6 +311,7 @@ def attn_decode(x, p, cache, cfg: ArchConfig, blk: Block, *, pos: int, compute_d
     hq, hkv = _local_heads(cfg, q_ax, kv_ax)
     split = q_ax is not None
     kw = dict(softcap=cfg.attn_softcap, impl=impl)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     h = norm_apply(x, spmd.use(p["norm"]), cfg).to(compute_dtype)
     kv = _kv_partial(q_ax, kv_ax)
     q = spmd.dot(h, p["wq"], None, q_ax)
@@ -306,12 +327,12 @@ def attn_decode(x, p, cache, cfg: ArchConfig, blk: Block, *, pos: int, compute_d
     n, r = spmd.axes_size(length_axes), spmd.axes_rank(length_axes)
     Lc, lo = n * Lr, r * Lr
     # the JAX package's dynamic_update_slice clamps an index past the end
-    slot = pos % Lc if blk.window else min(pos, Lc - 1)
-    if lo <= slot < lo + Lr:
-        kc[:, :, slot - lo] = k.to(kc.dtype)
-        vc[:, :, slot - lo] = v.reshape(B, hkv, Dh).to(vc.dtype)
-    live = min(max(min(pos + 1, Lc) - lo, 0), Lr)
-    valid_len = torch.full((B,), live, dtype=torch.int32, device=x.device)
+    slot = torch.remainder(pos, Lc) if blk.window else pos.clamp(max=Lc - 1)
+    masked = length_axes is not None
+    _write_slot(kc, slot - lo, k, masked)
+    _write_slot(vc, slot - lo, v.reshape(B, hkv, Dh), masked)
+    live = ((pos + 1).clamp(max=Lc) - lo).clamp(0, Lr)
+    valid_len = live.expand(B).contiguous()
     kr, vr = _kv_read(kc, kv_range), _kv_read(vc, kv_range)
     if length_axes is not None:
         if length_axes == "model":

@@ -56,12 +56,13 @@ def norm_init(cfg: ArchConfig, shape_d: int, device=None, lead=()) -> torch.Tens
 
 
 def rope_apply(x, pos, theta: float):
-    """x: (..., S, H, Dh) or (..., H, Dh) with matching pos (..., S) or scalar."""
+    """x: (..., S, H, Dh) or (..., H, Dh) with matching integer positions
+    ``pos``, a tensor on x's device: (..., S), or 0-d (decode's position,
+    which stays on the device)."""
     dh = x.shape[-1]
     half = dh // 2
     freqs = theta ** (-torch.arange(half, dtype=torch.float32, device=x.device) / half)
-    pos = torch.as_tensor(pos, dtype=torch.float32, device=x.device)
-    ang = pos[..., None] * freqs                       # (..., S, half) or (half,)
+    ang = pos.to(torch.float32)[..., None] * freqs                       # (..., S, half) or (half,)
     cos = torch.cos(ang)[..., None, :]                 # broadcast over heads
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()

@@ -413,7 +413,9 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *, prefix_embeds=None
     and the decode cache, stacked over periods: attention K/V (n_per, B,
     Hkv, Lc, Dh) in ``cache_dtype``, Mamba states (n_per, B, H, P, N) and
     conv tails (n_per, B, K-1, C) in fp32.  ``cache["pos"]`` is the prompt
-    length, a Python int.  An encoder-decoder encodes ``enc_frames`` first;
+    length, a 0-d int32 tensor on the cache's device (the JAX package's
+    int32 array), which ``decode_step`` advances on the device.  An
+    encoder-decoder encodes ``enc_frames`` first;
     its cache adds the cross K/V of the memory (n_per, B, Hkv, Se, Dh) in the
     compute dtype, as the JAX package keeps them, and ``cache["enc_len"]``
     = Se.  The cross K/V are the ones the prefill's cross-attention computed
@@ -451,7 +453,8 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *, prefix_embeds=None
             entry["mamba"] = {k: torch.stack([c["mamba"][k] for c in per])
                               for k in ("ssm", "conv")}
         layers[f"pos{i}"] = entry
-    cache = {"pos": S, "layers": _wrap_cache(layers, cfg, B, max_len)}
+    cache = {"pos": torch.full((), S, dtype=torch.int32, device=tokens.device),
+             "layers": _wrap_cache(layers, cfg, B, max_len)}
     if cfg.enc_dec:
         cache["enc_len"] = enc_out.shape[1]
     return logits, cache
@@ -507,7 +510,8 @@ def _local_cache(layers: dict) -> dict:
 def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                       cache_dtype=torch.bfloat16, enc_len: int = 0, device=None):
     """A zero cache for decode alone (the decode-only dry-run cells): the
-    layout ``prefill`` returns, with ``pos`` = max_len - 1.  The cross
+    layout ``prefill`` returns, with ``pos`` = max_len - 1 (a 0-d int32
+    tensor on ``device``: on meta for the dry run's specs).  The cross
     caches (n_per, B, Hkv, enc_len, Dh) are in ``cache_dtype`` here, as the
     JAX package makes them.  The JAX package broadcasts one zero block over
     the periods; ``decode_step`` writes the port's cache in place, so every
@@ -539,7 +543,8 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                 for k, v in tree.items()}
     layers = {f"pos{i}": local(layers[f"pos{i}"], _cache_specs(cfg, blk, batch, max_len))
               for i, blk in enumerate(cfg.pattern)}
-    cache = {"pos": max_len - 1, "layers": _wrap_cache(layers, cfg, batch, max_len)}
+    cache = {"pos": torch.full((), max_len - 1, dtype=torch.int32, device=device),
+             "layers": _wrap_cache(layers, cfg, batch, max_len)}
     if cfg.enc_dec:
         cache["enc_len"] = enc_len
     return cache
@@ -561,7 +566,11 @@ def decode_step(params, cfg: ArchConfig, cache, token, *,
 
     The cache's tensors are updated in place (the JAX package returns new
     arrays); the returned cache is a new dict over the same tensors with
-    ``pos`` advanced by one.  An attention cache whose length the mesh
+    ``pos`` + 1, a new 0-d tensor.  The position stays on the device: every
+    layer computes its rotary angle, slot and valid length from it there
+    (``attn_decode``), so the step never reads it on the host, and
+    ``launch.serve`` can capture the step in a CUDA graph.  An attention
+    cache whose length the mesh
     splits, over the data axes at a batch of 1 or over "model" on the head
     fallback (``_length_axes``; its global length is the DTensor's),
     decodes each rank's shard and merges the ranks' partials

@@ -8,8 +8,9 @@ The counterpart of ``examples/serve_batched.py``.
     python -m repro_torch.serve --arch seamless-m4t-medium \\
         --prompt-len 1000 2048 --new-tokens 32 --max-len 4096    # whole
 
-On the card the model runs in bf16 through the sm_90a kernels; with
-``--device cpu`` it runs in fp32 through the plain PyTorch references.
+On the card the model runs in bf16 through the sm_90a kernels, its decode
+step captured once in a CUDA graph and replayed; with ``--device cpu`` it
+runs in fp32 through the plain PyTorch references, eagerly.
 Weights are random, drawn from ``--seed`` on the device.  An
 encoder-decoder's encoder reads zero frames, as in the JAX package.
 """
@@ -73,8 +74,10 @@ def main(argv=None) -> None:
     total_new = sum(len(r.output) for r in done)
     for r in done:
         print(f"req {r.rid}: prompt[{len(r.prompt)}] -> {r.output}")
+    step = (f"a CUDA graph ({len(server.graph_log['capture_ms'])} captures)"
+            if server.graph else "eager")
     print(f"\n{total_new} tokens in {dt:.2f}s ({total_new / dt:.1f} tok/s, "
-          f"prefill included, on {device_name(dev)})")
+          f"prefill included, decode step {step}, on {device_name(dev)})")
 
 
 if __name__ == "__main__":

@@ -38,6 +38,7 @@ from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.launch import dryrun
 from repro_torch.launch import specs as S
 from repro_torch.launch.trace_analysis import trace_summary
+from repro_torch.models import init_decode_cache
 from repro_torch.tree import tree_leaves
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -116,7 +117,9 @@ def test_cache_and_opt_specs():
     k = cache["layers"]["pos0"]["k"]
     assert k.device.type == "meta"
     assert k.shape == (cfg.n_periods, 128, cfg.n_kv_heads, 32768, cfg.head_dim)
-    assert cache["pos"] == 32767
+    pos = cache["pos"]          # a meta tensor: its value from the helper on the CPU
+    assert pos.device.type == "meta" and pos.shape == () and pos.dtype == torch.int32
+    assert init_decode_cache(cfg.reduced(), 1, cell.seq_len)["pos"] == 32767
     tok = S.token_specs(cfg, cell)
     assert tok.shape == (128,) and tok.dtype == torch.int64
     params, _ = S.param_specs(cfg.reduced())

@@ -215,12 +215,13 @@ def test_init_decode_cache_matches_jax(pair, cache_dtype, jax_dtype):
         for k, v in node.items():
             if isinstance(v, dict):
                 walk(v, path + f"[{k!r}]")
-            elif isinstance(v, torch.Tensor):
+            elif isinstance(v, torch.Tensor) and v.ndim:     # as jleaves: pos apart
                 tleaves[path + f"[{k!r}]"] = (tuple(v.shape), str(v.dtype).split(".")[1])
     walk(ours, "")
     assert tleaves == jleaves
     assert set(ours) == set(theirs) == {"pos", "layers", "enc_len"}
     assert ours["pos"] == int(theirs["pos"]) == L - 1
+    assert ours["pos"].dtype == torch.int32 and str(theirs["pos"].dtype) == "int32"
     assert ours["enc_len"] == theirs["enc_len"] == Se
     tok = np.array([3, 11])
     lt, _ = decode_step(tp, cfg, ours, torch.from_numpy(tok), compute_dtype=torch.float32,

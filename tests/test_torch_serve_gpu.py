@@ -380,7 +380,7 @@ def test_reduced_jamba_serves_the_cpu_tokens_through_the_kernels():
     outs, seen = {}, []
     counts = {f: f.launches for f in (fd.flash_decode, sm.ssd_chunked)}
     for name, params in (("card", to_cuda(cpu)), ("cpu", cpu)):
-        srv = BatchedServer(cfg, params, batch_size=2, max_len=64)
+        srv = BatchedServer(cfg, params, batch_size=2, max_len=64, graph=False)
         with ops.checking(lambda kernel, stats: seen.append(kernel)):
             outs[name] = [r.output for r in srv.run(
                 [Request(i, p, 6) for i, p in enumerate(prompts)])]
@@ -416,7 +416,7 @@ def test_published_head_dims_serve_through_the_kernels(name, head_dim):
     outs, seen = {}, []
     counts = {f: f.launches for f in (fa.flash_attention, fd.flash_decode)}
     for device, params in (("card", to_cuda(cpu)), ("cpu", cpu)):
-        srv = BatchedServer(cfg, params, batch_size=2, max_len=64)
+        srv = BatchedServer(cfg, params, batch_size=2, max_len=64, graph=False)
         with ops.checking(lambda kernel, stats: seen.append((kernel, stats))):
             outs[device] = [r.output for r in srv.run(
                 [Request(i, p, 6) for i, p in enumerate(prompts)])]
@@ -478,3 +478,116 @@ def test_reduced_seamless_gives_the_cpu_logits_and_tokens_through_the_kernels():
         served[device] = [r.output for r in srv.run(
             [Request(i, p, 6) for i, p in enumerate(prompts)])]
     assert served["card"] == served["cpu"]
+
+
+def _record_logits(srv, out: list) -> None:
+    """Appends a copy of each decode step's logits that ``srv`` runs to
+    ``out``: the eager step's, or the graph's output after its warm-up step
+    and after every replay."""
+    if not srv.graph:
+        inner = srv._serve
+
+        def serve(params, cache, token):
+            logits, cache = inner(params, cache, token)
+            out.append(logits.clone())
+            return logits, cache
+        srv._serve = serve
+        return
+    first = srv._first_step
+
+    def first_step(cache, token, copies):
+        capture = first(cache, token, copies)
+        if capture:                  # a new graph: the eager warm-up step, then replays
+            out.append(srv._graphed.logits.clone())
+            replay = srv._graphed.replay
+
+            def replay_():
+                span = replay()
+                out.append(srv._graphed.logits.clone())
+                return span
+            srv._graphed.replay = replay_
+        return capture
+    srv._first_step = first_step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,captures", [("jamba-v0.1-52b", 1), ("seamless-m4t-medium", 2)])
+def test_graphed_server_replays_the_eager_steps_bit_for_bit(name, captures):
+    """Reduced jamba-v0.1-52b (Mamba, MoE, attention) and seamless-m4t-medium
+    (self- and cross-attention) at their published head dims in bf16: two
+    groups of other prompt lengths through BatchedServer eagerly and as a
+    CUDA graph give the same tokens, every decode step's logits bit for bit
+    and the same launch counts.  Jamba's cache shapes do not depend on the
+    prompt, so its second group copies into the one capture; seamless's
+    cross cache is as long as the prompt, so it captures again."""
+    _need_card()
+    cfg = published_head_dim(name)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(3), device="cuda",
+                         dtype=torch.bfloat16)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)) for n in (7, 19, 30, 41)]
+    runs = {}
+    for graph in (False, True):
+        srv = BatchedServer(cfg, params, batch_size=2, max_len=64,
+                            compute_dtype=torch.bfloat16, graph=graph)
+        logits, kernels = [], (fa.flash_attention, fd.flash_decode, sm.ssd_chunked)
+        _record_logits(srv, logits)
+        before = [f.launches for f in kernels]
+        reqs = srv.run([Request(i, p, 6) for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        runs[graph] = dict(tokens=[r.output for r in reqs], logits=logits, server=srv,
+                           launches=[f.launches - n for f, n in zip(kernels, before)])
+    eager, graphed = runs[False], runs[True]
+    assert graphed["tokens"] == eager["tokens"]
+    assert len(eager["logits"]) == len(graphed["logits"]) == 2 * 5
+    assert all(torch.equal(a, b) for a, b in zip(eager["logits"], graphed["logits"]))
+    assert graphed["launches"] == eager["launches"] and eager["launches"][1] > 0
+    log = graphed["server"].graph_log
+    assert len(log["capture_ms"]) == captures and len(log["copy_ms"]) == 2 - captures
+    assert [len(t["replay_ms"]) for t in graphed["server"].timings] == [
+        4, 4 if captures == 2 else 5]
+
+
+@pytest.mark.gpu
+def test_graphed_server_refuses_the_checking_hook():
+    """A graph cannot hold its launches against the plain versions: the
+    graphed server raises under ops.checking and captures nothing."""
+    _need_card()
+    cfg = published_head_dim("jamba-v0.1-52b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(3), device="cuda",
+                         dtype=torch.bfloat16)
+    srv = BatchedServer(cfg, params, batch_size=2, max_len=64, compute_dtype=torch.bfloat16)
+    assert srv.graph
+    prompt = np.random.default_rng(6).integers(0, cfg.vocab_size, (9,))
+    with ops.checking(lambda kernel, stats: None), pytest.raises(RuntimeError,
+                                                                 match="checking"):
+        srv.run([Request(0, prompt, 4)])
+    assert srv.graph_log["capture_ms"] == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["jamba-v0.1-52b", "seamless-m4t-medium"])
+def test_eager_decode_step_never_waits_for_the_card(name):
+    """The position stays on the device: three eager decode steps in bf16
+    through the kernels complete under set_sync_debug_mode("error"), which
+    raises on any operation that synchronizes with the card."""
+    _need_card()
+    cfg = published_head_dim(name)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(3), device="cuda",
+                         dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (2, 11), generator=g, device="cuda")
+    extras = ({"enc_frames": torch.randn((2, 13, cfg.d_model), generator=g, device="cuda")
+               .to(torch.bfloat16)} if cfg.enc_dec else {})
+    kw = dict(compute_dtype=torch.bfloat16)
+    logits, cache = prefill(params, cfg, toks, 32, cache_dtype=torch.bfloat16, **extras, **kw)
+    token = torch.argmax(logits, -1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            logits, cache = decode_step(params, cfg, cache, token, **kw)
+            token = torch.argmax(logits, -1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(cache["pos"]) == 11 + 3 and bool(torch.isfinite(logits).all())
